@@ -22,6 +22,10 @@
 // read. Only B*H blocks exist (2*batch*16 at full width): at small batch the
 // card is under-filled and each block streams its rows serially. Splitting S
 // across blocks (flash-decoding) is the queued fix, in a later PR.
+// The main path runs K1 in bf16 only. The float instantiation is kept for
+// one check: chip_smoke.py's reference phase runs a small T3 in fp32 on the
+// card and requires its tokens to equal the CPU's exactly, which a bf16
+// cache cannot promise.
 //
 // K2 -- what bounds it: bytes (L*2*B*H*D elements read and written once).
 // Design: one thread per 16-byte vector of the (L, 2, B, H, D) new K/V,

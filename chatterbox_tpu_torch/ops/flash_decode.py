@@ -12,6 +12,8 @@ or past ``cur_len`` are never read.
 What bounds it on the card: bytes (the live K/V rows of the layer). Design:
 one block per (row, head), an fp32 online softmax over 128-slot tiles; see
 the source note in csrc/flash_decode.cu. Split-S is queued for a later PR.
+The main path runs it in bf16; the fp32 kernel serves the exact-token check
+of a small fp32 T3 on the card against the CPU (``chip_smoke.py``).
 
 K2 ``kv_cache_append`` replaces ``flash_cache_merge_ds``: the (L, 2, B, H, D)
 new K/V of one decode step, written in place at slot ``pos`` of every layer
