@@ -7,7 +7,9 @@ Python loop over decode steps; the per-row done-masks, EOS padding, CFG rows
 and the double BOS are kept, so the tokens are the same for the same random
 draws. The loop's early exit (every row done) is checked on the host every
 few steps: tokens after a row's EOS are forced to EOS, so the extra steps do
-not change the result.
+not change the result. ``cache_quant`` takes the int8 KV cache and
+``alignment`` the hallucination watchdog (``alignment.py``), as in the JAX
+package.
 """
 
 from dataclasses import dataclass, field
@@ -17,6 +19,7 @@ import torch
 
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
+from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds
 from .llama import LLAMA_520M, LlamaConfig, layer_params, llama_decode_step, llama_prefill
 
@@ -129,16 +132,24 @@ def t3_generate(
     max_new_tokens: int = 1000,
     uniforms: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    alignment: bool = False,
+    cache_quant: bool = False,
 ) -> GenResult:
     """Batched CFG speech-token generation.
 
     text_tokens (B, T) carry the SOT/EOT framing, right-padded; text_lens
     (B,). The random draw of step i is ``uniforms[i]`` ((max_new, B) in
     [0, 1)) when given, else ``torch.rand`` from ``generator``; greedy
-    decoding draws nothing. Returns EOS-padded tokens, their lengths and the
-    step count of the JAX loop (it stops once every row is done)."""
+    decoding draws nothing. ``cache_quant`` keeps the KV cache int8 with an
+    exact tail (see ``llama.py``); ``alignment`` runs the watchdog on layer
+    ``cfg.alignment_layer``'s text attention of the previous step, after the
+    ``min_new_tokens`` floor and before the logits processors, and forces
+    ``cache_quant`` off (t3.py:244-279, 365-367). Returns EOS-padded tokens,
+    their lengths and the step count of the JAX loop (it stops once every
+    row is done)."""
     b, tmax = text_tokens.shape
     dev = text_tokens.device
+    cache_quant = cache_quant and not alignment
     cfg_on = sampling.cfg_weight > 0
     n_bos = 2 if cfg_on else 1
     stop = cfg.stop_speech_token
@@ -151,7 +162,8 @@ def t3_generate(
     # the cache is padded to a multiple of 128 slots, as the JAX package does
     cache_len = -(-(s0 + max_new_tokens) // 128) * 128
     hidden, cache = llama_prefill(
-        p["llama"], cfg.llama, pre.embeds, pre.positions, pre.valid, cache_len
+        p["llama"], cfg.llama, pre.embeds, pre.positions, pre.valid, cache_len,
+        cache_quant=cache_quant,
     )
     rows = torch.arange(hidden.shape[0], device=dev)
     logits = linear(p["speech_head"], hidden[rows, pre.last_idx])  # (2B, vocab)
@@ -173,12 +185,19 @@ def t3_generate(
     rows_b = torch.arange(b, device=dev)
     layers = [layer_params(p["llama"], i) for i in range(cfg.llama.num_hidden_layers)]
     eos_col = torch.arange(vocab, device=dev)[None] == stop
+    text_slice = (cfg.n_cond, cfg.n_cond + tmax)
+    align_layer = cfg.alignment_layer if alignment else None
+    if alignment:
+        align = init_align_state(b, tmax, dev)
+        attn = torch.zeros((b, tmax), dtype=torch.float32, device=dev)  # before the first step
 
     for i in range(max_new_tokens):
         lg = logits.float()  # sampling chain in fp32
         lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if cfg_on else lg
         if i < sampling.min_new_tokens:
             lg = torch.where(eos_col, torch.finfo(torch.float32).min, lg)
+        if alignment:
+            align, lg = alignment_step(align, attn, text_lens, i, lg, stop)
         lg = process_logits(lg, seen, sampling)
         if sampling.greedy:
             tok = torch.argmax(lg, dim=-1).to(torch.int32)
@@ -200,11 +219,13 @@ def t3_generate(
         emb = embedding(p["speech_emb"], tok.long())[:, None] + p["speech_pos_emb"]["w"][i + 1]
         if cfg_on:
             emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
-        h = llama_decode_step(
+        h, attn_2b = llama_decode_step(
             p["llama"], cfg.llama, emb, cache, s0 + i, (base_pos + i)[:, None],
-            row_prefix, gap_end, layers=layers,
+            row_prefix, gap_end, layers=layers, align_layer=align_layer, text_slice=text_slice,
         )
         logits = linear(p["speech_head"], h[:, 0])
+        if alignment:
+            attn = attn_2b[:b]  # the conditional rows
 
     lengths = _lengths(tokens, stop)
     steps = min(int(lengths.max()) + 1, max_new_tokens)

@@ -1,19 +1,28 @@
 """The port's hand-written kernels, each beside its plain PyTorch version.
 
-``kernels()`` names every wrapper that launches a kernel of the main path; a
+``kernels()`` names every wrapper that launches a kernel of a TTS path; a
 wrapper counts its own launches in ``fn.launches`` (CPU calls, which take the
 plain version, do not count).
 """
 
 
 def kernels():
-    """{name: wrapper} for the four kernels of the main path."""
+    """{name: wrapper} for the seven kernels of the TTS paths."""
     from .flash_attention import flash_relpos_attention, flash_self_attention_packed
-    from .flash_decode import flash_decode_layer_attention, kv_cache_append
+    from .flash_decode import (
+        flash_decode_layer_attention,
+        flash_decode_layer_attention_int8,
+        flash_decode_layer_attention_stats,
+        kv_cache_append,
+        kv_cache_quantize_write,
+    )
 
     return {
         "flash_decode_layer_attention": flash_decode_layer_attention,
+        "flash_decode_layer_attention_stats": flash_decode_layer_attention_stats,
+        "flash_decode_layer_attention_int8": flash_decode_layer_attention_int8,
         "kv_cache_append": kv_cache_append,
+        "kv_cache_quantize_write": kv_cache_quantize_write,
         "flash_self_attention_packed": flash_self_attention_packed,
         "flash_relpos_attention": flash_relpos_attention,
     }

@@ -7,10 +7,18 @@ bucketed as in the JAX package (TEXT_BUCKETS, TOKEN_BUCKETS) so both
 packages see the same padded batches. Entry points run on ``cuda`` unless
 the caller passes ``device``; without a GPU and without a device they raise.
 
-Not in this slice: conditioning from a raw wav, alignment, streaming, the
-int8 KV cache, batch splitting under a memory budget, and serving.
+T3's KV cache is int8 with an exact tail at token budgets of 500 and more,
+as the JAX package's auto policy has it (``_kv_quant_for``; the
+``kv_quant`` argument or ``CHATTERBOX_KV_QUANT=1/0`` overrides it), and in
+the working dtype otherwise. ``generate_batch(alignment=True)`` runs the
+alignment watchdog, which forces the working-dtype cache.
+
+Not in this slice: conditioning from a raw wav, streaming, batch splitting
+under a memory budget, per-call ``flow_steps``, weight quantization, and
+serving.
 """
 
+import os
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -31,6 +39,7 @@ from .conditionals import Conditionals, T3CondData
 
 TEXT_BUCKETS = (32, 64, 128, 256, 512)
 TOKEN_BUCKETS = (64, 125, 250, 500, 750, 1000)
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32"}
 
 
 def punc_norm(text: str) -> str:
@@ -66,8 +75,13 @@ class ChatterboxTTS:
 
     def __init__(self, t3_params, s3gen_params, device, tokenizer: Optional[EnTokenizer] = None,
                  t3_cfg: T3Config = T3Config(), s3gen_cfg: S3GenConfig = S3GenConfig(),
-                 conds: Optional[Conditionals] = None):
+                 conds: Optional[Conditionals] = None, kv_quant: Optional[bool] = None):
         self.device = torch.device(device)
+        # int8 KV cache: True/False, or None for the auto policy of
+        # _kv_quant_for; without an argument CHATTERBOX_KV_QUANT=1/0 decides
+        if kv_quant is None:
+            kv_quant = {"1": True, "0": False}.get(os.environ.get("CHATTERBOX_KV_QUANT", "auto"))
+        self.kv_quant = kv_quant
         self.t3_params = t3_params
         self.s3gen_params = s3gen_params
         self.tokenizer = tokenizer
@@ -151,9 +165,12 @@ class ChatterboxTTS:
         max_new_tokens: int = 1000,
         min_new_tokens: int = 0,
         greedy: bool = False,
+        alignment: bool = False,
     ) -> List[np.ndarray]:
         """One T3 decode and one S3Gen pass over the batch -> one float32
-        waveform per text (int16 PCM scaled back to [-1, 1])."""
+        waveform per text (int16 PCM scaled back to [-1, 1]).
+        ``alignment=True`` runs the hallucination watchdog in the decode loop
+        (``models/t3/alignment.py``) on a working-dtype KV cache."""
         t_start = time.perf_counter()
         conds = conds or self.conds
         if conds is None:
@@ -175,11 +192,13 @@ class ChatterboxTTS:
             min_new_tokens=min_new_tokens, greedy=greedy,
         )
         t3c = T3CondData(*(self._tile(x, b) for x in conds.t3))
+        cache_quant = self._kv_quant_for(max_new_tokens) and not alignment
         res = t3_generate(
             self.t3_params, self.t3_cfg, torch.from_numpy(text_tokens).to(self.device),
             torch.from_numpy(lens).to(self.device), t3c.speaker_emb, t3c.prompt_tokens,
             t3c.emotion_adv, sampling, max_new_tokens,
             generator=torch.Generator(device=self.device).manual_seed(seed),
+            alignment=alignment, cache_quant=cache_quant,
         )
 
         # host: drop invalid tokens per row (reference tts.py:256-262)
@@ -201,9 +220,19 @@ class ChatterboxTTS:
         )
         marked = wav.cpu().numpy().astype(np.float32) / 32767.0
         wav_lens = wav_lens.cpu().numpy()
+        kv_cache = "int8" if cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
         self.last_timings = {"t3_s": t_t3 - t_start, "s3gen_s": time.perf_counter() - t_t3,
-                             "t3_steps": res.steps, "token_bucket": tbucket}
+                             "t3_steps": res.steps, "token_bucket": tbucket,
+                             "kv_cache": kv_cache, "alignment": alignment}
         return [marked[i, : int(wav_lens[i])] for i in range(b)]
+
+    def _kv_quant_for(self, max_new_tokens: int) -> bool:
+        """Whether T3 keeps its KV cache int8 at this token budget: the
+        explicit setting when there is one, else from 500 tokens on (the
+        JAX package's policy, tts.py:589-596). Alignment overrides it."""
+        if self.kv_quant is not None:
+            return self.kv_quant
+        return max_new_tokens >= 500
 
     # ------------------------------------------------------------- internals
     def _encode_text(self, text: str) -> np.ndarray:

@@ -5,20 +5,32 @@
 Phases (any failure exits non-zero before the last line):
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles every kernel of ``chatterbox_tpu_torch/csrc`` with nvcc;
-  3. kernels: runs K1-K4 at the full-width shapes of the main path, holds each
-     against its plain PyTorch version on the same inputs (the limits are
-     stated at ``OUT_RTOL``) and times the kernel, the plain version and, as
-     a yardstick only, one PyTorch library call for the same function, each
-     as device time from a replayed CUDA graph;
+  3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3 and K4 at the full-width
+     shapes of the TTS paths (K1b, K1c+d and K2b at the default budget's
+     cache length, S = 1152), holds each against its plain PyTorch version
+     on the same inputs (the limits are stated at ``OUT_RTOL``) and times
+     the kernel, the plain version and, as a yardstick only, one PyTorch
+     library call for the same function, each as device time from a
+     replayed CUDA graph;
   4. reference: a small model with the main path's head width, through the
      port on the card against the port's plain versions on the CPU (see
      ``reference_phase`` for each comparison and its tolerance);
-  5. main path: ``ChatterboxTTS.from_random(seed=0)`` at full width (T3 and
-     flow in bf16, HiFT in fp32), seeded random conditionals, then
-     ``generate_batch`` on 8 texts with ``max_new_tokens=250``; checks the
-     wavs and that every kernel's launch counter rose during that call, then
-     times a second, warm call (audio seconds per second, per stage) and
-     profiles a third (device time by kernel, the device's busy share);
+  5. the TTS paths, on ``ChatterboxTTS.from_random(seed=0)`` at full width
+     (T3 and flow in bf16, HiFT in fp32) with seeded random conditionals,
+     each ``generate_batch`` on the same 8 texts, each first call run with
+     the launch counters set to 0 just before it and read just after, the
+     wavs checked, and the kernels its path must (and must not) launch
+     checked:
+       A. ``max_new_tokens=250``: the bf16 KV cache (K1a, K2, K3, K4);
+       B. the default ``max_new_tokens`` (1000): the int8 KV cache (K1c+d,
+          K2 into the tail, K2b, K3, K4; no K1a); random weights never
+          sample EOS, so T3 decodes all 1000 steps and the flow runs at
+          T = 2560 mel frames;
+       C. ``max_new_tokens=250, alignment=True``: the watchdog on the bf16
+          cache (K1b at the alignment layer, K1a at the others);
+     after each first call a second, warm call is timed (audio seconds per
+     second, per stage) and a third profiled (device time by kernel, the
+     busy share);
   6. prints the kernel table as one JSON line, the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -61,6 +73,8 @@ FP32_ATOL = 1e-5
 N_TEXTS = 8
 ROWS = 2 * N_TEXTS  # CFG doubles the T3 rows and the UNet batch
 MAX_NEW = 250
+MAX_NEW_DEFAULT = 1000  # generate_batch's default budget: path B, the int8 cache
+TAIL_W = 8
 PROMPT_TOKENS = 250  # flow prompt: 250 tokens / 500 mel frames
 T3_LAYERS, T3_HEADS, HEAD_DIM = 30, 16, 64
 N_COND, TEXT_BUCKET, N_BOS = 34, 64, 2
@@ -175,7 +189,7 @@ def library_err(name, got, want):
 
 
 def kernel_phase():
-    """K1-K4 at the main path's full-width shapes: check, then time."""
+    """Every kernel at its path's full-width shapes: check, then time."""
     import torch
     import torch.nn.functional as F
 
@@ -255,6 +269,139 @@ def kernel_phase():
         bound=bound(2 * new_kv.numel() * 2, 0),
     )
     del cache, c_kernel
+
+    # ---- K1b, K1c+d, K2b: 16 CFG rows at the default budget's cache length
+    # (S = 1152), mid-decode; each timed launch reads the next layer at the
+    # next of 8 live lengths (tails of 1-7 slots and 0), as decode steps do
+    s_1000 = -(-(s0 + MAX_NEW_DEFAULT) // 128) * 128
+    c_mid = s0 + MAX_NEW_DEFAULT // 2 + 1  # 601: merge_base 600, a tail of 1
+    curs = [c_mid + j for j in range(TAIL_W)]
+    kv = randn(T3_LAYERS, 2, ROWS, T3_HEADS, s_1000, HEAD_DIM)  # the bf16 cache
+    cache8, scales = fd.quantize_kv(kv)
+    # each decode step's tail: the bf16 slots from its merge_base on
+    tails = {mb: kv[:, :, :, :, mb:mb + TAIL_W].contiguous() for mb in {c // TAIL_W * TAIL_W
+                                                                        for c in curs}}
+
+    def live(cur):
+        """(valid int8 slots, valid tail slots) over all rows at cur_len cur."""
+        mb = cur // TAIL_W * TAIL_W
+        idx = torch.arange(cur, device=dev)
+        valid = (idx[None] < row_prefix[:, None]) | (idx[None] >= gap_end)
+        return int(valid[:, :mb].sum()), int(valid[:, mb:].sum())
+
+    def step_args(i):
+        return i % T3_LAYERS, curs[i % TAIL_W]
+
+    rows_h = ROWS * T3_HEADS
+    vec_bytes = 4 * rows_h * HEAD_DIM * 2 + ROWS * 4  # q, k_new, v_new, out; row_prefix
+
+    def mean_bound(bytes_of, flops_of):
+        b = [bound(bytes_of(c), flops_of(c)) for c in curs]
+        return sum(x[0] for x in b) / len(b), b[0][1]
+
+    def k1_flops(c):
+        return 4 * (sum(live(c)) * T3_HEADS + rows_h) * HEAD_DIM
+
+    # the library call for K1b and K1c+d, at cur_len c_lib over the layers,
+    # on a bf16 K/V with the new token appended, prepared outside the timing
+    c_lib = curs[TAIL_W // 2]
+    idx = torch.arange(c_lib, device=dev)
+    valid = (idx[None] < row_prefix[:, None]) | (idx[None] >= gap_end)
+    m_lib = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)[:, None, None, :]
+
+    def sdpa_library(kv_src):
+        new = torch.stack([kn, vn])[None, :, :, :, None].expand(T3_LAYERS, 2, -1, -1, -1, -1)
+        kv_lib = torch.cat([kv_src[:, :, :, :, :c_lib], new], dim=4)
+        return kv_lib, lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], kv_lib[i, 0], kv_lib[i, 1], attn_mask=m_lib)[:, :, 0]
+
+    # K1b: K1a plus (m, l) on the bf16 cache; m and l are held to fp32
+    # summation order: m is one scaled dot of 64 terms (1e-5 |m| + 1e-5), l
+    # sums ~600 positive terms each off by m's error (2 n 2^-24 < 1e-4 |l|)
+    args = (kv, 7, c_mid + 3, row_prefix, gap_end, q, kn, vn)
+    out, m, l = fd.flash_decode_layer_attention_stats(*args)
+    want, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+    err, tol, share = check_kernel("flash_decode_layer_attention_stats", out, want)
+    m_share = float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max())
+    l_share = float(((l - want_l).abs() / (1e-4 * want_l)).max())
+    print(f"kernel flash_decode_layer_attention_stats: m at {m_share:.3f} of |err| <= "
+          f"1e-5|m| + 1e-5, l at {l_share:.3f} of |err| <= 1e-4|l|", flush=True)
+    if not (m_share <= 1.0 and l_share <= 1.0):
+        fail("flash_decode_layer_attention_stats: m or l exceeds its limit")
+    kv_lib, lib = sdpa_library(kv)
+    lib_err = library_err("flash_decode_layer_attention_stats", lib(7),
+                          fd.flash_decode_layer_attention_plain(kv, 7, c_lib, row_prefix, gap_end,
+                                                                q, kn, vn))
+    rows["flash_decode_layer_attention_stats"] = dict(
+        err=err, tol=tol + "; m 1e-5|m| + 1e-5, l 1e-4|l|", share=max(share, m_share, l_share),
+        library_err=lib_err,
+        ms=timed(rotating(lambda i: fd.flash_decode_layer_attention_stats(
+            kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 240),
+        plain_ms=timed(rotating(lambda i: fd.flash_decode_layer_attention_stats_plain(
+            kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 60),
+        library_ms=timed(rotating(lib, T3_LAYERS), 300),
+        library_note="SDPA gives no (m, l)",
+        bound=mean_bound(lambda c: 2 * sum(live(c)) * T3_HEADS * HEAD_DIM * 2 + vec_bytes
+                         + rows_h * 8, k1_flops),
+    )
+    # K1a at the same live lengths, for the int8 kernel's comparison
+    k1a_same_ms = timed(rotating(lambda i: fd.flash_decode_layer_attention(
+        kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 240)
+    del kv_lib
+
+    # K1c+d: the int8 cache below merge_base, the bf16 tail from there on;
+    # the main cache slots at and past merge_base are never read
+    def k1c(i, fn=fd.flash_decode_layer_attention_int8):
+        layer, cur = step_args(i)
+        mb = cur // TAIL_W * TAIL_W
+        return fn(cache8, scales, tails[mb], mb, layer, cur, row_prefix, gap_end, q, kn, vn)
+
+    want = k1c(TAIL_W // 2, fd.flash_decode_layer_attention_int8_plain)  # layer 4 at c_lib
+    err, tol, share = check_kernel("flash_decode_layer_attention_int8", k1c(TAIL_W // 2), want)
+    deq = (cache8.float() * scales[..., None]).to(bf)  # the library's input, made once
+    mb_lib = c_lib // TAIL_W * TAIL_W
+    deq[:, :, :, :, mb_lib:mb_lib + TAIL_W] = tails[mb_lib]
+    kv_lib, lib = sdpa_library(deq)
+    del deq
+    lib_err = library_err("flash_decode_layer_attention_int8", lib(TAIL_W // 2), want)
+    rows["flash_decode_layer_attention_int8"] = dict(
+        err=err, tol=tol, share=share, library_err=lib_err,
+        ms=timed(rotating(k1c, T3_LAYERS * TAIL_W), 240),
+        plain_ms=timed(rotating(lambda i: k1c(i, fd.flash_decode_layer_attention_int8_plain),
+                                T3_LAYERS * TAIL_W), 60),
+        library_ms=timed(rotating(lib, T3_LAYERS), 300),
+        library_note="SDPA over a dequantized bf16 copy made outside the timing",
+        k1a_ms_same_live_lengths=k1a_same_ms,
+        bound=mean_bound(lambda c: 2 * T3_HEADS * HEAD_DIM * (live(c)[0] + 2 * live(c)[1])
+                         + 2 * T3_HEADS * 4 * live(c)[0] + vec_bytes, k1_flops),
+    )
+    print(f"kernel flash_decode_layer_attention_int8: "
+          f"{rows['flash_decode_layer_attention_int8']['ms']:.5f} ms against K1a's "
+          f"{k1a_same_ms:.5f} ms at the same live lengths {curs[0]}-{curs[-1]}", flush=True)
+    del kv_lib
+
+    # K2b: every 8th step's merge of the full tail into the int8 cache (the
+    # prefill takes the same kernel with n = s0 tokens); bit-exact
+    tail = next(iter(tails.values()))
+    merge_pos = [s0 // TAIL_W * TAIL_W + TAIL_W * j for j in range(MAX_NEW_DEFAULT // TAIL_W)]
+    a = (cache8.clone(), scales.clone())
+    b = (cache8.clone(), scales.clone())
+    fd.kv_cache_quantize_write(*a, tail, merge_pos[7])
+    fd.kv_cache_quantize_write_plain(*b, tail, merge_pos[7])
+    err, tol, share = check_kernel("kv_cache_quantize_write", a[0], b[0], exact=True)
+    check_kernel("kv_cache_quantize_write (scales)", a[1], b[1], exact=True)
+    del a, b
+    n_tok = tail.numel() // HEAD_DIM
+    rows["kv_cache_quantize_write"] = dict(
+        err=err, tol=tol, share=share, library_err=None,
+        ms=timed(rotating(lambda i: fd.kv_cache_quantize_write(cache8, scales, tail, merge_pos[i]),
+                          len(merge_pos)), 125),
+        plain_ms=timed(rotating(lambda i: fd.kv_cache_quantize_write_plain(
+            cache8, scales, tail, merge_pos[i]), len(merge_pos)), 125),
+        library_ms=None, library_note="no single PyTorch call quantizes per token",
+        bound=bound(n_tok * (HEAD_DIM * 2 + HEAD_DIM + 4), 4 * n_tok * HEAD_DIM),
+    )
+    del cache8, scales, tails, tail
 
     # ---- K3: UNet self-attention from packed qkv, 16 CFG rows, mel length
     t_mel = 2 * (PROMPT_TOKENS + MAX_NEW)
@@ -337,9 +484,22 @@ KERNEL_INFO = {
         "chatterbox_tpu_torch/csrc/flash_decode.cu",
         "chatterbox_tpu/ops/flash_decode.py:361",
     ),
+    "flash_decode_layer_attention_stats": (
+        "chatterbox_tpu_torch/csrc/flash_decode.cu",
+        "chatterbox_tpu/ops/flash_decode.py:361 (return_stats, :260-270, :525-553)",
+    ),
+    "flash_decode_layer_attention_int8": (
+        "chatterbox_tpu_torch/csrc/flash_decode.cu",
+        "chatterbox_tpu/ops/flash_decode.py:361 (int8 cache + tail, :109-140, :204-256)",
+    ),
     "kv_cache_append": (
         "chatterbox_tpu_torch/csrc/flash_decode.cu",
         "chatterbox_tpu/ops/flash_decode.py:299",
+    ),
+    "kv_cache_quantize_write": (
+        "chatterbox_tpu_torch/csrc/flash_decode.cu",
+        "chatterbox_tpu/ops/flash_decode.py:299 (int8 columns after quantize_kv, "
+        "chatterbox_tpu/models/t3/llama.py:632-646)",
     ),
     "flash_self_attention_packed": (
         "chatterbox_tpu_torch/csrc/flash_attention.cu",
@@ -357,7 +517,9 @@ def reference_phase():
     port on the card and, as the reference, through the port's plain
     versions on the CPU in fp32, on the same weights and inputs:
       - T3 in fp32 (K1 and K2 take fp32): tokens and lengths must be equal,
-        greedy and with injected uniforms;
+        greedy and with injected uniforms, on the bf16 path's kernels (K1a,
+        K2), with the int8 cache (K1c+d, K2, K2b) and with the alignment
+        watchdog (K1b at layer 1, K1a, K2);
       - the flow in bf16 on the card (K3, K4) against fp32 on the CPU, from
         the same bf16 weights and noise: relative L2 error of the mel within
         5e-2 (8-bit mantissas compounding through ~20 layers and 10 Euler
@@ -382,7 +544,8 @@ def reference_phase():
     rng = np.random.default_rng(0)
 
     # ---- T3, 2 layers of width 256, 4 heads of 64; fp32 on both sides
-    t3_cfg = T3Config(llama=LlamaConfig(hidden_size=256, intermediate_size=512,
+    t3_cfg = T3Config(alignment_layer=1,
+                      llama=LlamaConfig(hidden_size=256, intermediate_size=512,
                                         num_hidden_layers=2, num_attention_heads=4,
                                         num_key_value_heads=4, head_dim=64))
     p_cpu = weights.init_t3(t3_cfg, seed=3)
@@ -395,16 +558,19 @@ def reference_phase():
     cond = (rng.standard_normal((b, 256)).astype(np.float32),
             rng.integers(0, 6561, (b, 150)).astype(np.int32), np.full((b,), 0.5, np.float32))
     uniforms = rng.random((max_new, b)).astype(np.float32)
-    for greedy in (True, False):
-        out = []
-        for p, d in ((p_dev, dev), (p_cpu, cpu)):
-            args = [torch.from_numpy(x).to(d) for x in (text, lens, *cond)]
-            res = t3_generate(p, t3_cfg, *args, SamplingConfig(greedy=greedy), max_new,
-                              uniforms=torch.from_numpy(uniforms).to(d))
-            out.append((res.tokens.cpu(), res.lengths.cpu()))
-        if not (torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])):
-            fail(f"reference: T3 tokens on the card differ from the CPU (greedy={greedy})")
-    print("reference: T3 fp32 tokens equal to the CPU's, greedy and sampled", flush=True)
+    for variant in ({}, {"cache_quant": True}, {"alignment": True}):
+        for greedy in (True, False):
+            out = []
+            for p, d in ((p_dev, dev), (p_cpu, cpu)):
+                args = [torch.from_numpy(x).to(d) for x in (text, lens, *cond)]
+                res = t3_generate(p, t3_cfg, *args, SamplingConfig(greedy=greedy), max_new,
+                                  uniforms=torch.from_numpy(uniforms).to(d), **variant)
+                out.append((res.tokens.cpu(), res.lengths.cpu()))
+            if not (torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])):
+                fail(f"reference: T3 tokens on the card differ from the CPU ({variant}, "
+                     f"greedy={greedy})")
+        print(f"reference: T3 fp32 tokens equal to the CPU's, greedy and sampled "
+              f"({json.dumps(variant) if variant else 'K1a/K2'})", flush=True)
 
     # ---- flow: conformer 128 wide, 2 heads of 64; UNet 2 heads of 64
     flow_cfg = FlowConfig(
@@ -480,6 +646,11 @@ def random_conditionals(dev, seed=0):
     return Conditionals(t3, gen).to(dev)
 
 
+# the __global__ functions of csrc/*.cu, as the profiler names them
+PORT_KERNELS = ("flash_decode_kernel", "flash_decode_int8_kernel", "kv_append_kernel",
+                "kv_quantize_kernel", "flash_attention_kernel")
+
+
 def profile_call(fn, warm_wall):
     """Device time by kernel over one more call, from torch.profiler's CUDA
     activity, and the device's busy share: the summed time of every kernel
@@ -509,62 +680,109 @@ def profile_call(fn, warm_wall):
         print("profile: the profiler recorded no device events: device time by kernel and "
               "the busy share not measured", flush=True)
         return
-    print(f"profile: device busy {busy:.3f} s over {len(ns)} kernel names; profiled wall "
-          f"{wall:.3f} s; busy share of the warm call {busy / warm_wall:.4f}", flush=True)
+    print(f"profile: device busy {busy:.3f} s over {len(ns)} kernel names and "
+          f"{sum(count.values())} launches and copies; profiled wall {wall:.3f} s; busy share "
+          f"of the warm call {busy / warm_wall:.4f}", flush=True)
     for name, t in ns.most_common(20):
         print(f"profile: {t / 1e6:10.3f} ms {count[name]:8d} x  {name[:100]}", flush=True)
+    # the port's own kernels, wherever they rank: time per launch on the path
+    for name, t in ns.items():
+        if any(f"{k}<" in name or f"{k}(" in name for k in PORT_KERNELS):
+            print(f"profile: port kernel {t / 1e6 / count[name]:.5f} ms a launch, {count[name]} "
+                  f"launches: {name[:90]}", flush=True)
 
 
-def main_path(card):
+# the kernels each TTS path must launch, and those it must not
+_K1A, _K1B, _K1C = ("flash_decode_layer_attention", "flash_decode_layer_attention_stats",
+                    "flash_decode_layer_attention_int8")
+_K2, _K2B = "kv_cache_append", "kv_cache_quantize_write"
+_FLOW = ("flash_self_attention_packed", "flash_relpos_attention")
+PATHS = {
+    # name: (generate_batch keywords, T3's KV cache, launched, not launched)
+    "A": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2) + _FLOW, (_K1B, _K1C, _K2B)),
+    "B": ({}, "int8", (_K1C, _K2, _K2B) + _FLOW, (_K1A, _K1B)),
+    "C": ({"max_new_tokens": MAX_NEW, "alignment": True}, "bf16", (_K1A, _K1B, _K2) + _FLOW,
+          (_K1C, _K2B)),
+}
+
+
+def run_path(tts, conds, card, name, profile):
+    """One TTS path: a first call with the launch counters set to 0 just
+    before it and read just after, its wavs, KV cache and launches checked;
+    then a warm call timed and, when asked, a third profiled. Returns the
+    counts of the first call."""
     import torch
 
-    from chatterbox_tpu_torch import ChatterboxTTS
     from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    t0 = time.time()
-    tts = ChatterboxTTS.from_random(seed=0)
-    conds = random_conditionals(tts.device)
-    torch.cuda.synchronize()
-    print(f"main path: from_random at full width in {time.time() - t0:.1f} s", flush=True)
+    kw, kv_cache, launched, not_launched = PATHS[name]
+
+    def call():
+        return tts.generate_batch(TEXTS, conds=conds, seed=0, **kw)
 
     reset_launch_counts()
     t0 = time.time()
-    wavs = tts.generate_batch(TEXTS, conds=conds, max_new_tokens=MAX_NEW, seed=0)
+    wavs = call()
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
 
     if len(wavs) != N_TEXTS:
-        fail(f"generate_batch returned {len(wavs)} wavs for {N_TEXTS} texts")
+        fail(f"path {name}: generate_batch returned {len(wavs)} wavs for {N_TEXTS} texts")
     for i, w in enumerate(wavs):
         if w.ndim != 1 or len(w) == 0 or len(w) % 960 != 0:
-            fail(f"wav {i}: bad shape {w.shape} (length must be a positive multiple of 960)")
+            fail(f"path {name}: wav {i}: bad shape {w.shape} (a positive multiple of 960)")
         if not bool(torch.isfinite(torch.as_tensor(w)).all()):
-            fail(f"wav {i}: non-finite samples")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"path {name}: wav {i}: non-finite samples")
+    if tts.last_timings["kv_cache"] != kv_cache:
+        fail(f"path {name}: T3 ran a {tts.last_timings['kv_cache']} KV cache, not {kv_cache}")
+    for k in launched:
+        if counts[k] <= 0:
+            fail(f"path {name}: kernel {k} was not launched")
+    for k in not_launched:
+        if counts[k] != 0:
+            fail(f"path {name}: kernel {k} was launched {counts[k]} times")
     audio_s = sum(len(w) for w in wavs) / tts.sr
-    print(f"main path: first call {wall:.3f} s for {audio_s:.3f} s of audio "
+    print(f"path {name} ({json.dumps(kw)}): first call {wall:.3f} s for {audio_s:.3f} s of audio "
           f"(stages {json.dumps(tts.last_timings)})", flush=True)
+    print(f"path {name}: kernel launches " + json.dumps(counts), flush=True)
 
     # a second, warm call on the same inputs: the throughput of the port
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    wavs = tts.generate_batch(TEXTS, conds=conds, max_new_tokens=MAX_NEW, seed=0)
+    wavs = call()
     torch.cuda.synchronize()
     wall = time.time() - t0
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(
-        f"main path: {N_TEXTS} texts, max_new_tokens={MAX_NEW}: warm wall {wall:.3f} s, "
-        f"audio {audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
+        f"path {name}: {N_TEXTS} texts, {json.dumps(kw)}: warm wall {wall:.3f} s, audio "
+        f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, t3_s "
+        f"{tts.last_timings['t3_s']:.3f}, s3gen_s {tts.last_timings['s3gen_s']:.3f}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
         flush=True,
     )
-    print("main path: warm stages " + json.dumps(tts.last_timings), flush=True)
-    profile_call(lambda: tts.generate_batch(TEXTS, conds=conds, max_new_tokens=MAX_NEW, seed=0),
-                 wall)
-    print("main path: kernel launches " + json.dumps(counts), flush=True)
+    print(f"path {name}: warm stages " + json.dumps(tts.last_timings), flush=True)
+    if profile:
+        profile_call(call, wall)
+    return counts
+
+
+def main_path(card, t_start):
+    import torch
+
+    from chatterbox_tpu_torch import ChatterboxTTS
+
+    t0 = time.time()
+    tts = ChatterboxTTS.from_random(seed=0)
+    conds = random_conditionals(tts.device)
+    torch.cuda.synchronize()
+    print(f"paths: from_random at full width in {time.time() - t0:.1f} s", flush=True)
+    counts = {}
+    for name in PATHS:
+        t0 = time.time()
+        # a profile takes a call more: none once the run nears half its limit
+        counts[name] = run_path(tts, conds, card, name, profile=time.time() - t_start < 500)
+        print(f"path {name}: {time.time() - t0:.1f} s", flush=True)
     return counts
 
 
@@ -594,25 +812,30 @@ def main():
     t1 = time.time()
     reference_phase()
     t2 = time.time()
-    counts = main_path(card)
+    counts = main_path(card, t_start)
     t3 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, reference "
-          f"{t2 - t1:.1f} s, main path {t3 - t2:.1f} s", flush=True)
+          f"{t2 - t1:.1f} s, paths {t3 - t2:.1f} s", flush=True)
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
-    # under the two sets of names that readers of this line expect
+    # under the two sets of names that readers of this line expect;
+    # "launches" sums the first calls of paths A, B and C
     table = []
     for name, r in rows.items():
         src, replaces = KERNEL_INFO[name]
         bound_ms, bound_by = r["bound"]
-        table.append({
+        by_path = {p: c[name] for p, c in counts.items()}
+        row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": r["err"], "max_err": r["err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["err"], "max_err": r["err"],
             "tol": r["tol"], "err_share_of_tol": r["share"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"],
             "library_max_abs_err": r["library_err"],
-        })
+        }
+        row.update({k: r[k] for k in ("library_note", "k1a_ms_same_live_lengths") if k in r})
+        table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

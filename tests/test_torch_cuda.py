@@ -82,6 +82,70 @@ def test_flash_decode_matches_plain(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_stats_matches_plain(cuda, dtype):
+    """K1b: the output as K1a's. m is one scaled fp32 dot product of 64
+    terms (1e-5 relative, 1e-5 absolute near 0); l sums ~250 positive fp32
+    terms in another order, each off by m's error (n * 2^-24 = 1.5e-5
+    relative, doubled and rounded up: 1e-4)."""
+    cache = _randn(cuda, 4, 2, 16, 16, 512, 64, seed=20, dtype=dtype)
+    q, kn, vn = (_randn(cuda, 16, 16, 64, seed=s, dtype=dtype) for s in (21, 22, 23))
+    rp = torch.tensor([50 + 3 * i for i in range(16)], dtype=torch.int32, device=cuda)
+    args = (cache, 1, 301, rp, 98, q, kn, vn)
+    before = fd.flash_decode_layer_attention_stats.launches
+    out, m, l = fd.flash_decode_layer_attention_stats(*args)
+    assert fd.flash_decode_layer_attention_stats.launches == before + 1
+    want_out, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+    if dtype == torch.float32:
+        assert _max_err(out, want_out) <= 1e-5
+    else:
+        _assert_within(out, want_out)
+    assert float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max()) <= 1.0
+    assert float(((l - want_l).abs() / (1e-4 * want_l)).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cur_len", [301, 296])
+def test_flash_decode_int8_matches_plain(cuda, dtype, cur_len):
+    """K1c+d over a quantized cache with a gap, a tail of 5 slots or none,
+    and poison in the int8 cache from merge_base on (never read)."""
+    kv = _randn(cuda, 4, 2, 16, 16, 512, 64, seed=24, dtype=torch.float32)
+    cache8, scales = fd.quantize_kv(kv)
+    mb = cur_len // fd.TAIL_W * fd.TAIL_W
+    tail = kv[:, :, :, :, mb:mb + fd.TAIL_W].to(dtype).contiguous()
+    cache8[..., mb:, :], scales[..., mb:] = 127, 1e4
+    q, kn, vn = (_randn(cuda, 16, 16, 64, seed=s, dtype=dtype) for s in (25, 26, 27))
+    rp = torch.tensor([50 + 3 * i for i in range(16)], dtype=torch.int32, device=cuda)
+    args = (cache8, scales, tail, mb, 2, cur_len, rp, 98, q, kn, vn)
+    before = fd.flash_decode_layer_attention_int8.launches
+    got = fd.flash_decode_layer_attention_int8(*args)
+    assert fd.flash_decode_layer_attention_int8.launches == before + 1
+    want = fd.flash_decode_layer_attention_int8_plain(*args)
+    if dtype == torch.float32:
+        assert _max_err(got, want) <= 1e-5
+    else:
+        _assert_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,pos", [(8, 296), (101, 0)])
+def test_kv_cache_quantize_write_matches_plain(cuda, dtype, n, pos):
+    """K2b, bit for bit: the 8-token merge and a prefill of 101 tokens,
+    with an all-zero (padding) token."""
+    src = _randn(cuda, 4, 2, 16, 16, n, 64, seed=28, scale=3.0, dtype=dtype)
+    src[:, :, :, :, n // 2] = 0
+    cache8 = torch.zeros((4, 2, 16, 16, 512, 64), dtype=torch.int8, device=cuda)
+    scales = torch.ones((4, 2, 16, 16, 512), device=cuda)
+    a = (cache8.clone(), scales.clone())
+    fd.kv_cache_quantize_write(*a, src, pos)
+    b = fd.kv_cache_quantize_write_plain(cache8, scales, src, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
 def test_kv_cache_append_matches_plain(cuda):
     cache = _randn(cuda, 4, 2, 16, 16, 256, 64, seed=4)
     new = _randn(cuda, 4, 2, 16, 16, 64, seed=5)

@@ -1,4 +1,4 @@
-"""The port's four kernels of the main path (K1-K4), held against the JAX
+"""The port's kernels (K1a-d, K2, K2b, K3, K4), held against the JAX
 package's Pallas kernels (interpret mode on the CPU).
 
 On the CPU each wrapper takes its plain PyTorch version, so these tests hold
@@ -8,6 +8,7 @@ plain versions by ``test_torch_cuda.py`` (skips without a card) and by
 tolerance is fp32 round-off over sums of a few hundred terms: 1e-5.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -59,6 +60,85 @@ def test_flash_decode_ignores_slots_past_cur_len():
     cache[:, :, :, :, 50:60] = -1e4  # the gap
     b = p_fd.flash_decode_layer_attention(t(cache), 1, 90, rp, 60, t(q), t(kn), t(vn))
     assert torch.equal(a, b)
+
+
+def _int8_case(seed, l=3, b=4, h=4, s=256, d=64):
+    """The inputs of the JAX package's test_flash_decode_int8_cache_matches_bf16
+    (test_ops.py:227-258), in fp32: a cache quantized per token, q and the
+    current token's k/v."""
+    from chatterbox_tpu.models.t3.llama import quantize_kv
+
+    rng = np.random.default_rng(seed)
+    cache = rng.standard_normal((l, 2, b, h, s, d)).astype(np.float32)
+    q, kn, vn = (rng.standard_normal((b, h, d)).astype(np.float32) for _ in range(3))
+    q8, sc = (np.array(a) for a in quantize_kv(j(cache)))
+    return cache, q8, sc, q, kn, vn
+
+
+@pytest.mark.parametrize("layer,cur_len,gap_end,row_prefix", [
+    (1, 141, 100, [30, 140, 1, 64]),  # the JAX test's case: a gap, cur_len % 8 == 5
+    (2, 136, 100, [30, 136, 1, 64]),  # cur_len == merge_base: an empty tail
+    (0, 135, 135, [135, 135, 135, 135]),  # prefix-only, a tail of 7 slots
+])
+def test_flash_decode_int8_plain_matches_pallas(layer, cur_len, gap_end, row_prefix):
+    """K1c+d: slots below merge_base from the int8 cache and its scales,
+    slots [merge_base, cur_len) from the tail. The port's main-cache slots
+    at and past merge_base hold poison, which must never be read. Every
+    row_prefix is at most cur_len, as in T3 (row_prefix <= s0 - BOS <
+    cur_len): past cur_len the Pallas tail would count slots below a larger
+    row_prefix as valid, where the port reads nothing at or past cur_len."""
+    cache, q8, sc, q, kn, vn = _int8_case(layer)
+    w = p_fd.TAIL_W
+    mb = cur_len // w * w
+    tail = cache[:, :, :, :, mb:mb + w]
+    rp = np.asarray(row_prefix, np.int32)
+    want = j_fd.flash_decode_layer_attention(
+        j(q8.swapaxes(-1, -2)), layer, cur_len, j(rp), gap_end, j(q), j(kn), j(vn),
+        tail=j(tail), merge_base=mb, scales=j(sc), interpret=True, ds_layout=True)
+    q8[..., mb:, :], sc[..., mb:] = 127, 1e4
+    got = p_fd.flash_decode_layer_attention_int8(
+        t(q8), t(sc), t(tail).contiguous(), mb, layer, cur_len, t(rp), gap_end, t(q), t(kn),
+        t(vn))
+    assert_close(got, np.asarray(want), TOL, TOL)
+
+
+def test_flash_decode_stats_plain_matches_pallas():
+    """K1b: the output and the final softmax stats (m, l), over a gap and a
+    length that is not a multiple of the 128-slot block."""
+    cache, q, kn, vn = _decode_case(8)
+    rp = np.asarray([40, 70, 96, 12], np.int32)
+    want = j_fd.flash_decode_layer_attention(
+        j(cache), 1, 157, j(rp), 96, j(q), j(kn), j(vn), interpret=True, return_stats=True)
+    got = p_fd.flash_decode_layer_attention_stats(t(cache), 1, 157, t(rp), 96, t(q), t(kn), t(vn))
+    for g, w in zip(got, want):
+        assert_close(g, np.asarray(w), TOL, TOL)
+    out, m, l = got
+    assert torch.equal(out, p_fd.flash_decode_layer_attention(
+        t(cache), 1, 157, t(rp), 96, t(q), t(kn), t(vn)))
+
+
+def test_kv_cache_quantize_write_matches_jax_merge():
+    """K2b: n tokens quantized into the (S, D) int8 cache at ``pos`` equal
+    the JAX package's ``quantize_kv`` followed by the int8 column merge into
+    its (D, S) cache, bit for bit, scales included."""
+    from chatterbox_tpu.models.t3.llama import quantize_kv
+
+    rng = np.random.default_rng(9)
+    l, b, h, d, s, w, pos = 3, 2, 2, 32, 256, 8, 136
+    cache_ds = rng.integers(-127, 128, (l, 2, b, h, d, s)).astype(np.int8)
+    scales = rng.random((l, 2, b, h, s)).astype(np.float32)
+    new = rng.standard_normal((l, 2, b, h, w, d)).astype(np.float32)
+    q8, sc = jax.jit(quantize_kv)(j(new))  # compiled, as in the decode loop
+    want = np.asarray(j_fd.flash_cache_merge_ds(j(cache_ds), q8.swapaxes(-1, -2), pos,
+                                                interpret=True))
+    want_sc = scales.copy()
+    want_sc[..., pos:pos + w] = np.asarray(sc)
+    cache = t(cache_ds.transpose(0, 1, 2, 3, 5, 4)).contiguous()
+    got_sc = t(scales)
+    out = p_fd.kv_cache_quantize_write(cache, got_sc, t(new), pos)
+    assert out[0] is cache and out[1] is got_sc
+    np.testing.assert_array_equal(cache.numpy(), want.transpose(0, 1, 2, 3, 5, 4))
+    np.testing.assert_array_equal(got_sc.numpy(), want_sc)
 
 
 def test_kv_cache_append_matches_pallas_merge():

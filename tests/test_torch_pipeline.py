@@ -6,6 +6,8 @@ The vocoder noise is zeroed on both sides, as ``test_from_local.py`` does;
 the CFM noise buffer is the same numpy draw in both packages, and the
 watermark is deterministic, so it stays on."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,9 @@ from chatterbox_tpu_torch import weights
 
 TEXTS = ["Hello world.", "A somewhat longer test sentence."]
 MAX_NEW = 12
+# the alignment layer of the 2-layer tiny Llama, as test_alignment.py sets it
+J_T3_ALIGN = dataclasses.replace(J_T3, alignment_layer=1)
+P_T3_ALIGN = dataclasses.replace(P_T3, alignment_layer=1)
 
 
 def _zero_noise(hift_generate, zeros):
@@ -88,11 +93,31 @@ def zero_port_noise(monkeypatch):
     monkeypatch.setattr(ps, "hift_generate", _zero_noise(ps.hift_generate, torch.zeros))
 
 
-def _port_tts():
+@pytest.fixture(scope="module")
+def jax_variant_wavs(jax_tts):
+    """The JAX pipeline's wavs with its int8 KV cache switched on
+    (``kv_quant``), and with the alignment watchdog (which forces the
+    working-dtype cache), at zero vocoder noise."""
+    from chatterbox_tpu.models.s3gen import s3gen as js
+
+    tts, _ = jax_tts
+    real = js.hift_generate
+    js.hift_generate = _zero_noise(real, jnp.zeros)
+    tts.kv_quant, tts.t3_cfg = True, J_T3_ALIGN
+    try:
+        return {alignment: tts.generate_batch(TEXTS, greedy=True, max_new_tokens=MAX_NEW,
+                                              alignment=alignment)
+                for alignment in (False, True)}
+    finally:
+        js.hift_generate = real
+        tts.kv_quant, tts.t3_cfg = False, J_T3
+
+
+def _port_tts(t3_cfg=P_T3, **kw):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
 
-    return ChatterboxTTS(t3_params()[1], _s3gen_params()[1], "cpu", t3_cfg=P_T3,
-                         s3gen_cfg=P_S3GEN)
+    return ChatterboxTTS(t3_params()[1], _s3gen_params()[1], "cpu", t3_cfg=t3_cfg,
+                         s3gen_cfg=P_S3GEN, **kw)
 
 
 def _check(got, want):
@@ -110,6 +135,45 @@ def test_generate_batch_matches_jax(jax_tts, jax_wavs, zero_port_noise):
     tts = _port_tts()
     conds = Conditionals.load(jax_tts[1] / "conds.safetensors")
     _check(tts.generate_batch(TEXTS, conds=conds, greedy=True, max_new_tokens=MAX_NEW), jax_wavs)
+
+
+@pytest.mark.parametrize("alignment", [False, True])
+def test_generate_batch_int8_cache_and_alignment_match_jax(jax_tts, jax_variant_wavs,
+                                                          zero_port_noise, alignment):
+    """``kv_quant=True`` on both sides: T3 runs the int8 cache, unless the
+    watchdog is on, which forces the working-dtype (here fp32) cache. The
+    watchdog reads layer 1 of the 2-layer T3."""
+    from chatterbox_tpu_torch.pipeline.conditionals import Conditionals
+
+    tts = _port_tts(P_T3_ALIGN, kv_quant=True)
+    conds = Conditionals.load(jax_tts[1] / "conds.safetensors")
+    got = tts.generate_batch(TEXTS, conds=conds, greedy=True, max_new_tokens=MAX_NEW,
+                             alignment=alignment)
+    assert tts.last_timings["kv_cache"] == ("fp32" if alignment else "int8")
+    assert tts.last_timings["alignment"] is alignment
+    _check(got, jax_variant_wavs[alignment])
+
+
+def test_kv_quant_policy_matches_jax(jax_tts, monkeypatch):
+    """The int8 cache from 500 tokens on unless set explicitly, as in the
+    JAX package; CHATTERBOX_KV_QUANT=1/0 sets it when the constructor does
+    not."""
+    monkeypatch.delenv("CHATTERBOX_KV_QUANT", raising=False)
+    jtts = jax_tts[0]
+    port = _port_tts()
+    assert port.kv_quant is None
+    assert not port._kv_quant_for(499) and port._kv_quant_for(500)
+    try:
+        for flag in (None, True, False):
+            port.kv_quant = jtts.kv_quant = flag
+            for n in (12, 250, 499, 500, 1000):
+                assert port._kv_quant_for(n) == jtts._kv_quant_for(n), (flag, n)
+    finally:
+        jtts.kv_quant = False
+    monkeypatch.setenv("CHATTERBOX_KV_QUANT", "1")
+    assert _port_tts().kv_quant is True and _port_tts(kv_quant=False).kv_quant is False
+    monkeypatch.setenv("CHATTERBOX_KV_QUANT", "0")
+    assert _port_tts()._kv_quant_for(1000) is False
 
 
 def test_from_native_matches_jax(jax_tts, jax_wavs, zero_port_noise):

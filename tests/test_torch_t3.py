@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import J_T3, P_T3, assert_close, j, t, t3_params
+from torch_parity import (J_T3, P_T3, assert_close, eos_boosted_t3_params, gen_inputs, j,
+                          jax_uniforms, t, t3_params)
 
 from chatterbox_tpu.core.sampling import SamplingConfig as JSampling
 from chatterbox_tpu.models.t3 import llama as jl
@@ -69,45 +70,11 @@ def test_llama_decode_step_matches_jax():
     hj, cj2, _ = jl.llama_decode_step(
         jp["llama"], J_T3.llama, j(emb), j(cache_np), write_pos, j(rope), j(attn_len_mask),
         pallas_valid=(j(row_prefix), gap_end))
-    hp = pl.llama_decode_step(pp["llama"], P_T3.llama, t(emb), cache, write_pos, t(rope),
-                              t(row_prefix), gap_end)
+    hp, attn = pl.llama_decode_step(pp["llama"], P_T3.llama, t(emb), cache, write_pos, t(rope),
+                                    t(row_prefix), gap_end)
+    assert attn is None
     assert_close(hp, np.asarray(hj), 2e-5, 1e-5)
     assert_close(cache, np.asarray(cj2), 2e-5, 1e-5)
-
-
-def _eos_boosted_params():
-    """Tiny T3 weights whose EOS logit rides hidden channel 0 (x4), so rows
-    stop at different steps and the done-masks and EOS padding are
-    exercised (random heads would almost never emit EOS)."""
-    jp, _ = t3_params()
-    head = np.array(jp["speech_head"]["w"])
-    head[:, EOS] = 0.0
-    head[0, EOS] = 4.0
-    jp = {**jp, "speech_head": {"w": head}}
-    from chatterbox_tpu_torch import weights
-
-    return jp, weights.from_jax_tree(jp)
-
-
-def _gen_inputs(seed=3, b=3):
-    rng = np.random.default_rng(seed)
-    lens = np.array([9, 5, 14])[:b]
-    text = np.zeros((b, 16), np.int32)
-    for i, n in enumerate(lens):
-        text[i, 0], text[i, n - 1] = J_T3.start_text_token, J_T3.stop_text_token
-        text[i, 1:n - 1] = rng.integers(1, 700, n - 2)
-    spk = rng.standard_normal((b, 256)).astype(np.float32)
-    prompt = rng.integers(0, 6561, (b, 150)).astype(np.int32)
-    emo = np.full((b,), 0.5, np.float32)
-    return text, lens.astype(np.int32), spk, prompt, emo
-
-
-def _jax_uniforms(seed, max_new, b):
-    key, out = jax.random.PRNGKey(seed), []
-    for _ in range(max_new):
-        key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.uniform(sub, (b,))))
-    return np.stack(out)
 
 
 @pytest.mark.parametrize("greedy,cfg_weight,top_p,min_new", [
@@ -117,13 +84,13 @@ def _jax_uniforms(seed, max_new, b):
     (False, 0.0, 0.8, 0),
 ])
 def test_t3_generate_tokens_exact(greedy, cfg_weight, top_p, min_new):
-    jp, pp = _eos_boosted_params()
-    text, lens, spk, prompt, emo = _gen_inputs()
+    jp, pp = eos_boosted_t3_params()
+    text, lens, spk, prompt, emo = gen_inputs()
     max_new, seed = 24, 11
     kw = dict(greedy=greedy, cfg_weight=cfg_weight, top_p=top_p, min_new_tokens=min_new)
     want = jt.t3_generate(jax.tree.map(jnp.asarray, jp), J_T3, j(text), j(lens), j(spk),
                           j(prompt), j(emo), jax.random.PRNGKey(seed), JSampling(**kw), max_new)
-    uniforms = None if greedy else t(_jax_uniforms(seed, max_new, len(lens)))
+    uniforms = None if greedy else t(jax_uniforms(seed, max_new, len(lens)))
     got = pt.t3_generate(pp, P_T3, t(text), t(lens), t(spk), t(prompt), t(emo),
                          PSampling(**kw), max_new, uniforms=uniforms)
     np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
@@ -134,8 +101,8 @@ def test_t3_generate_tokens_exact(greedy, cfg_weight, top_p, min_new):
 def test_t3_generate_stops_rows_with_eos_padding():
     """The boosted head stops rows at different steps: each row is EOS from
     its length on, and ``steps`` is where the JAX loop would have exited."""
-    _, pp = _eos_boosted_params()
-    text, lens, spk, prompt, emo = _gen_inputs()
+    _, pp = eos_boosted_t3_params()
+    text, lens, spk, prompt, emo = gen_inputs()
     u = t(np.random.default_rng(4).random((40, 3)).astype(np.float32))
     res = pt.t3_generate(pp, P_T3, t(text), t(lens), t(spk), t(prompt), t(emo),
                          PSampling(), 40, uniforms=u)
@@ -148,7 +115,7 @@ def test_t3_generate_stops_rows_with_eos_padding():
 
 def test_t3_generate_draws_from_a_generator_by_default():
     _, pp = t3_params()
-    text, lens, spk, prompt, emo = _gen_inputs()
+    text, lens, spk, prompt, emo = gen_inputs()
     args = (pp, P_T3, t(text), t(lens), t(spk), t(prompt), t(emo), PSampling(), 6)
     a = pt.t3_generate(*args, generator=torch.Generator().manual_seed(1)).tokens
     b = pt.t3_generate(*args, generator=torch.Generator().manual_seed(1)).tokens

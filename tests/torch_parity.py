@@ -113,3 +113,40 @@ def ref_inputs(seed=0, b=1, prompt_tokens=10):
         (rng.standard_normal((b, 2 * prompt_tokens, 80)) * 0.5 - 4.0).astype(np.float32),
         rng.standard_normal((b, 192)).astype(np.float32),
     )
+
+
+def eos_boosted_t3_params():
+    """Tiny T3 weights whose EOS logit rides hidden channel 0 (x4), so rows
+    stop at different steps and the done-masks and EOS padding are
+    exercised (random heads would almost never emit EOS)."""
+    jp, _ = t3_params()
+    head = np.array(jp["speech_head"]["w"])
+    head[:, J_T3.stop_speech_token] = 0.0
+    head[0, J_T3.stop_speech_token] = 4.0
+    jp = {**jp, "speech_head": {"w": head}}
+    return jp, weights.from_jax_tree(jp)
+
+
+def gen_inputs(seed=3, b=3):
+    """(text (B, 16) with SOT/EOT framing, right-padded; text_lens (B,);
+    speaker_emb; prompt tokens; emotion) for ``t3_generate``."""
+    rng = np.random.default_rng(seed)
+    lens = np.array([9, 5, 14])[:b]
+    text = np.zeros((b, 16), np.int32)
+    for i, n in enumerate(lens):
+        text[i, 0], text[i, n - 1] = J_T3.start_text_token, J_T3.stop_text_token
+        text[i, 1:n - 1] = rng.integers(1, 700, n - 2)
+    spk = rng.standard_normal((b, 256)).astype(np.float32)
+    prompt = rng.integers(0, 6561, (b, 150)).astype(np.int32)
+    emo = np.full((b,), 0.5, np.float32)
+    return text, lens.astype(np.int32), spk, prompt, emo
+
+
+def jax_uniforms(seed, max_new, b):
+    """The per-step uniforms of the JAX ``t3_generate`` key chain
+    (``key, sub = split(key); u = uniform(sub, (B,))``), (max_new, B)."""
+    key, out = jax.random.PRNGKey(seed), []
+    for _ in range(max_new):
+        key, sub = jax.random.split(key)
+        out.append(np.asarray(jax.random.uniform(sub, (b,))))
+    return np.stack(out)
