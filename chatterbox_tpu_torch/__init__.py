@@ -2,13 +2,15 @@
 NVIDIA H100.
 
 Public API (same names as the JAX package):
-  - ChatterboxTTS : text + precomputed voice conditionals -> 24 kHz waveform
+  - ChatterboxTTS : text + a reference wav or precomputed voice conditionals
+                    -> 24 kHz waveform
+  - ChatterboxVC  : source speech + a target voice -> 24 kHz waveform
   - Conditionals  : precomputed voice conditioning
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
-no GPU present and no device asked for they raise. The four attention
-kernels of the main path are hand-written CUDA for Hopper (``csrc/``), built
-with ``nvcc`` on first use.
+no GPU present and no device asked for they raise. The attention kernels of
+these paths are hand-written CUDA for Hopper (``csrc/``), built with
+``nvcc`` on first use.
 """
 
 __version__ = "0.1.0"
@@ -21,6 +23,7 @@ __all__ = [
     "S3_TOKEN_RATE",
     "SPEECH_VOCAB_SIZE",
     "ChatterboxTTS",
+    "ChatterboxVC",
     "Conditionals",
 ]
 
@@ -31,6 +34,10 @@ def __getattr__(name):
         from .pipeline import tts
 
         return tts.ChatterboxTTS
+    if name == "ChatterboxVC":
+        from .pipeline import vc
+
+        return vc.ChatterboxVC
     if name == "Conditionals":
         from .pipeline import conditionals
 

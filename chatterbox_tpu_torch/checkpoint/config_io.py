@@ -1,6 +1,6 @@
 """Typed-config reading for native checkpoints (the ``config.json`` that the
 JAX package's ``save_native`` writes next to the params). Keys a port config
-does not have (the voice encoder, CAMPPlus, the S3 tokenizer) are ignored."""
+does not have are ignored."""
 
 import dataclasses
 import json
@@ -32,13 +32,16 @@ def _tuplify(v):
 
 
 def load_configs(path):
-    """config.json -> (T3Config, S3GenConfig) of the port."""
+    """config.json -> (T3Config, S3GenConfig, VoiceEncoderConfig) of the
+    port."""
     from ..models.s3gen.s3gen import S3GenConfig
     from ..models.t3.t3 import T3Config
+    from ..models.voice_encoder import VoiceEncoderConfig
 
     with open(path) as f:
         payload = json.load(f)
     return (
         config_from_dict(T3Config, payload["t3"]),
         config_from_dict(S3GenConfig, payload["s3gen"]),
+        config_from_dict(VoiceEncoderConfig, payload.get("ve", {})),
     )

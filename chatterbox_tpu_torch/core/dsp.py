@@ -1,10 +1,12 @@
-"""STFT / iSTFT as the HiFT vocoder and the watermark call them.
+"""STFT / iSTFT and the three mel frontends of the conditioning path.
 
-Port of ``chatterbox_tpu/core/dsp.py:26-166``: the STFT is a strided conv
-with a windowed-DFT kernel and the iSTFT its transpose (a synthesis matmul,
-then overlap-add as a transposed conv with an identity kernel). The FFT
-sizes here (16 and 512) are small, and the same matmul formulation keeps the
-port's numbers next to the JAX package's. Everything runs in fp32.
+Port of ``chatterbox_tpu/core/dsp.py``: the STFT is a strided conv with a
+windowed-DFT kernel and the iSTFT its transpose (a synthesis matmul, then
+overlap-add as a transposed conv with an identity kernel). The FFT sizes
+here (16 to 1920) are small, and the same matmul formulation keeps the
+port's numbers next to the JAX package's. Everything runs in fp32; on the
+card, run the frontends with TF32 off (``device.full_fp32``), since cuDNN
+takes fp32 convolutions in TF32 by default.
 """
 
 from functools import lru_cache
@@ -70,14 +72,22 @@ def _win_key(window):
     return tuple(np.asarray(window, np.float32).tolist())
 
 
-def stft(x, n_fft: int, hop_length: int, window):
-    """STFT of (B, T) -> (real, imag), each (B, frames, n_fft//2+1).
+def _reflect_pad(x, pad: int):
+    """(B, T) -> (B, T + 2 pad), mirrored without repeating the edge."""
+    return F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
 
-    Matches ``torch.stft(..., win_length=n_fft, center=True,
-    normalized=False, onesided=True)``: reflect-pads by n_fft//2."""
+
+def stft(x, n_fft: int, hop_length: int, window, center: bool = True,
+         dtype=torch.float32):
+    """STFT of (B, T) -> (real, imag), each (B, frames, n_fft//2+1), in
+    ``dtype``.
+
+    Matches ``torch.stft(..., win_length=n_fft, normalized=False,
+    onesided=True)``; ``center=True`` reflect-pads by n_fft//2."""
     assert x.ndim == 2, f"expected (B, T), got {tuple(x.shape)}"
-    xc = F.pad(x.float()[:, None], (n_fft // 2, n_fft // 2), mode="reflect")
-    kern = torch.from_numpy(_dft_kernels(n_fft, _win_key(window))).to(x.device)
+    x = x.to(dtype)
+    xc = (_reflect_pad(x, n_fft // 2) if center else x)[:, None]
+    kern = torch.from_numpy(_dft_kernels(n_fft, _win_key(window))).to(x.device, dtype)
     out = F.conv1d(xc, kern, stride=hop_length).transpose(1, 2)  # (B, frames, 2F)
     n_freq = n_fft // 2 + 1
     return out[..., :n_freq], out[..., n_freq:]
@@ -100,3 +110,82 @@ def istft(real, imag, n_fft: int, hop_length: int, window):
     y = y / env
     half = n_fft // 2
     return y[:, half : y.shape[1] - half]
+
+
+# ---------------------------------------------------------------------------
+# librosa's (Slaney) mel filterbank and the three mel frontends
+# ---------------------------------------------------------------------------
+
+_MIN_LOG_HZ, _MIN_LOG_MEL, _LOGSTEP = 1000.0, 15.0, np.log(6.4) / 27.0
+
+
+def _hz_to_mel_slaney(f):
+    f = np.asarray(f, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        log_mel = _MIN_LOG_MEL + np.log(np.maximum(f, 1e-30) / _MIN_LOG_HZ) / _LOGSTEP
+    return np.where(f >= _MIN_LOG_HZ, log_mel, 3.0 * f / 200.0)
+
+
+def _mel_to_hz_slaney(m):
+    m = np.asarray(m, dtype=np.float64)
+    return np.where(m >= _MIN_LOG_MEL, _MIN_LOG_HZ * np.exp(_LOGSTEP * (m - _MIN_LOG_MEL)),
+                    200.0 * m / 3.0)
+
+
+@lru_cache(maxsize=None)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0, fmax=None) -> np.ndarray:
+    """librosa.filters.mel (htk=False, norm='slaney') -> (n_mels, 1 + n_fft//2)."""
+    if fmax is None:
+        fmax = sr / 2.0
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = np.linspace(_hz_to_mel_slaney(fmin), _hz_to_mel_slaney(fmax), n_mels + 2)
+    hz_pts = _mel_to_hz_slaney(mel_pts)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    weights *= (2.0 / (hz_pts[2 : n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    return weights.astype(np.float32)
+
+
+def _mel(spec, sr, n_fft, n_mels, fmax=None):
+    """(B, frames, F) spectrum -> (B, n_mels, frames) mel energies."""
+    mel_w = torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, 0.0, fmax)).to(spec.device,
+                                                                               spec.dtype)
+    return torch.matmul(mel_w, spec.transpose(1, 2))
+
+
+def _stft64(y, n_fft, hop, center=True):
+    return stft(y, n_fft, hop, hann_window(n_fft), center=center, dtype=torch.float64)
+
+
+def s3gen_mel_spectrogram(y):
+    """24 kHz target-mel frontend, (B, T) -> (B, 80, T // 480) fp32:
+    n_fft 1920, hop 480, periodic hann, reflect pad (n_fft - hop)/2 on both
+    sides and no centring, magnitude sqrt(re^2 + im^2 + 1e-9), Slaney mel
+    0-8 kHz, log(clamp(x, 1e-5))."""
+    n_fft, hop = 1920, 480
+    re, im = _stft64(_reflect_pad(y.double(), (n_fft - hop) // 2), n_fft, hop, center=False)
+    mag = torch.sqrt(re**2 + im**2 + 1e-9)
+    return torch.log(torch.clamp(_mel(mag, 24000, n_fft, 80, 8000.0), min=1e-5)).float()
+
+
+def ve_mel_spectrogram(y):
+    """Voice-encoder 16 kHz frontend, (B, T) -> (B, 40, 1 + T // 160) fp32:
+    n_fft 400, hop 160, centred, power |S|^2, Slaney mel 40 (0-8 kHz), no
+    log."""
+    re, im = _stft64(y, 400, 160)
+    return _mel(re**2 + im**2, 16000, 400, 40, 8000.0).float()
+
+
+def s3tok_log_mel_spectrogram(y):
+    """S3-tokenizer 16 kHz frontend, (B, T) -> (B, 128, T // 160) fp32:
+    n_fft 400, hop 160, centred, the last frame dropped, power, Slaney mel
+    128 (0 Hz to Nyquist), log10 clamped at 1e-10, floored at each row's
+    max - 8, then (x + 4) / 4."""
+    re, im = _stft64(y, 400, 160)
+    re, im = re[:, :-1], im[:, :-1]
+    log_spec = torch.log10(torch.clamp(_mel(re**2 + im**2, 16000, 400, 128), min=1e-10))
+    floor = log_spec.amax(dim=(1, 2), keepdim=True) - 8.0
+    return ((torch.maximum(log_spec, floor) + 4.0) / 4.0).float()

@@ -1,11 +1,14 @@
 """Functional NN building blocks over parameter dicts of torch tensors.
 
 Port of ``chatterbox_tpu/core/layers.py``. Public layouts stay the JAX
-package's: sequences are (B, T, C). Weights are in PyTorch's layout, turned
-once by ``weights.py``:
+package's: sequences are (B, T, C), images (B, H, W, C). Weights are in
+PyTorch's layout, turned once by ``weights.py``:
   - linear: (Cout, Cin)
-  - conv1d: (Cout, Cin, W)
+  - conv1d: (Cout, Cin/groups, W)
+  - conv2d: (Cout, Cin, KH, KW)
   - conv_transpose1d: (Cin, Cout, W)
+The LSTM keeps the JAX package's layout, w_ih (Cin, 4H) and w_hh (H, 4H),
+because its explicit time loop multiplies by them as they are.
 """
 
 import torch
@@ -39,25 +42,45 @@ def group_norm(p, x, num_groups, eps=1e-5):
     return y.transpose(1, 2)
 
 
+def batch_norm(p, x, eps=1e-5):
+    """Inference-mode BatchNorm from running stats over the last axis;
+    ``scale``/``bias`` are optional (an affine-free norm has neither)."""
+    y = (x - p["mean"]) * torch.rsqrt(p["var"] + eps)
+    if "scale" in p:
+        y = y * p["scale"] + p["bias"]
+    return y
+
+
 def _pad_pair(padding):
     return (padding, padding) if isinstance(padding, int) else tuple(padding)
 
 
-def conv1d(p, x, stride=1, padding=0, dilation=1):
-    """1-D conv on (B, T, C) with weight (Cout, Cin, W). ``padding``
+def conv1d(p, x, stride=1, padding=0, dilation=1, groups=1):
+    """1-D conv on (B, T, C) with weight (Cout, Cin/groups, W). ``padding``
     is a symmetric int or an explicit (lo, hi) pair."""
     w = p["w"]
     xc = x.to(w.dtype).transpose(1, 2)  # weights define compute precision
     lo, hi = _pad_pair(padding)
     if lo or hi:
         xc = F.pad(xc, (lo, hi))
-    y = F.conv1d(xc, w, p.get("b"), stride=stride, dilation=dilation)
+    y = F.conv1d(xc, w, p.get("b"), stride=stride, dilation=dilation, groups=groups)
     return y.transpose(1, 2)
 
 
 def causal_conv1d(p, x):
     """Left-padded conv, matching reference decoder.py:71-97 CausalConv1d."""
     return conv1d(p, x, padding=(p["w"].shape[-1] - 1, 0))
+
+
+def conv2d(p, x, stride=(1, 1), padding=(0, 0)):
+    """2-D conv on (B, H, W, C) with weight (Cout, Cin, KH, KW); ``padding``
+    is an int or a pair, each entry an int or an explicit (lo, hi) pair."""
+    w = p["w"]
+    if isinstance(padding, int):
+        padding = (padding, padding)
+    (top, bottom), (left, right) = (_pad_pair(pp) for pp in padding)
+    xc = F.pad(x.to(w.dtype).permute(0, 3, 1, 2), (left, right, top, bottom))
+    return F.conv2d(xc, w, p.get("b"), stride=stride).permute(0, 2, 3, 1)
 
 
 def conv_transpose1d(p, x, stride, padding=0):
@@ -121,10 +144,14 @@ def leaky_relu(x, negative_slope=0.1):
 
 def sdpa(q, k, v, bias=None):
     """Scaled dot-product attention, q,k,v (B, H, T, D) with an optional
-    additive fp32 bias broadcast to (B, H, T, S): fp32 logits and softmax
-    with scale 1/sqrt(D), probs cast to v's dtype before the value product."""
+    mask broadcast to (B, H, T, S): an additive fp32 bias, or a bool mask
+    (True = attend) that sets the other logits to the fp32 minimum. fp32
+    logits and softmax with scale 1/sqrt(D), probs cast to v's dtype before
+    the value product."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
-    if bias is not None:
+    if bias is not None and bias.dtype == torch.bool:
+        logits = logits.masked_fill(~bias, torch.finfo(torch.float32).min)
+    elif bias is not None:
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
@@ -138,3 +165,29 @@ def split_heads(x, n_heads):
 def merge_heads(x):
     b, h, t, d = x.shape
     return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+# ---------------------------------------------------------------------------
+# LSTM (the voice encoder's), as an explicit loop over time
+# ---------------------------------------------------------------------------
+
+
+def lstm(p_layers, x):
+    """Multi-layer LSTM over (B, T, C). Each layer: w_ih (Cin, 4H), w_hh
+    (H, 4H), b (4H,) = b_ih + b_hh folded; gate order [i, f, g, o] as in
+    torch. Returns (output (B, T, H), [last hidden (B, H) of each layer])."""
+    hs = []
+    for p in p_layers:
+        hdim = p["w_hh"].shape[0]
+        xproj = torch.matmul(x, p["w_ih"]) + p["b"]  # the whole sequence at once
+        h = x.new_zeros((x.shape[0], hdim))
+        c = x.new_zeros((x.shape[0], hdim))
+        ys = []
+        for t in range(x.shape[1]):
+            i, f, g, o = (xproj[:, t] + torch.matmul(h, p["w_hh"])).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            ys.append(h)
+        x = torch.stack(ys, dim=1)
+        hs.append(h)
+    return x, hs

@@ -1,5 +1,5 @@
-// K3 and K4: exact (non-causal) softmax attention of the S3Gen flow, one
-// templated tensor-core kernel instantiated twice.
+// K3, K4 and K5: exact (non-causal) softmax attention of the S3Gen flow, one
+// templated tensor-core kernel body behind three entry points.
 //
 // K3 replaces chatterbox_tpu/ops/flash_attention.py::flash_self_attention_packed
 // (Pallas _packed_kernel, flash_attention.py:76-108): UNet self-attention read
@@ -11,6 +11,13 @@
 // rel-pos attention, scores = (q_u.k^T + qhat.shat^T) * scale + key_bias,
 // where qhat (B, T, H*C) is the rope-rotated query folded with W_pos and shat
 // (T, C) the absolute sinusoid table shared by all heads (C = model width).
+// K5 replaces chatterbox_tpu/ops/flash_attention.py::flash_self_attention
+// (Pallas _kernel, flash_attention.py:52-73): K3's function on separate
+// q, k, v in (B, H, T, D), the UNet's branch for unfused to_q/to_k/to_v
+// weights. Only the strides differ from K3: a head is a contiguous (T, D)
+// block, and the output is (B, H, T, D). Like the Pallas kernel, it rounds
+// the unnormalised probabilities to bf16 for the value product and divides
+// by the row sum afterwards.
 //
 // What bounds them: operations. At the flow's shapes (T ~ 1000, D = 64) a
 // (row, head) reads 3*T*D bf16 values and does 4*T*T*D flops (K4 adds
@@ -71,13 +78,15 @@ struct SmemLayout {
 };
 
 struct AttnArgs {
-  const bf16* q;        // band base pointers; element (b, t, h*D + d)
+  const bf16* q;        // element (b, h, t, d) at b*bstride + h*hstride + t*ld + d
   const bf16* k;
   const bf16* v;
-  long long ld;         // row stride of q/k/v (elements)
+  long long ld;         // row (time) stride of q/k/v (elements)
   long long bstride;    // batch stride of q/k/v
+  long long hstride;    // head stride of q/k/v
   const float* bias;    // (B, T) additive key bias
-  bf16* out;            // (B, T, H*D)
+  bf16* out;            // the same indexing with the out_* strides
+  long long out_ld, out_bstride, out_hstride;
   const bf16* qhat;     // K4: (B, T, H*C)
   const bf16* shat;     // K4: (T, C)
   int T, H, C;
@@ -98,7 +107,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld_dst, const bf16* src
 }
 
 template <bool RELPOS>
-__global__ void __launch_bounds__(NT) flash_attention_kernel(AttnArgs a) {
+__device__ __forceinline__ void attention_body(const AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const SmemLayout lay(a.C, RELPOS);
   bf16* q_s = reinterpret_cast<bf16*>(smem + lay.q);
@@ -123,7 +132,7 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(AttnArgs a) {
   const int C = a.C;
   const int ldqh = C + PADH;
 
-  const long long base = (long long)b * a.bstride + (long long)h * HD;
+  const long long base = (long long)b * a.bstride + (long long)h * a.hstride;
   load_tile(q_s, LDH, a.q + base + (long long)q0 * a.ld, a.ld, BM, HD);
   if constexpr (RELPOS) {
     const long long hb = ((long long)b * a.T + q0) * a.H * C + (long long)h * C;
@@ -230,24 +239,43 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(AttnArgs a) {
     __syncthreads();  // k_s / v_s are rewritten by the next tile
   }
 
-  const long long ob = ((long long)b * a.T + q0) * a.H * HD + (long long)h * HD;
+  const long long ob = (long long)b * a.out_bstride + (long long)h * a.out_hstride
+                       + (long long)q0 * a.out_ld;
   for (int idx = threadIdx.x; idx < BM * HD; idx += NT) {
     const int r = idx / HD;
     const int c = idx % HD;
-    a.out[ob + (long long)r * a.H * HD + c] = __float2bfloat16(o_s[r * LDO + c] / l_s[r]);
+    a.out[ob + (long long)r * a.out_ld + c] = __float2bfloat16(o_s[r * LDO + c] / l_s[r]);
   }
 }
 
+// K3 (RELPOS = false) and K4 (RELPOS = true)
 template <bool RELPOS>
-int launch(const AttnArgs& a, int B, cudaStream_t st) {
+__global__ void __launch_bounds__(NT) flash_attention_kernel(AttnArgs a) {
+  attention_body<RELPOS>(a);
+}
+
+// K5: its own symbol, so that a profile tells its launches from K3's
+__global__ void __launch_bounds__(NT) flash_attention_heads_kernel(AttnArgs a) {
+  attention_body<false>(a);
+}
+
+template <bool RELPOS>
+int launch(void (*kernel)(AttnArgs), const AttnArgs& a, int B, cudaStream_t st) {
   const SmemLayout lay(a.C, RELPOS);
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<RELPOS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)lay.total);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.T / BM, a.H, B);
-  flash_attention_kernel<RELPOS><<<grid, NT, lay.total, st>>>(a);
+  kernel<<<grid, NT, lay.total, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the (B, T, H*D) output of K3 and K4
+void set_token_major_out(AttnArgs& a, void* out) {
+  a.out = reinterpret_cast<bf16*>(out);
+  a.out_ld = (long long)a.H * HD;
+  a.out_bstride = (long long)a.T * a.H * HD;
+  a.out_hstride = HD;
 }
 
 }  // namespace
@@ -267,13 +295,15 @@ int cbx_flash_attention_packed(const void* qkv, const void* bias, void* out, int
   a.v = base + 2 * hd;
   a.ld = 3 * hd;
   a.bstride = (long long)T * 3 * hd;
+  a.hstride = HD;
   a.bias = reinterpret_cast<const float*>(bias);
-  a.out = reinterpret_cast<bf16*>(out);
   a.T = T;
   a.H = H;
   a.C = 0;
   a.scale = scale;
-  return launch<false>(a, B, reinterpret_cast<cudaStream_t>(stream));
+  set_token_major_out(a, out);
+  return launch<false>(flash_attention_kernel<false>, a, B,
+                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K4. q_u, k, v, out (B, T, H*64) bf16; qhat (B, T, H*C) bf16; shat (T, C)
@@ -288,15 +318,39 @@ int cbx_flash_relpos(const void* q_u, const void* k, const void* v, const void* 
   a.v = reinterpret_cast<const bf16*>(v);
   a.ld = (long long)H * HD;
   a.bstride = (long long)T * H * HD;
+  a.hstride = HD;
   a.bias = reinterpret_cast<const float*>(bias);
-  a.out = reinterpret_cast<bf16*>(out);
   a.qhat = reinterpret_cast<const bf16*>(qhat);
   a.shat = reinterpret_cast<const bf16*>(shat);
   a.T = T;
   a.H = H;
   a.C = C;
   a.scale = scale;
-  return launch<true>(a, B, reinterpret_cast<cudaStream_t>(stream));
+  set_token_major_out(a, out);
+  return launch<true>(flash_attention_kernel<true>, a, B,
+                      reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K5. q, k, v, out (B, H, T, 64) bf16, each contiguous; bias (B, T) f32.
+// T % 64 == 0.
+int cbx_flash_attention_heads(const void* q, const void* k, const void* v, const void* bias,
+                              void* out, int B, int T, int H, float scale, void* stream) {
+  if (T % BM != 0) return (int)cudaErrorInvalidValue;
+  AttnArgs a{};
+  a.q = reinterpret_cast<const bf16*>(q);
+  a.k = reinterpret_cast<const bf16*>(k);
+  a.v = reinterpret_cast<const bf16*>(v);
+  a.ld = a.out_ld = HD;
+  a.hstride = a.out_hstride = (long long)T * HD;
+  a.bstride = a.out_bstride = (long long)H * T * HD;
+  a.bias = reinterpret_cast<const float*>(bias);
+  a.out = reinterpret_cast<bf16*>(out);
+  a.T = T;
+  a.H = H;
+  a.C = 0;
+  a.scale = scale;
+  return launch<false>(flash_attention_heads_kernel, a, B,
+                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,6 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and full-fp32 arithmetic."""
+
+import contextlib
 
 import torch
 
@@ -15,3 +17,17 @@ def resolve_device(device=None) -> torch.device:
             "on the CPU explicitly"
         )
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls and convolutions in full fp32 inside the block: PyTorch
+    runs cuDNN's fp32 convolutions in TF32 by default (~10 mantissa bits),
+    which would move the conditioning frontends' mels and the S3 tokenizer's
+    FSQ roundings. The settings in force before the block come back after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

@@ -1,9 +1,9 @@
-"""S3Gen: speech tokens + precomputed reference voice -> 24 kHz waveform.
+"""S3Gen: speech tokens + reference voice -> 24 kHz waveform.
 
-Port of the synthesis half of ``chatterbox_tpu/models/s3gen/s3gen.py``:
-flow (tokens -> mel), HiFT (mel -> wav) with masked vocoding of padded
-rows, and the 20 ms trim-fade. Building a RefDict from a raw wav
-(``embed_ref``) belongs to a later slice.
+Port of ``chatterbox_tpu/models/s3gen/s3gen.py``: ``embed_ref`` builds the
+reference voice's RefDict from a raw wav (S3 tokens, 24 kHz mels, the
+CAMPPlus x-vector); ``s3gen_wav`` runs the flow (tokens -> mel), HiFT (mel
+-> wav) with masked vocoding of padded rows, and the 20 ms trim-fade.
 """
 
 from dataclasses import dataclass, field
@@ -12,15 +12,21 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...constants import S3GEN_SR
+from ...constants import S3_SR, S3GEN_SR
+from ...core.dsp import s3gen_mel_spectrogram
+from ...core.resample import resample
+from ..s3tokenizer import S3TokenizerConfig, s3_tokenize
 from .flow import FlowConfig, flow_inference
 from .hifigan import HiFTConfig, hift_generate
+from .xvector import CAMPPlusConfig, campplus_embed_wav
 
 
 @dataclass(frozen=True)
 class S3GenConfig:
     flow: FlowConfig = field(default_factory=FlowConfig)
     hift: HiFTConfig = field(default_factory=lambda: HiFTConfig(sampling_rate=S3GEN_SR))
+    campplus: CAMPPlusConfig = field(default_factory=CAMPPlusConfig)
+    tokenizer: S3TokenizerConfig = field(default_factory=S3TokenizerConfig)
     trim_n: int = S3GEN_SR // 50  # 20 ms fade
 
 
@@ -31,6 +37,20 @@ class RefDict(NamedTuple):
     prompt_token_len: torch.Tensor  # (B,)
     prompt_feat: torch.Tensor  # (B, 2P, 80)
     embedding: torch.Tensor  # (B, 192)
+
+
+def embed_ref(p, cfg: S3GenConfig, ref_wav, ref_sr: int) -> RefDict:
+    """(B, T) reference wav at ``ref_sr`` -> RefDict (s3gen.py:107-157):
+    24 kHz mels, the x-vector and S3 tokens of the 16 kHz wav, with the
+    tokens cut to half the mel frames and the mels to twice the tokens."""
+    wav24 = ref_wav if ref_sr == S3GEN_SR else resample(ref_wav, ref_sr, S3GEN_SR)
+    wav16 = resample(ref_wav, ref_sr, S3_SR)
+    mels = s3gen_mel_spectrogram(wav24).transpose(1, 2)  # (B, T_mel, 80)
+    xvec = campplus_embed_wav(p["campplus"], cfg.campplus, wav16)
+    tokens, token_lens = s3_tokenize(p["tokenizer"], cfg.tokenizer, wav16)
+    n_tok = min(mels.shape[1] // 2, tokens.shape[1])
+    return RefDict(tokens[:, :n_tok], torch.clamp(token_lens, max=n_tok), mels[:, : 2 * n_tok],
+                   xvec)
 
 
 def trim_fade(n: int, device) -> torch.Tensor:

@@ -3,8 +3,12 @@
 Port of ``chatterbox_tpu/models/s3gen/unet.py`` (reference
 s3gen/decoder.py ConditionalDecoder with in 320, out 80, channels 256, 4
 transformer blocks per stage x (1 down + 12 mid + 1 up), 8 heads of 64).
-Self-attention reads the packed to_qkv output through kernel K3
-(``ops/flash_attention.py``); pad keys are biased with -1e10.
+Self-attention pads T to a multiple of 128 with pad keys biased at -1e10,
+then reads the packed to_qkv output through kernel K3 when the weights are
+fused and the inner width is a multiple of 128, and takes split q, k, v
+through kernel K5 otherwise: for unfused to_q/to_k/to_v weights (the
+reference checkpoint's layout) and for other widths
+(``ops/flash_attention.py``).
 """
 
 from dataclasses import dataclass
@@ -13,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...core.layers import causal_conv1d, conv1d, layer_norm, linear, mish
-from ...ops.flash_attention import flash_self_attention_packed
+from ...core.layers import causal_conv1d, conv1d, layer_norm, linear, merge_heads, mish, split_heads
+from ...ops.flash_attention import flash_self_attention, flash_self_attention_packed
 
 
 @dataclass(frozen=True)
@@ -55,18 +59,25 @@ def _causal_resnet(p, x, mask, t_emb):
 
 
 def _attn(p, x, n_heads, key_bias=None):
-    """diffusers Attention with the fused to_qkv weight (no bias), scale
-    1/sqrt(head_dim), out bias; the attention is K3 on the packed qkv."""
+    """diffusers Attention: q/k/v projections without bias, scale
+    1/sqrt(head_dim), out bias. K3 on the packed qkv when ``to_qkv`` is
+    fused and its inner width a multiple of 128; otherwise K5 on (B, H, T, D)
+    q, k, v split from ``to_qkv`` or projected by ``to_q``/``to_k``/``to_v``."""
     b, t, _ = x.shape
     tp = -(-t // 128) * 128
-    qkv = linear(p["to_qkv"], x)
     bias = key_bias.float() if key_bias is not None else torch.zeros(
         (b, t), dtype=torch.float32, device=x.device)
-    if tp != t:
-        qkv = F.pad(qkv, (0, 0, 0, tp - t))
-        bias = F.pad(bias, (0, tp - t), value=-1.0e10)
-    out = flash_self_attention_packed(qkv.contiguous(), bias.contiguous(), n_heads)[:, :t]
-    return linear(p["to_out"], out)
+    bias = F.pad(bias, (0, tp - t), value=-1.0e10).contiguous()
+    if "to_qkv" in p and (p["to_qkv"]["w"].shape[0] // 3) % 128 == 0:
+        qkv = F.pad(linear(p["to_qkv"], x), (0, 0, 0, tp - t)).contiguous()
+        return linear(p["to_out"], flash_self_attention_packed(qkv, bias, n_heads)[:, :t])
+    if "to_qkv" in p:
+        qkv = linear(p["to_qkv"], x).chunk(3, dim=-1)
+    else:
+        qkv = [linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
+    q, k, v = (split_heads(F.pad(y, (0, 0, 0, tp - t)), n_heads).contiguous() for y in qkv)
+    out = flash_self_attention(q, k, v, bias)[:, :, :t]
+    return linear(p["to_out"], merge_heads(out))
 
 
 def _transformer_block(p, x, cfg: UNetConfig, key_bias=None):

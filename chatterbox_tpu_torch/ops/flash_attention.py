@@ -1,6 +1,6 @@
-"""Flow attention kernels K3 and K4: one templated tensor-core CUDA kernel
-(``csrc/flash_attention.cu``) instantiated twice, each beside its plain
-PyTorch version.
+"""Flow attention kernels K3, K4 and K5: one templated tensor-core CUDA
+kernel body (``csrc/flash_attention.cu``) behind three entry points, each
+beside its plain PyTorch version.
 
 K3 ``flash_self_attention_packed`` replaces the Pallas kernel
 ``chatterbox_tpu/ops/flash_attention.py::flash_self_attention_packed``: UNet
@@ -12,6 +12,14 @@ K4 ``flash_relpos_attention`` replaces
 ``chatterbox_tpu/ops/flash_attention.py::flash_relpos_attention``: the
 conformer's ESPnet rel-pos attention, scores = (q_u.k^T + qhat.shat^T) * scale
 + bias, with qhat (B, T, H*C) and the shared sinusoid table shat (T, C).
+
+K5 ``flash_self_attention`` replaces
+``chatterbox_tpu/ops/flash_attention.py::flash_self_attention``: K3's
+function on separate q, k, v in (B, H, T, D), returning (B, H, T, D); the
+UNet takes it for unfused to_q/to_k/to_v weights and for fused widths that
+are not a multiple of 128. Like the Pallas kernel it rounds the
+unnormalised probabilities to the value dtype and divides by their fp32
+sum afterwards.
 
 What bounds them on the card: operations (T*T*D work per (row, head) on T*D
 data). Design: one 4-warp block per (64-query tile, head, row), an fp32
@@ -39,6 +47,10 @@ _SIG = {
     "cbx_flash_attention_packed": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ],
+    "cbx_flash_attention_heads": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ],
     "cbx_flash_relpos": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -105,6 +117,50 @@ def flash_self_attention_packed(qkv, key_bias, n_heads: int):
 
 
 flash_self_attention_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+
+def flash_self_attention_plain(q, k, v, key_bias=None):
+    """The Pallas kernel's arithmetic: fp32 logits q.k^T/sqrt(D) + bias,
+    p = exp(logits - max) cast to v's dtype for the value product, divided
+    by the fp32 sum of p afterwards."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if key_bias is not None:
+        logits = logits + key_bias.float()[:, None, None, :]
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    out = torch.matmul(p.to(v.dtype).float(), v.float()) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
+
+
+def flash_self_attention(q, k, v, key_bias=None):
+    """q, k, v (B, H, T, D); key_bias (B, T) additive f32 or None ->
+    (B, H, T, D) in q's dtype. Exact, non-causal."""
+    if q.device.type == "cpu":
+        return flash_self_attention_plain(q, k, v, key_bias)
+    require(q.device.type == "cuda", f"unsupported device {q.device}")
+    b, h, t, d = q.shape
+    require(d == _HEAD_DIM, f"kernel takes head dim {_HEAD_DIM}")
+    require(t % _T_MULT == 0, f"T={t} must be a multiple of {_T_MULT}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, (b, h, t, d), torch.bfloat16, q.device)
+    if key_bias is None:
+        key_bias = torch.zeros((b, t), dtype=torch.float32, device=q.device)
+    _check_operand("key_bias", key_bias, (b, t), torch.float32, q.device)
+    out = torch.empty_like(q)
+    status = _lib().cbx_flash_attention_heads(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(), b, t, h,
+        _HEAD_DIM ** -0.5, _build.stream_ptr(q),
+    )
+    _build.check(status, "flash_self_attention")
+    flash_self_attention.launches += 1
+    return out
+
+
+flash_self_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""ChatterboxTTS: zero-shot TTS from precomputed voice conditionals.
+"""ChatterboxTTS: zero-shot TTS from a reference wav or from precomputed
+voice conditionals.
 
-Port of the main path of ``chatterbox_tpu/pipeline/tts.py``:
-text -> ids -> T3 (CFG decode) -> host token compaction -> S3Gen (flow +
-HiFT + trim-fade) -> spread-spectrum watermark -> int16 PCM. Shapes are
-bucketed as in the JAX package (TEXT_BUCKETS, TOKEN_BUCKETS) so both
-packages see the same padded batches. Entry points run on ``cuda`` unless
-the caller passes ``device``; without a GPU and without a device they raise.
+Port of ``chatterbox_tpu/pipeline/tts.py``: ``prepare_conditionals`` turns
+a reference wav into Conditionals (S3Gen's RefDict from ``embed_ref``, T3's
+prompt tokens from the S3 tokenizer, the voice-encoder embedding), and
+``generate_batch`` runs text -> ids -> T3 (CFG decode) -> host token
+compaction -> S3Gen (flow + HiFT + trim-fade) -> spread-spectrum watermark
+-> int16 PCM. Shapes are bucketed as in the JAX package (TEXT_BUCKETS,
+TOKEN_BUCKETS) so both packages see the same padded batches. Entry points
+run on ``cuda`` unless the caller passes ``device``; without a GPU and
+without a device they raise. The conditioning modules (voice encoder,
+CAMPPlus, S3 tokenizer) stay fp32 and run with TF32 off.
 
 T3's KV cache is int8 with an exact tail at token budgets of 500 and more,
 as the JAX package's auto policy has it (``_kv_quant_for``; the
@@ -13,9 +18,8 @@ as the JAX package's auto policy has it (``_kv_quant_for``; the
 the working dtype otherwise. ``generate_batch(alignment=True)`` runs the
 alignment watchdog, which forces the working-dtype cache.
 
-Not in this slice: conditioning from a raw wav, streaming, batch splitting
-under a memory budget, per-call ``flow_steps``, weight quantization, and
-serving.
+Not in this slice: streaming, batch splitting under a memory budget,
+per-call ``flow_steps``, weight quantization, and serving.
 """
 
 import os
@@ -28,13 +32,18 @@ import torch
 
 from .. import weights
 from ..checkpoint.config_io import load_configs
-from ..constants import S3GEN_SR, SPEECH_VOCAB_SIZE
+from ..constants import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE
+from ..core.dsp import ve_mel_spectrogram
+from ..core.resample import resample
 from ..core.sampling import SamplingConfig
-from ..device import resolve_device
-from ..models.s3gen.s3gen import RefDict, S3GenConfig, s3gen_wav
+from ..device import full_fp32, resolve_device
+from ..models.s3gen.s3gen import RefDict, S3GenConfig, embed_ref, s3gen_wav
+from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.t3.t3 import T3Config, t3_generate
 from ..models.tokenizer import EnTokenizer
+from ..models.voice_encoder import VoiceEncoderConfig, frame_step, num_wins, ve_embed_from_mels
 from ..models.watermark import SpreadSpectrumWatermarker
+from .audio import load_wav, trim_silence
 from .conditionals import Conditionals, T3CondData
 
 TEXT_BUCKETS = (32, 64, 128, 256, 512)
@@ -70,12 +79,67 @@ def _default_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
+def random_s3gen(cfg: S3GenConfig, seed: int, device) -> dict:
+    """Seeded random S3Gen parameters on ``device``: the flow in the
+    working dtype, HiFT, CAMPPlus and the S3 tokenizer in fp32."""
+    return {
+        "flow": weights.init_flow(cfg.flow, seed + 1, device, _default_dtype(device)),
+        "hift": weights.init_hift(cfg.hift, seed + 2, device),
+        "campplus": weights.init_campplus(cfg.campplus, seed + 3, device),
+        "tokenizer": weights.init_s3tokenizer(cfg.tokenizer, seed + 4, device),
+    }
+
+
+def native_s3gen(path, device) -> dict:
+    """An ``s3gen.jax.safetensors`` file -> S3Gen parameters on ``device``,
+    cast as in ``random_s3gen`` (CAMPPlus and the tokenizer when present)."""
+    s3 = weights.load_native(path)
+    params = {"flow": weights.tree_to(s3["flow"], device, _default_dtype(device))}
+    for name in ("hift", "campplus", "tokenizer"):
+        if s3.get(name) is not None:
+            params[name] = weights.tree_to(s3[name], device, torch.float32)
+    return params
+
+
+def cfm_noise(device) -> torch.Tensor:
+    """The fixed CFM noise buffer (reference flow_matching.py:191), drawn
+    with numpy so both packages hold the same bits."""
+    return torch.from_numpy(
+        np.random.default_rng(0).standard_normal((1, 15000, 80)).astype(np.float32)
+    ).to(device)
+
+
+def _tile(x, b):
+    """Broadcast single-voice (1, ...) conditioning to the batch."""
+    return x.expand((b,) + x.shape[1:]) if x.shape[0] == 1 else x
+
+
+def synthesize(s3gen_params, s3gen_cfg, noise, watermarker, speech, speech_lens, ref: RefDict,
+               seed: int):
+    """Speech tokens -> S3Gen (flow + HiFT + trim-fade) -> watermark ->
+    (int16 wav (B, T), wav_lens (B,)). The CFM noise is the first 2*(P + T)
+    frames of ``noise``; the vocoder draws from a generator seeded seed + 1."""
+    b = speech.shape[0]
+    ref = RefDict(*(_tile(x, b) for x in ref))
+    total = 2 * (ref.prompt_token.shape[1] + speech.shape[1])
+    wav, wav_lens, _ = s3gen_wav(
+        s3gen_params, s3gen_cfg, speech, speech_lens, ref, noise[:, :total].expand(b, total, 80),
+        generator=torch.Generator(device=speech.device).manual_seed(seed + 1),
+    )
+    y = watermarker.apply(wav)
+    return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16), wav_lens
+
+
 class ChatterboxTTS:
     """The TTS pipeline over parameter trees of tensors on one device."""
 
+    ENC_COND_LEN = 6 * S3_SR  # the T3 prompt's 6 s cap (tts.py:107)
+    DEC_COND_LEN = 10 * S3GEN_SR  # S3Gen's reference: 10 s (tts.py:108)
+
     def __init__(self, t3_params, s3gen_params, device, tokenizer: Optional[EnTokenizer] = None,
                  t3_cfg: T3Config = T3Config(), s3gen_cfg: S3GenConfig = S3GenConfig(),
-                 conds: Optional[Conditionals] = None, kv_quant: Optional[bool] = None):
+                 conds: Optional[Conditionals] = None, kv_quant: Optional[bool] = None,
+                 ve_params=None, ve_cfg: VoiceEncoderConfig = VoiceEncoderConfig()):
         self.device = torch.device(device)
         # int8 KV cache: True/False, or None for the auto policy of
         # _kv_quant_for; without an argument CHATTERBOX_KV_QUANT=1/0 decides
@@ -84,67 +148,110 @@ class ChatterboxTTS:
         self.kv_quant = kv_quant
         self.t3_params = t3_params
         self.s3gen_params = s3gen_params
+        self.ve_params = ve_params
         self.tokenizer = tokenizer
         self.t3_cfg = t3_cfg
         self.s3gen_cfg = s3gen_cfg
+        self.ve_cfg = ve_cfg
         self.conds = conds
         self.sr = S3GEN_SR
         # host seconds of the last generate_batch's stages (each ends in a
         # device-to-host copy, so no extra synchronisation is needed)
         self.last_timings = {}
         self.watermarker = SpreadSpectrumWatermarker()
-        # the fixed CFM noise buffer (reference flow_matching.py:191), built
-        # with numpy so both packages hold the same bits
-        self._cfm_noise = torch.from_numpy(
-            np.random.default_rng(0).standard_normal((1, 15000, 80)).astype(np.float32)
-        ).to(self.device)
+        self._cfm_noise = cfm_noise(self.device)
 
     # ------------------------------------------------------------------ load
     @classmethod
     def from_random(cls, seed: int = 0, t3_cfg: T3Config = None, s3gen_cfg: S3GenConfig = None,
-                    device=None) -> "ChatterboxTTS":
+                    device=None, ve_cfg: VoiceEncoderConfig = None) -> "ChatterboxTTS":
         """Seeded random weights built on the device by the port's own inits
-        (T3 and flow in bf16 on the card and fp32 on the CPU; HiFT fp32)."""
+        (T3 and flow in bf16 on the card and fp32 on the CPU; HiFT and the
+        conditioning modules fp32)."""
         dev = resolve_device(device)
-        dtype = _default_dtype(dev)
         t3_cfg = t3_cfg or T3Config()
         s3gen_cfg = s3gen_cfg or S3GenConfig()
-        t3_params = weights.init_t3(t3_cfg, seed, dev, dtype)
-        s3gen_params = {
-            "flow": weights.init_flow(s3gen_cfg.flow, seed + 1, dev, dtype),
-            "hift": weights.init_hift(s3gen_cfg.hift, seed + 2, dev),
-        }
-        return cls(t3_params, s3gen_params, dev, t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg)
+        ve_cfg = ve_cfg or VoiceEncoderConfig()
+        return cls(weights.init_t3(t3_cfg, seed, dev, _default_dtype(dev)),
+                   random_s3gen(s3gen_cfg, seed, dev), dev, t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg,
+                   ve_params=weights.init_voice_encoder(ve_cfg, seed + 5, dev), ve_cfg=ve_cfg)
 
     @classmethod
     def from_native(cls, ckpt_dir, device=None, tokenizer_json=None) -> "ChatterboxTTS":
         """Load a directory written by the JAX package's ``save_native``
-        (T3 and flow cast as in ``from_random``; HiFT fp32)."""
+        (cast as in ``from_random``; the voice encoder from
+        ``ve.jax.safetensors`` when the directory has one)."""
         dev = resolve_device(device)
-        dtype = _default_dtype(dev)
         ckpt = Path(ckpt_dir)
-        t3_cfg, s3gen_cfg = T3Config(), S3GenConfig()
+        t3_cfg, s3gen_cfg, ve_cfg = T3Config(), S3GenConfig(), VoiceEncoderConfig()
         if (ckpt / "config.json").exists():
-            t3_cfg, s3gen_cfg = load_configs(ckpt / "config.json")
-        s3 = weights.load_native(ckpt / "s3gen.jax.safetensors")
-        s3gen_params = {
-            "flow": weights.tree_to(s3["flow"], dev, dtype),
-            "hift": weights.tree_to(s3["hift"], dev, torch.float32),
-        }
-        t3_params = weights.tree_to(weights.load_native(ckpt / "t3.jax.safetensors"), dev, dtype)
+            t3_cfg, s3gen_cfg, ve_cfg = load_configs(ckpt / "config.json")
+        t3_params = weights.tree_to(weights.load_native(ckpt / "t3.jax.safetensors"), dev,
+                                    _default_dtype(dev))
+        ve_params = None
+        if (ckpt / "ve.jax.safetensors").exists():
+            ve_params = weights.tree_to(weights.load_native(ckpt / "ve.jax.safetensors"), dev,
+                                        torch.float32)
         tok_path = Path(tokenizer_json or ckpt / "tokenizer.json")
         tok = EnTokenizer(str(tok_path)) if tok_path.exists() else None
         conds = None
         if (ckpt / "conds.safetensors").exists():
             conds = Conditionals.load(ckpt / "conds.safetensors")
-        return cls(t3_params, s3gen_params, dev, tokenizer=tok, t3_cfg=t3_cfg,
-                   s3gen_cfg=s3gen_cfg, conds=conds)
+        return cls(t3_params, native_s3gen(ckpt / "s3gen.jax.safetensors", dev), dev, tokenizer=tok,
+                   t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg, conds=conds, ve_params=ve_params,
+                   ve_cfg=ve_cfg)
+
+    # ---------------------------------------------------------- conditioning
+    @torch.inference_mode()
+    def prepare_conditionals(self, wav_fpath_or_array, exaggeration: float = 0.5) -> Conditionals:
+        """Reference wav (a path, or a 24 kHz float array) -> Conditionals,
+        as the JAX package's ``prepare_conditionals`` (tts.py:329-394):
+          - S3Gen's RefDict from the first 10 s at 24 kHz (``embed_ref``);
+          - T3's prompt tokens from the first 6 s at 16 kHz, at most
+            ``speech_cond_prompt_len`` of them;
+          - the voice-encoder embedding of the silence-trimmed 16 kHz wav,
+            zero-padded to a 0.5 s bucket, averaging only the windows of the
+            unpadded length.
+        Both caps pad to whole 40 ms tokens. Also kept as ``self.conds``."""
+        if isinstance(wav_fpath_or_array, (str, Path)):
+            ref24 = load_wav(wav_fpath_or_array, S3GEN_SR)
+        else:
+            ref24 = np.asarray(wav_fpath_or_array, np.float32)
+        dev = self.device
+        with full_fp32():
+            ref16 = resample(torch.from_numpy(ref24).to(dev), S3GEN_SR, S3_SR).cpu().numpy()
+            dec_ref = pad_to_token_multiple(ref24[: self.DEC_COND_LEN], S3GEN_SR)
+            enc_ref = pad_to_token_multiple(ref16[: self.ENC_COND_LEN])
+            ve_wav = trim_silence(ref16, top_db=20)
+            bucket = S3_SR // 2
+            ve_padded = np.zeros(max(-(-len(ve_wav) // bucket) * bucket, bucket), np.float32)
+            ve_padded[: len(ve_wav)] = ve_wav
+            step = frame_step(self.ve_cfg, self.ve_cfg.default_rate)
+            n_valid = num_wins(max(1 + len(ve_wav) // 160, 1), step, self.ve_cfg)  # centred frames
+
+            ref_dict = embed_ref(self.s3gen_params, self.s3gen_cfg,
+                                 torch.from_numpy(dec_ref).to(dev)[None], S3GEN_SR)
+            prompt_tokens, _ = s3_tokenize(
+                self.s3gen_params["tokenizer"], self.s3gen_cfg.tokenizer,
+                torch.from_numpy(enc_ref).to(dev)[None], max_len=self.t3_cfg.speech_cond_prompt_len)
+            mels = ve_mel_spectrogram(torch.from_numpy(ve_padded).to(dev)[None]).transpose(1, 2)
+            ve_embed = ve_embed_from_mels(self.ve_params, self.ve_cfg, mels,
+                                          torch.tensor([n_valid], device=dev))
+        self.conds = Conditionals(
+            T3CondData(ve_embed, prompt_tokens, torch.full((1,), exaggeration, device=dev)),
+            ref_dict)
+        return self.conds
 
     # ------------------------------------------------------------- generate
-    def generate(self, text: str, num_return_sequences: int = 1, **kw) -> np.ndarray:
+    def generate(self, text: str, audio_prompt_path=None, exaggeration: float = 0.5,
+                 num_return_sequences: int = 1, **kw) -> np.ndarray:
         """One text -> (k, T) float32, k = ``num_return_sequences`` sampled
-        variants right-padded to the longest; keywords as generate_batch."""
-        wavs = self.generate_batch([text] * num_return_sequences, **kw)
+        variants right-padded to the longest. With ``audio_prompt_path`` the
+        voice comes from ``prepare_conditionals`` on that wav; other
+        keywords as generate_batch."""
+        if audio_prompt_path is not None:
+            kw["conds"] = self.prepare_conditionals(audio_prompt_path, exaggeration)
+        wavs = self.generate_batch([text] * num_return_sequences, exaggeration=exaggeration, **kw)
         out = np.zeros((len(wavs), max(len(w) for w in wavs)), np.float32)
         for i, w in enumerate(wavs):
             out[i, : len(w)] = w
@@ -191,7 +298,7 @@ class ChatterboxTTS:
             repetition_penalty=repetition_penalty, cfg_weight=cfg_weight,
             min_new_tokens=min_new_tokens, greedy=greedy,
         )
-        t3c = T3CondData(*(self._tile(x, b) for x in conds.t3))
+        t3c = T3CondData(*(_tile(x, b) for x in conds.t3))
         cache_quant = self._kv_quant_for(max_new_tokens) and not alignment
         res = t3_generate(
             self.t3_params, self.t3_cfg, torch.from_numpy(text_tokens).to(self.device),
@@ -214,9 +321,10 @@ class ChatterboxTTS:
         for i, r in enumerate(clean_rows):
             speech[i, : len(r)] = r
 
-        wav, wav_lens = self._run_s3gen(
+        wav, wav_lens = synthesize(
+            self.s3gen_params, self.s3gen_cfg, self._cfm_noise, self.watermarker,
             torch.from_numpy(speech).to(self.device), torch.from_numpy(clean_lens).to(self.device),
-            conds.gen, b, seed,
+            conds.gen, seed,
         )
         marked = wav.cpu().numpy().astype(np.float32) / 32767.0
         wav_lens = wav_lens.cpu().numpy()
@@ -252,19 +360,3 @@ class ChatterboxTTS:
             return row
         return np.concatenate([row[: cap - 1], row[-1:]]).astype(np.int32)
 
-    @staticmethod
-    def _tile(x, b):
-        """Broadcast single-voice (1, ...) conditioning to the batch."""
-        return x.expand((b,) + x.shape[1:]) if x.shape[0] == 1 else x
-
-    def _run_s3gen(self, speech, speech_lens, ref: RefDict, b: int, seed: int):
-        """Flow + HiFT + trim-fade, then the watermark -> (int16 wav, lens)."""
-        ref = RefDict(*(self._tile(x, b) for x in ref))
-        total = 2 * (ref.prompt_token.shape[1] + speech.shape[1])
-        noise = self._cfm_noise[:, :total].expand(b, total, 80)
-        wav, wav_lens, _ = s3gen_wav(
-            self.s3gen_params, self.s3gen_cfg, speech, speech_lens, ref, noise,
-            generator=torch.Generator(device=self.device).manual_seed(seed + 1),
-        )
-        y = self.watermarker.apply(wav)
-        return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16), wav_lens

@@ -7,10 +7,14 @@ happens here, once:
   - linear (Cin, Cout) -> (Cout, Cin); the stacked T3 layers (L, Cin, Cout)
     -> (L, Cout, Cin)
   - conv1d (W, Cin, Cout) -> (Cout, Cin, W)
+  - conv2d (KH, KW, Cin, Cout) -> (Cout, Cin, KH, KW) (CAMPPlus's FCM head)
   - conv_transpose1d (W, Cin, Cout) -> (Cin, Cout, W) (the HiFT ``ups``)
   - embedding tables stay (N, C)
-Only leaves named ``w`` change; everything else (norm scales, biases, snake
-alphas, the perceiver query, rel-pos biases) passes through.
+Only leaves named ``w`` change; everything else (norm scales, biases,
+batch-norm statistics, snake alphas, the perceiver query, rel-pos biases)
+passes through. So do the voice encoder's LSTM leaves ``w_ih`` (Cin, 4H)
+and ``w_hh`` (H, 4H): ``core/layers.lstm`` multiplies by them in the JAX
+layout.
 
 ``load_native`` reads the ``*.jax.safetensors`` files the JAX package's
 ``save_native`` writes: keys are slash-joined tree paths, ``#i`` a list
@@ -23,11 +27,12 @@ import torch
 from .checkpoint.safetensors_io import load_safetensors
 
 _EMBEDDINGS = {"text_emb", "speech_emb", "text_pos_emb", "speech_pos_emb", "input_embedding"}
+_LSTM_LEAVES = {"w_ih", "w_hh"}  # kept in the JAX layout (see above)
 
 
 def _layout(path, ndim):
     """Layout kind of leaf ``path`` (a tuple of dict keys and list indices)."""
-    if not path or path[-1] != "w":
+    if not path or path[-1] in _LSTM_LEAVES or path[-1] != "w":
         return "as_is"
     names = [p for p in path[:-1] if isinstance(p, str)]
     owner = names[-1] if names else ""
@@ -37,6 +42,8 @@ def _layout(path, ndim):
         return "as_is"
     if owner == "ups" and ndim == 3:
         return "conv_transpose"
+    if ndim == 4:
+        return "conv2d"
     if ndim == 3:
         return "conv"
     if ndim == 2:
@@ -44,23 +51,27 @@ def _layout(path, ndim):
     return "as_is"
 
 
+# (to the port, back to the JAX package) permutations of each layout kind
+_PERMS = {
+    "conv": ((2, 1, 0), (2, 1, 0)),
+    "conv2d": ((3, 2, 0, 1), (2, 3, 1, 0)),
+    "conv_transpose": ((1, 2, 0), (2, 0, 1)),
+}
+
+
 def _to_port(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "linear":
         return x.transpose(-1, -2).contiguous()
-    if kind == "conv":
-        return x.permute(2, 1, 0).contiguous()
-    if kind == "conv_transpose":
-        return x.permute(1, 2, 0).contiguous()
+    if kind in _PERMS:
+        return x.permute(*_PERMS[kind][0]).contiguous()
     return x
 
 
 def _from_port(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "linear":
         return x.transpose(-1, -2).contiguous()
-    if kind == "conv":
-        return x.permute(2, 1, 0).contiguous()
-    if kind == "conv_transpose":
-        return x.permute(2, 0, 1).contiguous()
+    if kind in _PERMS:
+        return x.permute(*_PERMS[kind][1]).contiguous()
     return x
 
 
@@ -180,11 +191,20 @@ class _Init:
             p["b"] = self.zeros((cout,))
         return p
 
-    def conv(self, w, cin, cout, std):
-        return {"w": self.normal((cout, cin, w), std), "b": self.zeros((cout,))}
+    def conv(self, w, cin, cout, std, bias=True):
+        p = {"w": self.normal((cout, cin, w), std)}
+        if bias:
+            p["b"] = self.zeros((cout,))
+        return p
 
     def norm(self, c):
         return {"scale": self.ones((c,)), "bias": self.zeros((c,))}
+
+    def batch_norm(self, c, affine=True):
+        p = {"mean": self.zeros((c,)), "var": self.ones((c,))}
+        if affine:
+            p.update(self.norm(c))
+        return p
 
 
 def init_t3(cfg, seed: int = 0, device="cpu", dtype=torch.float32):
@@ -362,3 +382,110 @@ def init_hift(cfg, seed: int = 0, device="cpu"):
         cin = cfg.f0_cond_channels
     p["f0_predictor"] = {"convs": convs, "classifier": r.lin(cfg.f0_cond_channels, 1, 0.05)}
     return p
+
+
+def init_voice_encoder(cfg, seed: int = 0, device="cpu"):
+    """Random voice-encoder parameters (fp32; the LSTM in the JAX layout)."""
+    r = _Init(seed, device, torch.float32)
+    h, s = cfg.hidden_size, cfg.hidden_size ** -0.5
+    layers, cin = [], cfg.num_mels
+    for _ in range(cfg.num_layers):
+        layers.append({"w_ih": r.uniform((cin, 4 * h), -s, s), "w_hh": r.uniform((h, 4 * h), -s, s),
+                       "b": r.zeros((4 * h,))})
+        cin = h
+    return {"lstm": layers, "proj": r.lin(h, cfg.speaker_embed_size, 0.02)}
+
+
+def init_campplus(cfg, seed: int = 0, device="cpu"):
+    """Random CAMPPlus parameters (fp32), He-normal convs and identity
+    batch-norm statistics, as the JAX package's ``init_campplus``."""
+    r = _Init(seed, device, torch.float32)
+
+    def c2(kh, kw, i, o):
+        return {"w": r.normal((o, i, kh, kw), (2.0 / (kh * kw * i)) ** 0.5)}
+
+    def c1(w, i, o, bias=False):
+        return r.conv(w, i, o, (2.0 / (w * i)) ** 0.5, bias=bias)
+
+    def res_block(c, stride):
+        p = {"conv1": c2(3, 3, c, c), "bn1": r.batch_norm(c), "conv2": c2(3, 3, c, c),
+             "bn2": r.batch_norm(c)}
+        if stride != 1:
+            p["shortcut_conv"] = c2(1, 1, c, c)
+            p["shortcut_bn"] = r.batch_norm(c)
+        return p
+
+    m = cfg.m_channels
+    p = {
+        "head": {
+            "conv1": c2(3, 3, 1, m), "bn1": r.batch_norm(m),
+            "layer1": [res_block(m, 2), res_block(m, 1)],
+            "layer2": [res_block(m, 2), res_block(m, 1)],
+            "conv2": c2(3, 3, m, m), "bn2": r.batch_norm(m),
+        },
+        "tdnn": {"conv": c1(5, m * (cfg.feat_dim // 8), cfg.init_channels),
+                 "nl": r.batch_norm(cfg.init_channels)},
+        "blocks": [],
+    }
+    channels, bnc = cfg.init_channels, cfg.bn_size * cfg.growth_rate
+    for n_layers in cfg.block_layers:
+        layers = []
+        for i in range(n_layers):
+            cin = channels + i * cfg.growth_rate
+            layers.append({
+                "nl1": r.batch_norm(cin), "lin1": c1(1, cin, bnc), "nl2": r.batch_norm(bnc),
+                "cam": {"local": c1(3, bnc, cfg.growth_rate),
+                        "lin1": c1(1, bnc, bnc // 2, bias=True),
+                        "lin2": c1(1, bnc // 2, cfg.growth_rate, bias=True)},
+            })
+        cin = channels + n_layers * cfg.growth_rate
+        p["blocks"].append({"layers": layers, "transit_nl": r.batch_norm(cin),
+                            "transit": c1(1, cin, cin // 2)})
+        channels = cin // 2
+    p["out_nl"] = r.batch_norm(channels)
+    p["dense"] = {"conv": c1(1, channels * 2, cfg.embedding_size),
+                  "bn": r.batch_norm(cfg.embedding_size, affine=False)}
+    return p
+
+
+def init_s3tokenizer(cfg, seed: int = 0, device="cpu"):
+    """Random S3-tokenizer parameters (fp32): linears N(0, 1/Cin), convs
+    N(0, 0.02^2), the FSMN conv depthwise (C, 1, K)."""
+    r = _Init(seed, device, torch.float32)
+    c = cfg.n_state
+
+    def lin(i, o, bias=True):
+        return r.lin(i, o, i ** -0.5, bias=bias)
+
+    return {
+        "conv1": r.conv(3, cfg.n_mels, c, 0.02),
+        "conv2": r.conv(3, c, c, 0.02),
+        "blocks": [
+            {"attn_ln": r.norm(c), "q": lin(c, c), "k": lin(c, c, bias=False), "v": lin(c, c),
+             "fsmn": r.conv(cfg.fsmn_kernel, 1, c, 0.02), "attn_out": lin(c, c),
+             "mlp_ln": r.norm(c), "mlp1": lin(c, 4 * c), "mlp2": lin(4 * c, c)}
+            for _ in range(cfg.n_layer)
+        ],
+        "ln_post": r.norm(c),
+        "fsq_proj": lin(c, cfg.fsq_dim),
+    }
+
+
+def split_unet_qkv(flow_params):
+    """A copy of flow parameters whose UNet attention weights are in the
+    reference checkpoint's unfused layout: each fused ``to_qkv`` (3*inner,
+    C) becomes ``to_q``/``to_k``/``to_v`` (inner, C) each. The same
+    function: ``unet._attn`` then takes kernel K5 in place of K3."""
+    def split(tree):
+        if isinstance(tree, list):
+            return [split(x) for x in tree]
+        if not isinstance(tree, dict):
+            return tree
+        if "to_qkv" in tree:
+            q, k, v = tree["to_qkv"]["w"].chunk(3, dim=0)
+            rest = {n: x for n, x in tree.items() if n != "to_qkv"}
+            return {**rest, **{n: {"w": w.contiguous()} for n, w in
+                               (("to_q", q), ("to_k", k), ("to_v", v))}}
+        return {n: split(x) for n, x in tree.items()}
+
+    return split(flow_params)

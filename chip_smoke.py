@@ -5,33 +5,46 @@
 Phases (any failure exits non-zero before the last line):
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles every kernel of ``chatterbox_tpu_torch/csrc`` with nvcc;
-  3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3 and K4 at the full-width
-     shapes of the TTS paths (K1b, K1c+d and K2b at the default budget's
-     cache length, S = 1152), holds each against its plain PyTorch version
-     on the same inputs (the limits are stated at ``OUT_RTOL``) and times
-     the kernel, the plain version and, as a yardstick only, one PyTorch
-     library call for the same function, each as device time from a
-     replayed CUDA graph;
+  3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3, K4 and K5 at the full-width
+     shapes of the TTS and VC paths (K1b, K1c+d and K2b at the default
+     budget's cache length, S = 1152; K5 at T = 1024 and 2560), holds each
+     against its plain PyTorch version on the same inputs (the limits are
+     stated at ``OUT_RTOL``) and times the kernel, the plain version and,
+     as a yardstick only, one PyTorch library call for the same function,
+     each as device time from a replayed CUDA graph;
   4. reference: a small model with the main path's head width, through the
-     port on the card against the port's plain versions on the CPU (see
-     ``reference_phase`` for each comparison and its tolerance);
+     port on the card against the port's plain versions on the CPU, and the
+     full-width conditioning modules on the card against the CPU (see
+     ``reference_phase`` and ``conditioning_reference`` for each comparison
+     and its tolerance);
   5. the TTS paths, on ``ChatterboxTTS.from_random(seed=0)`` at full width
-     (T3 and flow in bf16, HiFT in fp32) with seeded random conditionals,
-     each ``generate_batch`` on the same 8 texts, each first call run with
-     the launch counters set to 0 just before it and read just after, the
-     wavs checked, and the kernels its path must (and must not) launch
-     checked:
-       A. ``max_new_tokens=250``: the bf16 KV cache (K1a, K2, K3, K4);
+     (T3 and flow in bf16, HiFT and the conditioning modules in fp32), each
+     ``generate_batch`` on the same 8 texts, each first call run with the
+     launch counters set to 0 just before it and read just after, the wavs
+     checked, and the kernels its path must (and must not) launch checked:
+       A. ``max_new_tokens=250`` on seeded random conditionals: the bf16 KV
+          cache (K1a, K2, K3, K4);
        B. the default ``max_new_tokens`` (1000): the int8 KV cache (K1c+d,
           K2 into the tail, K2b, K3, K4; no K1a); random weights never
           sample EOS, so T3 decodes all 1000 steps and the flow runs at
           T = 2560 mel frames;
        C. ``max_new_tokens=250, alignment=True``: the watchdog on the bf16
           cache (K1b at the alignment layer, K1a at the others);
+       D. path A's call on conditionals from ``prepare_conditionals`` of a
+          seeded 10 s synthetic reference WAV (timed first and warm);
      after each first call a second, warm call is timed (audio seconds per
      second, per stage) and a third profiled (device time by kernel, the
-     busy share);
-  6. prints the kernel table as one JSON line, the card line, and then
+     busy share) while the run is under half its limit; no TTS path
+     launches K5;
+  6. the VC path E: ``ChatterboxVC.from_random(seed=0)`` (the same S3Gen
+     weights), ``generate_batch`` of 8 seeded 3-12 s sources written as
+     16 kHz WAVs, with ``target_voice_path`` the reference of path D: in
+     the fused attention layout (K3 and K4, no K5), then with the UNet's
+     ``to_qkv`` split into ``to_q``/``to_k``/``to_v`` (K5 in every
+     transformer block at every Euler step, K4, no K3), each a first and a
+     warm call, the unfused one profiled; then the two layouts' flow mels
+     on one batch against each other;
+  7. prints the kernel table as one JSON line, the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 Numerics: fp32 matmuls and convolutions run in full fp32 (TF32 off) so the
@@ -45,6 +58,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -54,14 +68,16 @@ sys.path.insert(0, HERE)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-# K1, K3 and K4 against their plain versions in bf16 (8 significant bits),
-# element by element:
+# K1, K3, K4 and K5 against their plain versions in bf16 (8 significant
+# bits), element by element:
 #     |got - want| <= 2^-7 |want| + 2^-7 (P|v|) + 1e-5
 # Both sides carry fp32 to the end and round the output once to bf16, which
-# parts them by at most one bf16 ulp (<= 2^-7 |want|). K3 and K4 also round
-# the softmax probabilities to bf16 before the value product, the kernel the
-# unnormalised ones of its online softmax and the plain version the
-# normalised ones: each rounding moves p_i by at most 2^-8 of itself, so the
+# parts them by at most one bf16 ulp (<= 2^-7 |want|). K3, K4 and K5 also
+# round the softmax probabilities to bf16 before the value product, the
+# kernel the unnormalised ones of its online softmax and the plain version
+# the normalised ones (K5's plain version, as its Pallas kernel, the
+# unnormalised ones under the row's final max): each rounding moves p_i by
+# at most 2^-8 of itself, so the
 # two outputs part by at most 2^-7 sum_i p_i |v_i| (P|v|: the plain version
 # run on |v|). K1 keeps its probabilities in fp32 on both sides, so that term
 # is absent. 1e-5 covers fp32 summation order. K2 is a copy and must be exact.
@@ -79,6 +95,9 @@ PROMPT_TOKENS = 250  # flow prompt: 250 tokens / 500 mel frames
 T3_LAYERS, T3_HEADS, HEAD_DIM = 30, 16, 64
 N_COND, TEXT_BUCKET, N_BOS = 34, 64, 2
 FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
+# K5's (padded T, valid mel frames): path A's flow (250 + 250 tokens) and
+# path B's (250 + 1000)
+K5_T = ((1024, 1000), (2560, 2500))
 
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
@@ -436,6 +455,51 @@ def kernel_phase():
     )
     del qkv, qh, kh, vh
 
+    # ---- K5: the same attention on (B, H, T, D) q, k, v (the UNet's unfused
+    # layout), at path A's T and path B's; each timed launch reads the next
+    # of enough input sets to pass 4x the 50 MB L2
+    k5_runs = []
+    for t_pad, t_valid in K5_T:
+        set_bytes = 3 * ROWS * FLOW_HEADS * t_pad * HEAD_DIM * 2
+        n_sets = max(2, -(-200 * 2**20 // set_bytes))
+        sets = [tuple(randn(ROWS, FLOW_HEADS, t_pad, HEAD_DIM) for _ in range(3))
+                for _ in range(n_sets)]
+        bias5 = torch.where(torch.arange(t_pad, device=dev)[None] < t_valid, 0.0, -1.0e10)
+        bias5 = bias5.expand(ROWS, t_pad).contiguous().float()
+        q5, k5, v5 = sets[0]
+        want = fa.flash_self_attention_plain(q5, k5, v5, bias5)
+        err, tol, share = check_kernel(f"flash_self_attention (T = {t_pad})",
+                                       fa.flash_self_attention(q5, k5, v5, bias5), want,
+                                       fa.flash_self_attention_plain(q5, k5, v5.abs(), bias5))
+        bias5_4 = bias5[:, None, None, :].to(bf)
+        lib_err = library_err(f"flash_self_attention (T = {t_pad})",
+                              F.scaled_dot_product_attention(q5, k5, v5, attn_mask=bias5_4), want)
+        del want
+        iters = 50 if t_pad <= 1024 else 10
+        k5_runs.append(dict(
+            err=err, tol=tol, share=share, library_err=lib_err, n_sets=n_sets,
+            ms=timed(rotating(lambda i: fa.flash_self_attention(*sets[i], bias5), n_sets), iters),
+            plain_ms=timed(rotating(lambda i: fa.flash_self_attention_plain(*sets[i], bias5),
+                                    n_sets), max(2, iters // 5)),
+            library_ms=timed(rotating(lambda i: F.scaled_dot_product_attention(
+                *sets[i], attn_mask=bias5_4), n_sets), iters),
+            bound=bound(set_bytes * 4 // 3 + bias5.numel() * 4,
+                        4 * ROWS * FLOW_HEADS * t_pad * t_pad * HEAD_DIM),
+        ))
+        del sets, q5, k5, v5
+        torch.cuda.empty_cache()
+    # the row holds path A's T (as K3's row), path B's beside it
+    (t_a, _), (t_b, _) = K5_T
+    short, long = k5_runs
+    rows["flash_self_attention"] = dict(
+        short, err=max(short["err"], long["err"]), share=max(short["share"], long["share"]),
+        library_err=max(short["library_err"], long["library_err"]),
+        extra={"T": t_a, f"ms_t{t_b}": long["ms"], f"plain_ms_t{t_b}": long["plain_ms"],
+               f"library_ms_t{t_b}": long["library_ms"], f"bound_ms_t{t_b}": long["bound"][0],
+               f"max_abs_err_t{t_b}": long["err"], f"err_share_of_tol_t{t_b}": long["share"],
+               "input_sets": {str(t_a): short["n_sets"], str(t_b): long["n_sets"]}},
+    )
+
     # ---- K4: conformer rel-pos attention, 8 rows, the 50 Hz (upsampled) layers
     t_conf = tp
     cd = CONF_C
@@ -509,6 +573,10 @@ KERNEL_INFO = {
         "chatterbox_tpu_torch/csrc/flash_attention.cu",
         "chatterbox_tpu/ops/flash_attention.py:267",
     ),
+    "flash_self_attention": (
+        "chatterbox_tpu_torch/csrc/flash_attention.cu",
+        "chatterbox_tpu/ops/flash_attention.py:172",
+    ),
 }
 
 
@@ -520,10 +588,11 @@ def reference_phase():
         greedy and with injected uniforms, on the bf16 path's kernels (K1a,
         K2), with the int8 cache (K1c+d, K2, K2b) and with the alignment
         watchdog (K1b at layer 1, K1a, K2);
-      - the flow in bf16 on the card (K3, K4) against fp32 on the CPU, from
-        the same bf16 weights and noise: relative L2 error of the mel within
-        5e-2 (8-bit mantissas compounding through ~20 layers and 10 Euler
-        steps);
+      - the flow in bf16 on the card against fp32 on the CPU, from the same
+        bf16 weights and noise, in the fused UNet attention layout (K3, K4)
+        and the unfused one (K5, K4): relative L2 error of the mel within
+        5e-2 each (8-bit mantissas compounding through ~20 layers and 10
+        Euler steps);
       - HiFT (fp32 on both, TF32 off) on the card's mel, zero noise:
         max |err| within 2e-3 (the JAX package's decode tolerance);
       - the watermark on the card's wav: max |err| within 1e-4."""
@@ -588,18 +657,23 @@ def reference_phase():
               (rng.standard_normal((b, 2 * n_prompt, 80)) * 0.5 - 4).astype(np.float32),
               rng.standard_normal((b, 192)).astype(np.float32),
               rng.standard_normal((b, 2 * (n_tok + n_prompt), 80)).astype(np.float32))
-    mels = []
-    for d, dt in ((dev, torch.bfloat16), (cpu, torch.float32)):
+    mels = {}
+    for layout, d, dt in (("fused", dev, torch.bfloat16), ("unfused", dev, torch.bfloat16),
+                          ("cpu", cpu, torch.float32)):
         p = weights.tree_to(flow_bf16, d, dt)
+        if layout == "unfused":
+            p = weights.split_unet_qkv(p)
         mel, _ = flow_inference(p, flow_cfg, *(torch.from_numpy(x).to(d) for x in inputs))
-        mels.append(mel.float().cpu())
-    valid = [mels[1][i, : 2 * (n_prompt + int(inputs[1][i]))] for i in range(b)]
-    got = [mels[0][i, : len(v)] for i, v in enumerate(valid)]
-    rel = max(float((g - v).norm() / v.norm()) for g, v in zip(got, valid))
-    print(f"reference: flow mel bf16 card vs fp32 CPU rel_l2_err={rel:.3e} tol=5.0e-02",
-          flush=True)
-    if not (np.isfinite(rel) and rel <= 5e-2):
-        fail(f"reference: flow mel relative error {rel} exceeds 5e-2")
+        mels[layout] = mel.float().cpu()
+    valid = [mels["cpu"][i, : 2 * (n_prompt + int(inputs[1][i]))] for i in range(b)]
+    for layout in ("fused", "unfused"):
+        got = [mels[layout][i, : len(v)] for i, v in enumerate(valid)]
+        rel = max(float((g - v).norm() / v.norm()) for g, v in zip(got, valid))
+        print(f"reference: flow mel bf16 card ({layout} UNet attention) vs fp32 CPU "
+              f"rel_l2_err={rel:.3e} tol=5.0e-02", flush=True)
+        if not (np.isfinite(rel) and rel <= 5e-2):
+            fail(f"reference: flow mel ({layout}) relative error {rel} exceeds 5e-2")
+    mels = [mels["fused"], mels["cpu"]]
 
     # ---- HiFT (fp32) on the card's mel, then the watermark
     hift_cfg = HiFTConfig(base_channels=64, f0_cond_channels=64)
@@ -622,6 +696,67 @@ def reference_phase():
     print(f"reference: watermark card vs CPU max_abs_err={err:.3e} tol=1.0e-04", flush=True)
     if not err <= 1e-4:
         fail(f"reference: watermark error {err} exceeds 1e-4")
+
+
+def conditioning_reference(ref_path):
+    """The full-width conditioning modules (S3 tokenizer, CAMPPlus, voice
+    encoder; fp32, TF32 off) through ``prepare_conditionals`` of the
+    reference WAV on the card and, as the reference, on the CPU, with the
+    weights ``ChatterboxTTS.from_random(seed=0)`` gives them: T3's prompt
+    tokens and S3Gen's prompt tokens equal; the x-vector, the voice-encoder
+    embedding and the prompt mels within 1e-4 relative L2. Prints how near
+    the tokenizer's pre-round values come to an FSQ boundary (tanh(z)
+    scaled at +-0.5), which a flipped token would sit on."""
+    import torch
+
+    from chatterbox_tpu_torch import ChatterboxTTS, weights
+    from chatterbox_tpu_torch.constants import S3_SR
+    from chatterbox_tpu_torch.core.dsp import s3tok_log_mel_spectrogram
+    from chatterbox_tpu_torch.device import full_fp32
+    from chatterbox_tpu_torch.models.s3gen.s3gen import S3GenConfig
+    from chatterbox_tpu_torch.models.s3tokenizer import FSQ_TANH_SCALE, s3_encode_fsq
+    from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig
+    from chatterbox_tpu_torch.pipeline.audio import load_wav
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg, ve_cfg = S3GenConfig(), VoiceEncoderConfig()
+    # the seeds of from_random(seed=0): CAMPPlus 3, tokenizer 4, VE 5
+    s3 = {"campplus": weights.init_campplus(cfg.campplus, 3, dev),
+          "tokenizer": weights.init_s3tokenizer(cfg.tokenizer, 4, dev)}
+    ve = weights.init_voice_encoder(ve_cfg, 5, dev)
+    conds = {}
+    for where, d in (("card", dev), ("CPU", cpu)):
+        tts = ChatterboxTTS(None, weights.tree_to(s3, d), d, s3gen_cfg=cfg,
+                            ve_params=weights.tree_to(ve, d), ve_cfg=ve_cfg)
+        t0 = time.time()
+        conds[where] = tts.prepare_conditionals(ref_path).to(cpu)
+        print(f"reference: prepare_conditionals on the {where} in {time.time() - t0:.3f} s",
+              flush=True)
+    got, want = conds["card"], conds["CPU"]
+    for name, g, w in (("T3 prompt tokens", got.t3.prompt_tokens, want.t3.prompt_tokens),
+                       ("S3Gen prompt tokens", got.gen.prompt_token, want.gen.prompt_token),
+                       ("S3Gen prompt token lens", got.gen.prompt_token_len,
+                        want.gen.prompt_token_len)):
+        n_diff = int((g != w).sum()) if g.shape == w.shape else -1
+        print(f"reference: {name} {tuple(g.shape)} card vs CPU: {n_diff} differ", flush=True)
+        if n_diff != 0:
+            fail(f"reference: {name} on the card differ from the CPU's ({n_diff})")
+    for name, g, w in (("x-vector", got.gen.embedding, want.gen.embedding),
+                       ("voice-encoder embedding", got.t3.speaker_emb, want.t3.speaker_emb),
+                       ("prompt mels", got.gen.prompt_feat, want.gen.prompt_feat)):
+        rel = float((g - w).norm() / w.norm())
+        print(f"reference: {name} {tuple(g.shape)} card vs CPU rel_l2_err={rel:.3e} tol=1.0e-04",
+              flush=True)
+        if not rel <= 1e-4:
+            fail(f"reference: {name} relative error {rel} exceeds 1e-4")
+    # the FSQ margin of the reference's first 6 s at 16 kHz on the CPU
+    wav16 = torch.from_numpy(load_wav(ref_path, S3_SR)[: 6 * S3_SR])[None]
+    with full_fp32():
+        z, _ = s3_encode_fsq(weights.tree_to(s3["tokenizer"], cpu), cfg.tokenizer,
+                             s3tok_log_mel_spectrogram(wav16).transpose(1, 2))
+    margin = float(((torch.tanh(z) * FSQ_TANH_SCALE).abs() - 0.5).abs().min())
+    print(f"reference: the nearest of {z.numel()} FSQ pre-round values lies {margin:.3e} from a "
+          f"rounding boundary", flush=True)
 
 
 def random_conditionals(dev, seed=0):
@@ -648,7 +783,7 @@ def random_conditionals(dev, seed=0):
 
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_int8_kernel", "kv_append_kernel",
-                "kv_quantize_kernel", "flash_attention_kernel")
+                "kv_quantize_kernel", "flash_attention_kernel", "flash_attention_heads_kernel")
 
 
 def profile_call(fn, warm_wall):
@@ -692,18 +827,54 @@ def profile_call(fn, warm_wall):
                   f"launches: {name[:90]}", flush=True)
 
 
-# the kernels each TTS path must launch, and those it must not
+# the kernels each path must launch, and those it must not
 _K1A, _K1B, _K1C = ("flash_decode_layer_attention", "flash_decode_layer_attention_stats",
                     "flash_decode_layer_attention_int8")
 _K2, _K2B = "kv_cache_append", "kv_cache_quantize_write"
-_FLOW = ("flash_self_attention_packed", "flash_relpos_attention")
+_K3, _K4, _K5 = "flash_self_attention_packed", "flash_relpos_attention", "flash_self_attention"
+_T3 = (_K1A, _K1B, _K1C, _K2, _K2B)
 PATHS = {
     # name: (generate_batch keywords, T3's KV cache, launched, not launched)
-    "A": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2) + _FLOW, (_K1B, _K1C, _K2B)),
-    "B": ({}, "int8", (_K1C, _K2, _K2B) + _FLOW, (_K1A, _K1B)),
-    "C": ({"max_new_tokens": MAX_NEW, "alignment": True}, "bf16", (_K1A, _K1B, _K2) + _FLOW,
-          (_K1C, _K2B)),
+    "A": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5)),
+    "B": ({}, "int8", (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5)),
+    "C": ({"max_new_tokens": MAX_NEW, "alignment": True}, "bf16", (_K1A, _K1B, _K2, _K3, _K4),
+          (_K1C, _K2B, _K5)),
+    # path A's call on conditionals prepared from the reference WAV
+    "D": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5)),
 }
+
+# path E: the reference and the sources, seeded synthetic speech
+REF_SECONDS = 10.0
+N_SOURCES, SOURCE_SECONDS = 8, (3.0, 12.0)
+
+
+def check_launches(path, counts, launched, not_launched, exact=None):
+    """Fail unless each kernel of ``launched`` ran (as many times as
+    ``exact`` says for those it names) and none of ``not_launched`` did."""
+    exact = exact or {}
+    for k in launched:
+        if counts[k] <= 0 or counts[k] != exact.get(k, counts[k]):
+            want = f"{exact[k]} times" if k in exact else "at least once"
+            fail(f"path {path}: kernel {k} was launched {counts[k]} times, not {want}")
+    for k in not_launched:
+        if counts[k] != 0:
+            fail(f"path {path}: kernel {k} was launched {counts[k]} times")
+
+
+def check_wavs(path, wavs, n, lens=None):
+    """n finite 1-D wavs, each a positive multiple of 960 samples (two 480-
+    sample mel frames a token), of ``lens`` samples when given."""
+    import torch
+
+    if len(wavs) != n:
+        fail(f"path {path}: {len(wavs)} wavs for {n} inputs")
+    for i, w in enumerate(wavs):
+        if w.ndim != 1 or len(w) == 0 or len(w) % 960 != 0:
+            fail(f"path {path}: wav {i}: bad shape {w.shape} (a positive multiple of 960)")
+        if lens is not None and len(w) != lens[i]:
+            fail(f"path {path}: wav {i}: {len(w)} samples, not {lens[i]}")
+        if not bool(torch.isfinite(torch.as_tensor(w)).all()):
+            fail(f"path {path}: wav {i}: non-finite samples")
 
 
 def run_path(tts, conds, card, name, profile):
@@ -727,21 +898,10 @@ def run_path(tts, conds, card, name, profile):
     wall = time.time() - t0
     counts = launch_counts()
 
-    if len(wavs) != N_TEXTS:
-        fail(f"path {name}: generate_batch returned {len(wavs)} wavs for {N_TEXTS} texts")
-    for i, w in enumerate(wavs):
-        if w.ndim != 1 or len(w) == 0 or len(w) % 960 != 0:
-            fail(f"path {name}: wav {i}: bad shape {w.shape} (a positive multiple of 960)")
-        if not bool(torch.isfinite(torch.as_tensor(w)).all()):
-            fail(f"path {name}: wav {i}: non-finite samples")
+    check_wavs(name, wavs, N_TEXTS)
     if tts.last_timings["kv_cache"] != kv_cache:
         fail(f"path {name}: T3 ran a {tts.last_timings['kv_cache']} KV cache, not {kv_cache}")
-    for k in launched:
-        if counts[k] <= 0:
-            fail(f"path {name}: kernel {k} was not launched")
-    for k in not_launched:
-        if counts[k] != 0:
-            fail(f"path {name}: kernel {k} was launched {counts[k]} times")
+    check_launches(name, counts, launched, not_launched)
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(f"path {name} ({json.dumps(kw)}): first call {wall:.3f} s for {audio_s:.3f} s of audio "
           f"(stages {json.dumps(tts.last_timings)})", flush=True)
@@ -767,7 +927,38 @@ def run_path(tts, conds, card, name, profile):
     return counts
 
 
-def main_path(card, t_start):
+def prepared_conditionals(tts, ref_path, card):
+    """Path D's conditionals: ``prepare_conditionals`` of the reference WAV,
+    a first call and a warm one timed, the result's shapes checked."""
+    import torch
+
+    walls = []
+    for _ in range(2):
+        t0 = time.time()
+        conds = tts.prepare_conditionals(ref_path)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    p_tok = int(REF_SECONDS * 25)
+    shapes = {"T3 prompt tokens": (tuple(conds.t3.prompt_tokens.shape),
+                                   (1, tts.t3_cfg.speech_cond_prompt_len)),
+              "voice-encoder embedding": (tuple(conds.t3.speaker_emb.shape),
+                                          (1, tts.ve_cfg.speaker_embed_size)),
+              "S3Gen prompt tokens": (tuple(conds.gen.prompt_token.shape), (1, p_tok)),
+              "prompt mels": (tuple(conds.gen.prompt_feat.shape), (1, 2 * p_tok, 80)),
+              "x-vector": (tuple(conds.gen.embedding.shape),
+                           (1, tts.s3gen_cfg.campplus.embedding_size))}
+    for name, (got, want) in shapes.items():
+        if got != want:
+            fail(f"path D: prepare_conditionals gave {name} of shape {got}, not {want}")
+    for x in (conds.t3.speaker_emb, conds.gen.prompt_feat, conds.gen.embedding):
+        if not bool(torch.isfinite(x).all()):
+            fail("path D: prepare_conditionals gave non-finite values")
+    print(f"path D: prepare_conditionals of a {REF_SECONDS:.0f} s reference: first call "
+          f"{walls[0]:.3f} s, warm {walls[1]:.3f} s on {card}", flush=True)
+    return conds
+
+
+def main_path(card, ref_path, t_start):
     import torch
 
     from chatterbox_tpu_torch import ChatterboxTTS
@@ -780,10 +971,115 @@ def main_path(card, t_start):
     counts = {}
     for name in PATHS:
         t0 = time.time()
+        c = prepared_conditionals(tts, ref_path, card) if name == "D" else conds
         # a profile takes a call more: none once the run nears half its limit
-        counts[name] = run_path(tts, conds, card, name, profile=time.time() - t_start < 500)
+        counts[name] = run_path(tts, c, card, name, profile=time.time() - t_start < 500)
         print(f"path {name}: {time.time() - t0:.1f} s", flush=True)
     return counts
+
+
+def vc_path(card, ref_path, src_paths, src_lens, t_start):
+    """Path E: ``ChatterboxVC.generate_batch`` of the sources into the
+    reference's voice, in the fused UNet attention layout and then the
+    unfused one, each a first call (launches counted and checked, wavs
+    checked) and a warm call timed; the unfused one profiled while the run
+    is under half its limit. Then the flow mels of one batch in both
+    layouts, held to each other within relative L2 5e-2 (the card-vs-CPU
+    tolerance of the bf16 flow). Returns the first calls' counts by layout."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch import ChatterboxVC, weights
+    from chatterbox_tpu_torch.constants import S3_SR
+    from chatterbox_tpu_torch.device import full_fp32
+    from chatterbox_tpu_torch.models.s3gen.flow import flow_inference
+    from chatterbox_tpu_torch.models.s3tokenizer import s3_tokenize
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.pipeline.tts import cfm_noise
+
+    t0 = time.time()
+    fused = ChatterboxVC.from_random(seed=0)
+    unfused = ChatterboxVC({**fused.s3gen_params,
+                            "flow": weights.split_unet_qkv(fused.s3gen_params["flow"])},
+                           fused.device, fused.s3gen_cfg)
+    torch.cuda.synchronize()
+    print(f"path E: from_random at full width in {time.time() - t0:.1f} s", flush=True)
+    unet, n_steps = fused.s3gen_cfg.flow.estimator, fused.s3gen_cfg.flow.n_timesteps
+    k5_per_call = unet.n_blocks * (2 + unet.num_mid_blocks) * n_steps  # 56 blocks x 10 steps
+    # each source's samples out: 2 x 480 a token of 640 input samples
+    n_tok = [-(-n // (S3_SR // 25)) for n in src_lens]
+    out_lens = [960 * n for n in n_tok]
+    layouts = {"fused": (fused, (_K3, _K4), (_K5,) + _T3, None),
+               "unfused": (unfused, (_K5, _K4), (_K3,) + _T3, {_K5: k5_per_call})}
+    counts = {}
+    for layout, (vc, launched, not_launched, exact) in layouts.items():
+        t0 = time.time()
+        reset_launch_counts()
+        wavs = vc.generate_batch(src_paths, target_voice_path=ref_path)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts[layout] = launch_counts()
+        check_wavs(f"E ({layout})", wavs, N_SOURCES, out_lens)
+        check_launches(f"E ({layout})", counts[layout], launched, not_launched, exact)
+        audio_s = sum(len(w) for w in wavs) / vc.sr
+        print(f"path E ({layout}): first call (target voice included) {wall:.3f} s for "
+              f"{audio_s:.3f} s of audio, token bucket {vc.last_timings['token_bucket']}",
+              flush=True)
+        print(f"path E ({layout}): kernel launches " + json.dumps(counts[layout]), flush=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        wavs = vc.generate_batch(src_paths)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        print(f"path E ({layout}): {N_SOURCES} sources: warm wall {wall:.3f} s, audio "
+              f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+        if layout == "unfused" and time.time() - t_start < 500:
+            profile_call(lambda: vc.generate_batch(src_paths), wall)
+
+    # the flow alone, both layouts on one batch: the VC call's own tokens
+    batch, n_toks, _ = ChatterboxVC._pack_sources(src_paths)
+    dev = fused.device
+    lens = torch.from_numpy(n_toks).to(dev)
+    with torch.inference_mode():
+        with full_fp32():
+            tokens, _ = s3_tokenize(fused.s3gen_params["tokenizer"], fused.s3gen_cfg.tokenizer,
+                                    torch.from_numpy(batch).to(dev).float() / 32768.0,
+                                    wav_lens=lens * (S3_SR // 25))
+        ref = [x.expand((N_SOURCES,) + x.shape[1:]) for x in fused.ref_dict]
+        total = 2 * (ref[0].shape[1] + tokens.shape[1])
+        noise = cfm_noise(dev)[:, :total].expand(N_SOURCES, total, 80)
+        mels = [flow_inference(vc.s3gen_params["flow"], vc.s3gen_cfg.flow, tokens, lens, *ref,
+                               noise)[0].float().cpu() for vc in (fused, unfused)]
+    n_valid = 2 * (ref[0].shape[1] + n_toks)
+    rel = max(float((mels[1][i, :n] - mels[0][i, :n]).norm() / mels[0][i, :n].norm())
+              for i, n in enumerate(n_valid))
+    print(f"path E: flow mel, unfused (K5) vs fused (K3) layout on one batch of {N_SOURCES} "
+          f"(T = {mels[0].shape[1]}) rel_l2_err={rel:.3e} tol=5.0e-02", flush=True)
+    if not (np.isfinite(rel) and rel <= 5e-2):
+        fail(f"path E: the two layouts' flow mels part by {rel} (relative L2), over 5e-2")
+    return counts
+
+
+def write_audio(audio_dir):
+    """The seeded reference (24 kHz) and sources (16 kHz) as WAV files ->
+    (reference path, source paths, source lengths in samples)."""
+    import numpy as np
+
+    from chatterbox_tpu_torch.constants import S3_SR, S3GEN_SR
+    from chatterbox_tpu_torch.pipeline.audio import save_wav, synthetic_voice
+
+    ref_path = os.path.join(audio_dir, "reference.wav")
+    save_wav(ref_path, synthetic_voice(1000, REF_SECONDS, S3GEN_SR), S3GEN_SR)
+    rng = np.random.default_rng(1001)
+    src_paths, src_lens = [], []
+    for i in range(N_SOURCES):
+        wav = synthetic_voice(1002 + i, float(rng.uniform(*SOURCE_SECONDS)), S3_SR)
+        src_paths.append(os.path.join(audio_dir, f"source_{i}.wav"))
+        save_wav(src_paths[-1], wav, S3_SR)
+        src_lens.append(len(wav))
+    return ref_path, src_paths, src_lens
 
 
 def main():
@@ -807,19 +1103,25 @@ def main():
 
     # each phase's wall seconds, so a later slice can see what its additions
     # cost against the run's time limit
-    t0 = time.time()
-    rows = kernel_phase()
-    t1 = time.time()
-    reference_phase()
-    t2 = time.time()
-    counts = main_path(card, t_start)
-    t3 = time.time()
+    with tempfile.TemporaryDirectory(prefix=".smoke_audio_", dir=HERE) as audio_dir:
+        ref_path, src_paths, src_lens = write_audio(audio_dir)
+        t0 = time.time()
+        rows = kernel_phase()
+        t1 = time.time()
+        reference_phase()
+        conditioning_reference(ref_path)
+        t2 = time.time()
+        counts = main_path(card, ref_path, t_start)
+        t3 = time.time()
+        vc_counts = vc_path(card, ref_path, src_paths, src_lens, t_start)
+        t4 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, reference "
-          f"{t2 - t1:.1f} s, paths {t3 - t2:.1f} s", flush=True)
+          f"{t2 - t1:.1f} s, TTS paths {t3 - t2:.1f} s, VC path {t4 - t3:.1f} s", flush=True)
+    counts["E"] = {k: vc_counts["fused"][k] + vc_counts["unfused"][k] for k in vc_counts["fused"]}
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
     # under the two sets of names that readers of this line expect;
-    # "launches" sums the first calls of paths A, B and C
+    # "launches" sums the first calls of paths A-E (E: both layouts)
     table = []
     for name, r in rows.items():
         src, replaces = KERNEL_INFO[name]
@@ -835,6 +1137,7 @@ def main():
             "library_max_abs_err": r["library_err"],
         }
         row.update({k: r[k] for k in ("library_note", "k1a_ms_same_live_lengths") if k in r})
+        row.update(r.get("extra", {}))
         table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)

@@ -169,6 +169,21 @@ def test_flash_self_attention_packed_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_self_attention_matches_plain(cuda):
+    """K5 on (B, H, T, D) operands with pad keys, as the UNet gives them."""
+    q, k, v = (_randn(cuda, 4, 8, 256, 64, seed=s) for s in (15, 16, 17))
+    lens = torch.tensor([256, 200, 129, 3], device=cuda)
+    bias = torch.where(torch.arange(256, device=cuda)[None] < lens[:, None], 0.0, -1.0e10)
+    bias = bias.float().contiguous()
+    before = fa.flash_self_attention.launches
+    got = fa.flash_self_attention(q, k, v, bias)
+    assert fa.flash_self_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    _assert_within(got, fa.flash_self_attention_plain(q, k, v, bias),
+                   fa.flash_self_attention_plain(q, k, v.abs(), bias))
+
+
+@pytest.mark.cuda
 def test_flash_relpos_matches_plain(cuda):
     q_u, k, v = (_randn(cuda, 2, 256, 8 * 64, seed=s, scale=0.5) for s in (7, 8, 9))
     q_hat = _randn(cuda, 2, 256, 8 * 512, seed=10, scale=0.1)
@@ -186,6 +201,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qkv = _randn(cuda, 1, 100, 3 * 8 * 64, seed=12)  # T not a multiple of 64
     with pytest.raises(ValueError):
         fa.flash_self_attention_packed(qkv, torch.zeros((1, 100), device=cuda), 8)
+    q = _randn(cuda, 1, 2, 128, 32, seed=18)  # head dim 32
+    with pytest.raises(ValueError):
+        fa.flash_self_attention(q, q, q)
     cache = _randn(cuda, 1, 2, 2, 2, 128, 64, seed=13).transpose(-1, -2)  # not contiguous
     q = _randn(cuda, 2, 2, 64, seed=14)
     with pytest.raises(ValueError):

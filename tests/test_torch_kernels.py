@@ -1,4 +1,4 @@
-"""The port's kernels (K1a-d, K2, K2b, K3, K4), held against the JAX
+"""The port's kernels (K1a-d, K2, K2b, K3, K4, K5), held against the JAX
 package's Pallas kernels (interpret mode on the CPU).
 
 On the CPU each wrapper takes its plain PyTorch version, so these tests hold
@@ -166,6 +166,79 @@ def test_flash_self_attention_packed_plain_matches_pallas(t_len, n_valid):
     want = j_fa.flash_self_attention_packed(j(qkv), j(bias), n_heads=h, interpret=True)
     got = p_fa.flash_self_attention_packed(t(qkv), t(bias), h)
     assert_close(got, np.asarray(want), TOL, TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_self_attention_plain_matches_pallas(dtype):
+    """K5 on (B, H, T, D) with pad keys at -1e10, as test_ops.py's
+    test_flash_self_attention_matches_dense. In bf16 both sides round the
+    unnormalised probabilities to bf16, divide by their fp32 sum after the
+    value product, and round the output once. Logits that part in the last
+    fp32 bit can round a probability to the neighbouring bf16 value (2^-8 of
+    itself), so the limit is chip_smoke.py's: |got - want| <= 2^-7 |want| +
+    2^-7 P|v| + 1e-5, with P|v| the fp32 attention on |v|."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(5)
+    b, h, t_len, d = 2, 4, 256, 64
+    q, k, v = (rng.standard_normal((b, h, t_len, d)).astype(np.float32) for _ in range(3))
+    bias = np.where(np.arange(t_len)[None] < np.array([200, 256])[:, None], 0.0,
+                    -1.0e10).astype(np.float32)
+    jdt, pdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(j_fa.flash_self_attention(*(j(x).astype(jdt) for x in (q, k, v)), j(bias),
+                                                interpret=True), np.float32)
+    got = p_fa.flash_self_attention(*(t(x, pdt) for x in (q, k, v)), t(bias))
+    assert got.dtype == pdt and tuple(got.shape) == (b, h, t_len, d)
+    if dtype == "float32":
+        assert_close(got, want, TOL, TOL)
+    else:
+        p_abs_v = p_fa.flash_self_attention_plain(t(q), t(k), t(np.abs(v)), t(bias)).numpy()
+        limit = 2.0 ** -7 * (np.abs(want) + p_abs_v) + 1e-5
+        assert (np.abs(got.float().numpy() - want) <= limit).all()
+
+
+@pytest.mark.parametrize("layout", ["fused_aligned", "fused_unaligned", "unfused"])
+def test_unet_attn_dispatch_matches_jax(layout):
+    """The UNet's attention on the three weight layouts, against the JAX
+    package's ``_attn`` (fp32, Pallas in interpret mode): fused with an
+    inner width of 256 takes K3 on both sides, fused with 3 heads of 64
+    (192) takes K5 on both. Unfused to_q/to_k/to_v weights take K5 in the
+    port; the JAX dispatch sends them to its packed branch, which raises
+    KeyError on the missing ``to_qkv``, so they are held against the JAX
+    dense path (``use_flash=False``) and against the fused K3 result of the
+    same weights."""
+    from chatterbox_tpu.models.s3gen import unet as ju
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.models.s3gen import unet as pu
+
+    heads = 3 if layout == "fused_unaligned" else 4
+    c, inner = 64, heads * 64
+    rng = np.random.default_rng(11)
+    jp = {"to_qkv": {"w": (rng.standard_normal((c, 3 * inner)) / 8).astype(np.float32)},
+          "to_out": {"w": (rng.standard_normal((inner, c)) / 16).astype(np.float32),
+                     "b": rng.standard_normal(c).astype(np.float32)}}
+    x = rng.standard_normal((2, 50, c)).astype(np.float32)
+    key_bias = np.where(np.arange(50)[None] < np.array([50, 37])[:, None], 0.0,
+                        -1.0e10).astype(np.float32)
+    pp = weights.from_jax_tree(jp)
+    want = np.asarray(ju._attn(jax.tree.map(j, jp), j(x), heads, j(key_bias)))
+    reset_launch_counts()
+    if layout == "unfused":
+        w = np.split(jp["to_qkv"]["w"], 3, axis=1)
+        jp_split = {"to_q": {"w": w[0]}, "to_k": {"w": w[1]}, "to_v": {"w": w[2]},
+                    "to_out": jp["to_out"]}
+        with pytest.raises(KeyError):
+            ju._attn(jax.tree.map(j, jp_split), j(x), heads, j(key_bias))
+        dense = np.asarray(ju._attn(jax.tree.map(j, jp_split), j(x), heads, j(key_bias),
+                                    use_flash=False))
+        pp = weights.split_unet_qkv(pp)
+        assert set(pp) == {"to_q", "to_k", "to_v", "to_out"}
+        got = pu._attn(pp, t(x), heads, t(key_bias))
+        assert_close(got, dense, 2e-5, 1e-5)
+    else:
+        got = pu._attn(pp, t(x), heads, t(key_bias))
+    assert_close(got, want, 2e-5, 1e-5)
+    assert launch_counts() == {name: 0 for name in kernels()}  # CPU: the plain versions
 
 
 def _relpos_case(seed, b=2, t_len=128, h=4, d=32, c=128):

@@ -14,39 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import J_S3GEN, J_T3, P_S3GEN, P_T3, ref_inputs, s3gen_params, t3_params
-
-from chatterbox_tpu_torch import weights
+from torch_parity import (
+    J_S3GEN, J_T3, P_S3GEN, P_T3, loud_s3gen_params, ref_inputs, t3_params, zero_vocoder_noise,
+)
 
 TEXTS = ["Hello world.", "A somewhat longer test sentence."]
 MAX_NEW = 12
 # the alignment layer of the 2-layer tiny Llama, as test_alignment.py sets it
 J_T3_ALIGN = dataclasses.replace(J_T3, alignment_layer=1)
 P_T3_ALIGN = dataclasses.replace(P_T3, alignment_layer=1)
-
-
-def _zero_noise(hift_generate, zeros):
-    def run(p, cfg, mel, **kw):
-        b, t_mel, _ = mel.shape
-        h = cfg.nb_harmonics + 1
-        kw["phase_noise"] = zeros((b, h))
-        kw["additive_noise"] = zeros((b, h, t_mel * cfg.upsample_total))
-        kw.pop("generator", None)
-        kw.pop("rng", None)
-        return hift_generate(p, cfg, mel, **kw)
-
-    return run
-
-
-def _s3gen_params():
-    """The tiny S3Gen weights with a 100x HiFT conv_post, so the random
-    vocoder's iSTFT head sees O(1) log-magnitudes and phases and the
-    waveforms peak at hundreds of int16 steps rather than a few."""
-    jp, _ = s3gen_params()
-    hift = dict(jp["hift"])
-    hift["conv_post"] = {**hift["conv_post"], "w": hift["conv_post"]["w"] * 100.0}
-    jp = {**jp, "hift": hift}
-    return jp, weights.from_jax_tree(jp)
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +40,7 @@ def jax_tts(tmp_path_factory):
     )
     tts = ChatterboxTTS(
         t3_params=jax.tree.map(jnp.asarray, t3_params()[0]),
-        s3gen_params=jax.tree.map(jnp.asarray, _s3gen_params()[0]),
+        s3gen_params=jax.tree.map(jnp.asarray, loud_s3gen_params()[0]),
         ve_params={}, tokenizer=None, t3_cfg=J_T3, s3gen_cfg=J_S3GEN,
         conds=jax.tree.map(jnp.asarray, conds), kv_quant=False,
     )
@@ -79,7 +55,7 @@ def jax_wavs(jax_tts):
 
     tts, _ = jax_tts
     real = js.hift_generate
-    js.hift_generate = _zero_noise(real, jnp.zeros)
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
     try:
         return tts.generate_batch(TEXTS, greedy=True, max_new_tokens=MAX_NEW)
     finally:
@@ -90,7 +66,7 @@ def jax_wavs(jax_tts):
 def zero_port_noise(monkeypatch):
     from chatterbox_tpu_torch.models.s3gen import s3gen as ps
 
-    monkeypatch.setattr(ps, "hift_generate", _zero_noise(ps.hift_generate, torch.zeros))
+    monkeypatch.setattr(ps, "hift_generate", zero_vocoder_noise(ps.hift_generate, torch.zeros))
 
 
 @pytest.fixture(scope="module")
@@ -102,7 +78,7 @@ def jax_variant_wavs(jax_tts):
 
     tts, _ = jax_tts
     real = js.hift_generate
-    js.hift_generate = _zero_noise(real, jnp.zeros)
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
     tts.kv_quant, tts.t3_cfg = True, J_T3_ALIGN
     try:
         return {alignment: tts.generate_batch(TEXTS, greedy=True, max_new_tokens=MAX_NEW,
@@ -116,7 +92,7 @@ def jax_variant_wavs(jax_tts):
 def _port_tts(t3_cfg=P_T3, **kw):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
 
-    return ChatterboxTTS(t3_params()[1], _s3gen_params()[1], "cpu", t3_cfg=t3_cfg,
+    return ChatterboxTTS(t3_params()[1], loud_s3gen_params()[1], "cpu", t3_cfg=t3_cfg,
                          s3gen_cfg=P_S3GEN, **kw)
 
 

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import J_S3GEN, J_T3, P_S3GEN, P_T3, np_tree, ref_inputs, s3gen_params, t3_params
+from torch_parity import (
+    J_S3GEN, J_T3, P_S3GEN, P_T3, P_VE, cond_params, np_tree, ref_inputs, s3gen_params, t3_params,
+)
 
 from chatterbox_tpu_torch import weights
 from chatterbox_tpu_torch.checkpoint.safetensors_io import load_safetensors, save_safetensors
@@ -30,9 +32,12 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-@pytest.mark.parametrize("which", ["t3", "s3gen"])
+@pytest.mark.parametrize("which", ["t3", "s3gen", "ve", "campplus", "tokenizer"])
 def test_from_jax_tree_round_trips_bit_for_bit(which):
-    jp, _ = t3_params() if which == "t3" else s3gen_params()
+    if which in ("t3", "s3gen"):
+        jp, _ = t3_params() if which == "t3" else s3gen_params()
+    else:
+        jp = cond_params()[0][which]
     want = dict(_leaves(np_tree(jp)))
     got = dict(_leaves(weights.to_jax_tree(weights.from_jax_tree(np_tree(jp)))))
     assert got.keys() == want.keys()
@@ -56,6 +61,24 @@ def test_bridge_layouts():
         ps["flow"]["estimator"]["down_conv"]["w"].numpy(), w.transpose(2, 1, 0))
     up = np.asarray(js["hift"]["ups"][0]["w"])  # (W, Cin, Cout)
     np.testing.assert_array_equal(ps["hift"]["ups"][0]["w"].numpy(), up.transpose(1, 2, 0))
+
+
+def test_bridge_layouts_of_the_conditioning_modules():
+    """conv2d (KH, KW, Cin, Cout) -> (Cout, Cin, KH, KW); the FSMN's
+    depthwise conv (W, 1, C) -> (C, 1, W); the LSTM's w_ih/w_hh stay in the
+    JAX layout; batch-norm statistics pass through."""
+    jc, pc = cond_params()
+    w = jc["campplus"]["head"]["layer1"][0]["conv1"]["w"]  # (3, 3, 8, 8)
+    np.testing.assert_array_equal(pc["campplus"]["head"]["layer1"][0]["conv1"]["w"].numpy(),
+                                  w.transpose(3, 2, 0, 1))
+    assert tuple(pc["campplus"]["head"]["conv1"]["w"].shape) == (8, 1, 3, 3)
+    assert tuple(pc["tokenizer"]["blocks"][0]["fsmn"]["w"].shape) == (64, 1, 11)
+    for name in ("w_ih", "w_hh", "b"):
+        np.testing.assert_array_equal(pc["ve"]["lstm"][1][name].numpy(), jc["ve"]["lstm"][1][name])
+    assert tuple(pc["ve"]["proj"]["w"].shape) == (256, 32)
+    bn = jc["campplus"]["dense"]["bn"]
+    assert set(bn) == {"mean", "var"}
+    np.testing.assert_array_equal(pc["campplus"]["dense"]["bn"]["var"].numpy(), bn["var"])
 
 
 @pytest.fixture(scope="module")
@@ -171,19 +194,25 @@ def test_conditionals_save_loads_in_jax(native_dir, tmp_path):
 def test_load_configs_reads_jax_config(native_dir):
     from chatterbox_tpu_torch.checkpoint.config_io import load_configs
 
-    t3_cfg, s3_cfg = load_configs(native_dir / "config.json")
+    t3_cfg, s3_cfg, ve_cfg = load_configs(native_dir / "config.json")
     assert t3_cfg == P_T3
     assert s3_cfg == P_S3GEN
+    assert ve_cfg == type(P_VE)()
 
 
 def test_port_init_shapes_match_jax_init():
     """The port's own seeded inits build the same tree of shapes as the JAX
-    init_* functions give after the bridge."""
+    init_* functions give after the bridge (the conditioning modules' trees
+    are the JAX inits' own, filled from numpy: torch_parity.cond_params)."""
     _, pt = t3_params()
     _, ps = s3gen_params()
+    _, pc = cond_params()
     mine_t3 = weights.init_t3(P_T3, seed=0)
     mine_s3 = {"flow": weights.init_flow(P_S3GEN.flow, 1), "hift": weights.init_hift(P_S3GEN.hift, 2)}
-    for mine, ref in ((mine_t3, pt), (mine_s3, ps)):
+    mine_c = {"campplus": weights.init_campplus(P_S3GEN.campplus, 3),
+              "tokenizer": weights.init_s3tokenizer(P_S3GEN.tokenizer, 4),
+              "ve": weights.init_voice_encoder(P_VE, 5)}
+    for mine, ref in ((mine_t3, pt), (mine_s3, ps), (mine_c, pc)):
         a = {k: tuple(v.shape) for k, v in _leaves(mine)}
         b = {k: tuple(v.shape) for k, v in _leaves(ref)}
         assert a == b
@@ -210,8 +239,12 @@ def test_port_sources_import_no_jax():
 def test_port_runs_without_jax_in_a_fresh_process():
     code = """
 import sys, torch
-from chatterbox_tpu_torch import ChatterboxTTS
+from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxVC
 from chatterbox_tpu_torch.models.s3gen.s3gen import RefDict, S3GenConfig
+from chatterbox_tpu_torch.models.s3gen.xvector import CAMPPlusConfig
+from chatterbox_tpu_torch.models.s3tokenizer import S3TokenizerConfig
+from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig
+from chatterbox_tpu_torch.pipeline.audio import synthetic_voice
 from chatterbox_tpu_torch.models.s3gen.flow import FlowConfig
 from chatterbox_tpu_torch.models.s3gen.hifigan import HiFTConfig
 from chatterbox_tpu_torch.models.s3gen.conformer import ConformerConfig
@@ -224,8 +257,12 @@ t3 = T3Config(llama=LlamaConfig(hidden_size=32, intermediate_size=64, num_hidden
 s3 = S3GenConfig(flow=FlowConfig(input_size=64, encoder=ConformerConfig(
     input_size=64, output_size=64, attention_heads=2, linear_units=64, num_blocks=1,
     num_up_blocks=1), estimator=UNetConfig(channels=32, n_blocks=1, num_mid_blocks=1,
-    num_heads=2), n_timesteps=2), hift=HiFTConfig(base_channels=32, f0_cond_channels=32))
-tts = ChatterboxTTS.from_random(seed=0, t3_cfg=t3, s3gen_cfg=s3, device="cpu")
+    num_heads=2), n_timesteps=2), hift=HiFTConfig(base_channels=32, f0_cond_channels=32),
+    campplus=CAMPPlusConfig(growth_rate=8, bn_size=2, init_channels=16, m_channels=8,
+                            block_layers=(1, 1, 1)),
+    tokenizer=S3TokenizerConfig(n_state=32, n_head=2, n_layer=1))
+tts = ChatterboxTTS.from_random(seed=0, t3_cfg=t3, s3gen_cfg=s3, device="cpu",
+                                ve_cfg=VoiceEncoderConfig(hidden_size=16, num_layers=1))
 g = torch.Generator().manual_seed(0)
 conds = Conditionals(
     T3CondData(torch.randn(1, 256, generator=g), torch.zeros(1, 150, dtype=torch.int32),
@@ -234,6 +271,12 @@ conds = Conditionals(
             torch.zeros(1, 8, 80), torch.randn(1, 192, generator=g)))
 w = tts.generate("Hi.", conds=conds, max_new_tokens=4)
 assert w.shape[0] == 1 and w.shape[1] % 960 == 0, w.shape
+c = tts.prepare_conditionals(synthetic_voice(0, 1.0, 24000))
+assert tuple(c.t3.prompt_tokens.shape) == (1, 25) and tuple(c.gen.prompt_feat.shape) == (1, 50, 80)
+vc = ChatterboxVC(tts.s3gen_params, "cpu", s3)
+v = vc.generate(synthetic_voice(1, 0.5, 16000), target_voice_path=None if vc.set_target_voice(
+    synthetic_voice(2, 0.8, 24000)) is None else None)
+assert v.shape == (1, 13 * 960), v.shape
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "chatterbox_tpu" or m.startswith("chatterbox_tpu."))
 assert not bad, bad
@@ -245,16 +288,32 @@ print("OK")
     assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-3000:]
 
 
-@pytest.mark.parametrize("entry", ["from_random", "from_native"])
+@pytest.mark.parametrize("entry", ["from_random", "from_native", "vc_from_random",
+                                   "vc_from_native"])
 def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monkeypatch):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
+    from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "from_random":
             ChatterboxTTS.from_random(seed=0, t3_cfg=P_T3, s3gen_cfg=P_S3GEN)
-        else:
+        elif entry == "from_native":
             ChatterboxTTS.from_native(native_dir)
+        elif entry == "vc_from_random":
+            ChatterboxVC.from_random(seed=0, s3gen_cfg=P_S3GEN)
+        else:
+            ChatterboxVC.from_native(native_dir)
+
+
+def test_vc_runs_where_asked(native_dir):
+    """Given a device, ChatterboxVC builds there; the native directory's
+    config gives its S3Gen config."""
+    from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
+
+    vc = ChatterboxVC.from_native(native_dir, device="cpu")
+    assert vc.device == torch.device("cpu") and vc.s3gen_cfg == P_S3GEN
+    assert ChatterboxVC.from_random(seed=0, s3gen_cfg=P_S3GEN, device="cpu").ref_dict is None
 
 
 def test_kernel_wrappers_raise_on_cuda_without_a_build(monkeypatch):
