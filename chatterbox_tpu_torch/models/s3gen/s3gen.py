@@ -4,9 +4,11 @@ Port of ``chatterbox_tpu/models/s3gen/s3gen.py``: ``embed_ref`` builds the
 reference voice's RefDict from a raw wav (S3 tokens, 24 kHz mels, the
 CAMPPlus x-vector); ``s3gen_wav`` runs the flow (tokens -> mel), HiFT (mel
 -> wav) with masked vocoding of padded rows, and the 20 ms trim-fade.
+``flow_steps_from_env`` reads the CFM step count's ``CHATTERBOX_FLOW_STEPS``.
 """
 
-from dataclasses import dataclass, field
+import os
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +30,30 @@ class S3GenConfig:
     campplus: CAMPPlusConfig = field(default_factory=CAMPPlusConfig)
     tokenizer: S3TokenizerConfig = field(default_factory=S3TokenizerConfig)
     trim_n: int = S3GEN_SR // 50  # 20 ms fade
+
+
+def flow_steps_from_env(cfg: S3GenConfig) -> S3GenConfig:
+    """``cfg`` with the CFM Euler step count of ``CHATTERBOX_FLOW_STEPS`` when
+    that is set (s3gen.py:37-60); unset, ``cfg`` as it is. Both pipelines
+    call it at construction; a value that is not an integer >= 1 raises."""
+    n = os.environ.get("CHATTERBOX_FLOW_STEPS")
+    if not n:
+        return cfg
+    try:
+        steps = int(n)
+    except ValueError:
+        raise ValueError(f"CHATTERBOX_FLOW_STEPS must be an integer >= 1, got {n!r}") from None
+    if steps < 1:
+        raise ValueError(f"CHATTERBOX_FLOW_STEPS must be >= 1 (a zero or negative Euler step "
+                         f"count degenerates the CFM solve), got {steps}")
+    return with_flow_steps(cfg, steps)
+
+
+def with_flow_steps(cfg: S3GenConfig, steps: int) -> S3GenConfig:
+    """``cfg`` with ``steps`` CFM Euler steps."""
+    if steps == cfg.flow.n_timesteps:
+        return cfg
+    return replace(cfg, flow=replace(cfg.flow, n_timesteps=steps))
 
 
 class RefDict(NamedTuple):

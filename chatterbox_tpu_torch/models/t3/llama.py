@@ -5,7 +5,12 @@ with the Llama_520M config: hidden 1024, 30 layers, 16 heads of 64, FFN
 4096, RMSNorm eps 1e-5, rope_theta 5e5 with llama3 scaling).
 
 Parameters keep the stacked layout (L, ...) of the JAX package, with linear
-weights as (L, Cout, Cin). The KV cache takes one of two forms:
+weights as (L, Cout, Cin). Besides the canonical separate q/k/v, a layer
+may carry the runtime layouts of ``runtime/precision.py``: one fused
+``qkv`` projection, and int8 projections ``{"w8": int8 (L, Cout, Cin),
+"scale": fp32 (L, Cout)}`` with one scale per output channel. Every
+projection goes through ``_wmat``, which takes either form. The KV cache
+takes one of two forms:
 
 - a tensor (L, 2, B, H, S, D) in the working dtype: the decode step reads
   layer i in place through K1a (K1b at the alignment layer) and writes all
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...core.layers import linear, merge_heads, rms_norm, sdpa, split_heads
+from ...core.layers import merge_heads, rms_norm, sdpa, split_heads
 from ...ops.flash_decode import (
     TAIL_W,
     flash_decode_layer_attention,
@@ -100,15 +105,102 @@ def layer_params(params, i):
     return {name: {k: v[i] for k, v in sub.items()} for name, sub in params["layers"].items()}
 
 
+def fuse_qkv_params(params):
+    """The q/k/v projections concatenated into one ``qkv`` weight (L,
+    3 * H * D, C): one matrix product a layer instead of three (llama.py:158-
+    174). Returns a new tree; a tree already fused comes back as it is."""
+    layers = dict(params["layers"])
+    if "qkv" in layers:
+        return params
+    layers["qkv"] = {"w": torch.cat(
+        [layers.pop("q")["w"], layers.pop("k")["w"], layers.pop("v")["w"]], dim=-2)}
+    return {**params, "layers": layers}
+
+
+def unfuse_qkv_params(params, cfg: LlamaConfig):
+    """Inverse of ``fuse_qkv_params``: the canonical separate q/k/v
+    (llama.py:184-196)."""
+    layers = dict(params["layers"])
+    if "qkv" not in layers:
+        return params
+    w = layers.pop("qkv")["w"]
+    hd = cfg.num_attention_heads * cfg.head_dim
+    kvd = cfg.num_key_value_heads * cfg.head_dim
+    layers["q"] = {"w": w[..., :hd, :]}
+    layers["k"] = {"w": w[..., hd:hd + kvd, :]}
+    layers["v"] = {"w": w[..., hd + kvd:, :]}
+    return {**params, "layers": layers}
+
+
+QUANT_WEIGHT_NAMES = ("qkv", "q", "k", "v", "o", "gate_up", "gate", "up", "down")
+
+
+def quantize_llama_weights(params):
+    """Weight-only int8 of the projections (llama.py:202-225): each ``{"w"}``
+    (L, Cout, Cin) becomes ``{"w8": int8 (L, Cout, Cin), "scale": fp32 (L,
+    Cout)}``, symmetric per output channel, ``w ~= w8 * scale[..., None]``.
+    The arithmetic is the JAX function's as ``jax.jit`` compiles it (the JAX
+    package always runs it under jit): ``scale = max(absmax * f32(1/127),
+    1e-12)`` (XLA folds the division by the constant 127 into a multiply by
+    its fp32 reciprocal, as for ``quantize_kv``), ``w8 = clip(round(w /
+    scale), -127, 127)`` with a true division, rounding half to even. Norm
+    scales stay as they are. Apply after ``fuse_qkv_params``."""
+    def quant(wp):
+        w = wp["w"].float()
+        scale = torch.clamp_min(w.abs().amax(dim=-1) * (1.0 / 127.0), 1e-12)
+        w8 = torch.round(w / scale[..., None]).clamp(-127, 127).to(torch.int8)
+        return {"w8": w8, "scale": scale}
+
+    layers = dict(params["layers"])
+    for name in QUANT_WEIGHT_NAMES:
+        if name in layers and "w" in layers[name]:
+            layers[name] = quant(layers[name])
+    return {**params, "layers": layers}
+
+
+def dequantize_llama_weights(params, dtype=torch.bfloat16):
+    """Inverse of ``quantize_llama_weights`` up to the int8 rounding: the
+    dense ``{"w"}`` layout, ``w8 * scale`` in fp32 cast to ``dtype``
+    (llama.py:228-240)."""
+    layers = dict(params["layers"])
+    for name in QUANT_WEIGHT_NAMES:
+        if name in layers and "w8" in layers[name]:
+            wp = layers[name]
+            layers[name] = {"w": (wp["w8"].float() * wp["scale"][..., None]).to(dtype)}
+    return {**params, "layers": layers}
+
+
+def canonicalize_llama_params(params, cfg: LlamaConfig, dtype=torch.bfloat16):
+    """The canonical dense separate-q/k/v layout from any runtime layout
+    (fused and/or int8), the one checkpoints address (llama.py:177-181)."""
+    return unfuse_qkv_params(dequantize_llama_weights(params, dtype), cfg)
+
+
+def _wmat(y, wp):
+    """y @ W for a dense ``{"w"}`` or an int8 ``{"w8", "scale"}`` weight
+    (llama.py:243-251). The int8 form multiplies by the weight converted to
+    y's dtype and then scales the output, not the weight, in y's dtype. On
+    the card that writes a converted copy of the weight every call, where
+    XLA fuses the convert into the product's operand read; a fused int8
+    product kernel is queued (ROADMAP)."""
+    if "w8" in wp:
+        return F.linear(y, wp["w8"].to(y.dtype)) * wp["scale"].to(y.dtype)
+    return F.linear(y, wp["w"])
+
+
 def _qkv(lp, y, cfg: LlamaConfig):
-    q = split_heads(linear(lp["q"], y), cfg.num_attention_heads)
-    k = split_heads(linear(lp["k"], y), cfg.num_key_value_heads)
-    v = split_heads(linear(lp["v"], y), cfg.num_key_value_heads)
-    return q, k, v
+    """y -> per-head q, k, v (B, H, T, D), from the fused ``qkv`` weight when
+    the layer has one (llama.py:254-263)."""
+    h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if "qkv" in lp:
+        q, k, v = _wmat(y, lp["qkv"]).split([h * d, kvh * d, kvh * d], dim=-1)
+    else:
+        q, k, v = (_wmat(y, lp[n]) for n in ("q", "k", "v"))
+    return split_heads(q, h), split_heads(k, kvh), split_heads(v, kvh)
 
 
 def _mlp(lp, y):
-    g, u = linear(lp["gate_up"], y).chunk(2, dim=-1)
+    g, u = _wmat(y, lp["gate_up"]).chunk(2, dim=-1)
     return F.silu(g) * u
 
 
@@ -151,9 +243,9 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
         q, k = apply_rope(q, k, cos, sin)
         kvs[i, 0, :, :, :t] = k
         kvs[i, 1, :, :, :t] = v
-        x = x + linear(lp["o"], merge_heads(sdpa(q, k, v, bias=bias)))
+        x = x + _wmat(merge_heads(sdpa(q, k, v, bias=bias)), lp["o"])
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
-        x = x + linear(lp["down"], _mlp(lp, y))
+        x = x + _wmat(_mlp(lp, y), lp["down"])
     hidden = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     if not cache_quant:
         return hidden, kvs
@@ -237,9 +329,9 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
             attn = _text_probs(cache, i, q1, m, l, text_slice, row_prefix)
         else:
             a = flash_decode_layer_attention(cache, i, write_pos, row_prefix, gap_end, q1, k1, v1)
-        x = x + linear(lp["o"], a.reshape(b, 1, h * d))
+        x = x + _wmat(a.reshape(b, 1, h * d), lp["o"])
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
-        x = x + linear(lp["down"], _mlp(lp, y))
+        x = x + _wmat(_mlp(lp, y), lp["down"])
         new_kv[i, 0] = k1
         new_kv[i, 1] = v1
     kv_cache_write(cache, new_kv, write_pos)

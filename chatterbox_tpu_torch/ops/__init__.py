@@ -1,13 +1,19 @@
 """The port's hand-written kernels, each beside its plain PyTorch version.
 
-``kernels()`` names every wrapper that launches a kernel of a TTS or VC
-path; a wrapper counts its own launches in ``fn.launches`` (CPU calls, which
-take the plain version, do not count).
+``kernels()`` names every wrapper that launches a kernel: the eight of the
+TTS and VC paths and the five of the probes (``probes/``); a wrapper counts
+its own launches in ``fn.launches`` (CPU calls, which take the plain
+version, do not count).
 """
+
+PROBE_KERNELS = ("noop_copy", "cache_column_write", "cache_block_rmw", "int8_probe",
+                 "softmax_probe")
 
 
 def kernels():
-    """{name: wrapper} for the eight kernels of the TTS and VC paths."""
+    """{name: wrapper} for the thirteen kernels: the TTS and VC paths' eight,
+    then ``PROBE_KERNELS``."""
+    from . import probes
     from .flash_attention import (
         flash_relpos_attention,
         flash_self_attention,
@@ -30,6 +36,7 @@ def kernels():
         "flash_self_attention_packed": flash_self_attention_packed,
         "flash_self_attention": flash_self_attention,
         "flash_relpos_attention": flash_relpos_attention,
+        **{name: getattr(probes, name) for name in PROBE_KERNELS},
     }
 
 

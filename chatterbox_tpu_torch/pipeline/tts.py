@@ -18,8 +18,14 @@ as the JAX package's auto policy has it (``_kv_quant_for``; the
 the working dtype otherwise. ``generate_batch(alignment=True)`` runs the
 alignment watchdog, which forces the working-dtype cache.
 
-Not in this slice: streaming, batch splitting under a memory budget,
-per-call ``flow_steps``, weight quantization, and serving.
+The CFM Euler step count is the config's (10), or ``CHATTERBOX_FLOW_STEPS``
+at construction, or ``flow_steps`` per call (the serving quality tier; the
+T3 tokens do not change with it). ``runtime/precision.apply_tts_precision``
+puts T3 in its runtime layout (fused q/k/v, int8 weights with
+``CHATTERBOX_W_QUANT=1``); ``_unfuse_qkv`` restores the canonical one.
+
+Not in this slice: streaming, batch splitting under a memory budget
+(``_budget_batch_cap``), and serving.
 """
 
 import os
@@ -37,8 +43,10 @@ from ..core.dsp import ve_mel_spectrogram
 from ..core.resample import resample
 from ..core.sampling import SamplingConfig
 from ..device import full_fp32, resolve_device
-from ..models.s3gen.s3gen import RefDict, S3GenConfig, embed_ref, s3gen_wav
+from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_from_env,
+                                  s3gen_wav, with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
+from ..models.t3.llama import canonicalize_llama_params
 from ..models.t3.t3 import T3Config, t3_generate
 from ..models.tokenizer import EnTokenizer
 from ..models.voice_encoder import VoiceEncoderConfig, frame_step, num_wins, ve_embed_from_mels
@@ -151,15 +159,35 @@ class ChatterboxTTS:
         self.ve_params = ve_params
         self.tokenizer = tokenizer
         self.t3_cfg = t3_cfg
-        self.s3gen_cfg = s3gen_cfg
+        # the CFM Euler step count: CHATTERBOX_FLOW_STEPS when set (an
+        # invalid value raises here)
+        self.s3gen_cfg = flow_steps_from_env(s3gen_cfg)
         self.ve_cfg = ve_cfg
         self.conds = conds
         self.sr = S3GEN_SR
         # host seconds of the last generate_batch's stages (each ends in a
-        # device-to-host copy, so no extra synchronisation is needed)
+        # device-to-host copy, so no extra synchronisation is needed), and
+        # its compacted speech tokens, one array a text
         self.last_timings = {}
+        self.last_speech_tokens = []
         self.watermarker = SpreadSpectrumWatermarker()
         self._cfm_noise = cfm_noise(self.device)
+
+    # --------------------------------------------------------- weight layout
+    @staticmethod
+    def _runtime_llama_layout(t3_params) -> bool:
+        """True if T3's Llama carries a runtime layout (fused q/k/v and/or
+        int8 weights) rather than the canonical dense q/k/v (tts.py:165-171)."""
+        layers = t3_params.get("llama", {}).get("layers", {})
+        return "qkv" in layers or any(isinstance(v, dict) and "w8" in v for v in layers.values())
+
+    def _unfuse_qkv(self):
+        """Restore T3's canonical dense separate-q/k/v layout, in T3's
+        working dtype, if a runtime layout is in place (tts.py:153-163)."""
+        if self._runtime_llama_layout(self.t3_params):
+            dtype = self.t3_params["speech_emb"]["w"].dtype
+            self.t3_params = {**self.t3_params, "llama": canonicalize_llama_params(
+                self.t3_params["llama"], self.t3_cfg.llama, dtype)}
 
     # ------------------------------------------------------------------ load
     @classmethod
@@ -273,11 +301,15 @@ class ChatterboxTTS:
         min_new_tokens: int = 0,
         greedy: bool = False,
         alignment: bool = False,
+        flow_steps: Optional[int] = None,
     ) -> List[np.ndarray]:
         """One T3 decode and one S3Gen pass over the batch -> one float32
         waveform per text (int16 PCM scaled back to [-1, 1]).
         ``alignment=True`` runs the hallucination watchdog in the decode loop
-        (``models/t3/alignment.py``) on a working-dtype KV cache."""
+        (``models/t3/alignment.py``) on a working-dtype KV cache.
+        ``flow_steps`` sets the CFM Euler step count of this call only (the
+        quality tier; fewer steps are faster); a value below 1 raises."""
+        n_steps = self._effective_flow_steps(flow_steps)
         t_start = time.perf_counter()
         conds = conds or self.conds
         if conds is None:
@@ -322,7 +354,8 @@ class ChatterboxTTS:
             speech[i, : len(r)] = r
 
         wav, wav_lens = synthesize(
-            self.s3gen_params, self.s3gen_cfg, self._cfm_noise, self.watermarker,
+            self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps), self._cfm_noise,
+            self.watermarker,
             torch.from_numpy(speech).to(self.device), torch.from_numpy(clean_lens).to(self.device),
             conds.gen, seed,
         )
@@ -331,8 +364,19 @@ class ChatterboxTTS:
         kv_cache = "int8" if cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
         self.last_timings = {"t3_s": t_t3 - t_start, "s3gen_s": time.perf_counter() - t_t3,
                              "t3_steps": res.steps, "token_bucket": tbucket,
-                             "kv_cache": kv_cache, "alignment": alignment}
+                             "kv_cache": kv_cache, "alignment": alignment,
+                             "flow_steps": n_steps}
+        self.last_speech_tokens = clean_rows
         return [marked[i, : int(wav_lens[i])] for i in range(b)]
+
+    def _effective_flow_steps(self, flow_steps: Optional[int]) -> int:
+        """The call's CFM step count: ``flow_steps``, else the pipeline's
+        (tts.py:914-921). A value below 1 raises ValueError."""
+        if flow_steps is None:
+            return self.s3gen_cfg.flow.n_timesteps
+        if flow_steps < 1:
+            raise ValueError(f"flow_steps must be >= 1, got {flow_steps}")
+        return int(flow_steps)
 
     def _kv_quant_for(self, max_new_tokens: int) -> bool:
         """Whether T3 keeps its KV cache int8 at this token budget: the

@@ -8,8 +8,12 @@ with the target's RefDict, and watermarked. Entry points run on ``cuda``
 unless the caller passes ``device``; without a GPU and without a device
 they raise.
 
+The CFM Euler step count is the config's, or ``CHATTERBOX_FLOW_STEPS`` at
+construction, or ``flow_steps`` per call (VC is flow-bound, so fewer steps
+are the large speed lever).
+
 Not in this slice: ``defer_collect``/``collect``,
-``generate_batches_pipelined``, per-call ``flow_steps`` and ``with_mesh``.
+``generate_batches_pipelined`` and ``with_mesh``.
 """
 
 import time
@@ -22,7 +26,8 @@ import torch
 from ..checkpoint.config_io import load_configs
 from ..constants import S3_SR, S3GEN_SR
 from ..device import full_fp32, resolve_device
-from ..models.s3gen.s3gen import RefDict, S3GenConfig, embed_ref
+from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_from_env,
+                                  with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.watermark import SpreadSpectrumWatermarker
 from .audio import load_wav
@@ -40,7 +45,8 @@ class ChatterboxVC:
                  ref_dict: Optional[RefDict] = None):
         self.device = torch.device(device)
         self.s3gen_params = s3gen_params
-        self.s3gen_cfg = s3gen_cfg
+        # CHATTERBOX_FLOW_STEPS when set (an invalid value raises here)
+        self.s3gen_cfg = flow_steps_from_env(s3gen_cfg)
         self.ref_dict = ref_dict
         self.sr = S3GEN_SR
         self.watermarker = SpreadSpectrumWatermarker()
@@ -82,9 +88,20 @@ class ChatterboxVC:
                                       torch.from_numpy(ref).to(self.device)[None], S3GEN_SR)
         return self.ref_dict
 
-    def generate(self, audio, target_voice_path=None, seed: int = 0) -> np.ndarray:
+    def generate(self, audio, target_voice_path=None, seed: int = 0,
+                 flow_steps: Optional[int] = None) -> np.ndarray:
         """One source (a path, or a 16 kHz float array) -> (1, T) waveform."""
-        return self.generate_batch([audio], target_voice_path, seed=seed)[0][None]
+        return self.generate_batch([audio], target_voice_path, seed=seed,
+                                   flow_steps=flow_steps)[0][None]
+
+    def _effective_flow_steps(self, flow_steps: Optional[int]) -> int:
+        """The call's CFM step count: ``flow_steps``, else the pipeline's
+        (vc.py:146-152). A value below 1 raises ValueError."""
+        if flow_steps is None:
+            return self.s3gen_cfg.flow.n_timesteps
+        if flow_steps < 1:
+            raise ValueError(f"flow_steps must be >= 1, got {flow_steps}")
+        return int(flow_steps)
 
     @staticmethod
     def _pack_sources(audios: List):
@@ -105,10 +122,12 @@ class ChatterboxVC:
         return batch, n_toks, wav_bucket
 
     @torch.inference_mode()
-    def generate_batch(self, audios: List, target_voice_path=None,
-                       seed: int = 0) -> List[np.ndarray]:
+    def generate_batch(self, audios: List, target_voice_path=None, seed: int = 0,
+                       flow_steps: Optional[int] = None) -> List[np.ndarray]:
         """Sources -> one float32 waveform each (int16 PCM scaled back to
-        [-1, 1]), 2 * 480 samples a source token."""
+        [-1, 1]), 2 * 480 samples a source token. ``flow_steps`` sets the
+        CFM Euler step count of this call only."""
+        n_steps = self._effective_flow_steps(flow_steps)
         if target_voice_path is not None:
             self.set_target_voice(target_voice_path)
         if self.ref_dict is None:
@@ -121,10 +140,12 @@ class ChatterboxVC:
             # pad keys masked: a row's tokens must not depend on its batch-mates
             tokens, _ = s3_tokenize(self.s3gen_params["tokenizer"], self.s3gen_cfg.tokenizer,
                                     wav16, wav_lens=lens * _SAMPLES_PER_TOKEN)
-        wav, wav_lens = synthesize(self.s3gen_params, self.s3gen_cfg, self._cfm_noise,
-                                   self.watermarker, tokens, lens, self.ref_dict, seed)
+        wav, wav_lens = synthesize(self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps),
+                                   self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict,
+                                   seed)
         marked = wav.cpu().numpy().astype(np.float32) / 32767.0
         wav_lens = wav_lens.cpu().numpy()
         self.last_timings = {"vc_s": time.perf_counter() - t_start,
-                             "token_bucket": wav_bucket // _SAMPLES_PER_TOKEN}
+                             "token_bucket": wav_bucket // _SAMPLES_PER_TOKEN,
+                             "flow_steps": n_steps}
         return [marked[i, : int(wav_lens[i])] for i in range(len(audios))]

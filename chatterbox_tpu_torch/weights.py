@@ -10,7 +10,10 @@ happens here, once:
   - conv2d (KH, KW, Cin, Cout) -> (Cout, Cin, KH, KW) (CAMPPlus's FCM head)
   - conv_transpose1d (W, Cin, Cout) -> (Cin, Cout, W) (the HiFT ``ups``)
   - embedding tables stay (N, C)
-Only leaves named ``w`` change; everything else (norm scales, biases,
+Only leaves named ``w`` change, and under ``llama`` also the int8 ``w8``
+of the runtime layout (``quantize_llama_weights``), whose per-output
+``scale`` (L, Cout) passes through; a fused ``qkv`` is a linear leaf like
+any other. Everything else (norm scales, biases,
 batch-norm statistics, snake alphas, the perceiver query, rel-pos biases)
 passes through. So do the voice encoder's LSTM leaves ``w_ih`` (Cin, 4H)
 and ``w_hh`` (H, 4H): ``core/layers.lstm`` multiplies by them in the JAX
@@ -27,17 +30,18 @@ import torch
 from .checkpoint.safetensors_io import load_safetensors
 
 _EMBEDDINGS = {"text_emb", "speech_emb", "text_pos_emb", "speech_pos_emb", "input_embedding"}
-_LSTM_LEAVES = {"w_ih", "w_hh"}  # kept in the JAX layout (see above)
 
 
 def _layout(path, ndim):
     """Layout kind of leaf ``path`` (a tuple of dict keys and list indices)."""
-    if not path or path[-1] in _LSTM_LEAVES or path[-1] != "w":
+    if not path:
         return "as_is"
     names = [p for p in path[:-1] if isinstance(p, str)]
-    owner = names[-1] if names else ""
-    if "llama" in names:
+    if "llama" in names and path[-1] in ("w", "w8"):
         return "linear" if ndim == 3 else "as_is"
+    if path[-1] != "w":
+        return "as_is"
+    owner = names[-1] if names else ""
     if owner in _EMBEDDINGS:
         return "as_is"
     if owner == "ups" and ndim == 3:

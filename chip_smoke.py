@@ -11,13 +11,21 @@ Phases (any failure exits non-zero before the last line):
      against its plain PyTorch version on the same inputs (the limits are
      stated at ``OUT_RTOL``) and times the kernel, the plain version and,
      as a yardstick only, one PyTorch library call for the same function,
-     each as device time from a replayed CUDA graph;
-  4. reference: a small model with the main path's head width, through the
-     port on the card against the port's plain versions on the CPU, and the
-     full-width conditioning modules on the card against the CPU (see
+     each as device time from a replayed CUDA graph; then the probe kernels
+     P1-P5 at the probes' own shapes, each against its plain version and
+     timed the same way (``probe_kernel_phase``), K2 beside the P2/P3
+     column writes;
+  4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
+     launch counters set to 0 just before and read just after: P1's four
+     30-layer chains at full width, eager and as a CUDA graph, with bf16
+     and with int8 weights, then P2/P3, P4 and P5 (``probe_phase``);
+  5. reference: a small model with the main path's head width, through the
+     port on the card against the port's plain versions on the CPU (T3 with
+     dense and with int8 weights, the flow at 10 and at 4 Euler steps), and
+     the full-width conditioning modules on the card against the CPU (see
      ``reference_phase`` and ``conditioning_reference`` for each comparison
      and its tolerance);
-  5. the TTS paths, on ``ChatterboxTTS.from_random(seed=0)`` at full width
+  6. the TTS paths, on ``ChatterboxTTS.from_random(seed=0)`` at full width
      (T3 and flow in bf16, HiFT and the conditioning modules in fp32), each
      ``generate_batch`` on the same 8 texts, each first call run with the
      launch counters set to 0 just before it and read just after, the wavs
@@ -32,11 +40,16 @@ Phases (any failure exits non-zero before the last line):
           cache (K1b at the alignment layer, K1a at the others);
        D. path A's call on conditionals from ``prepare_conditionals`` of a
           seeded 10 s synthetic reference WAV (timed first and warm);
+       F. path A's call after ``apply_tts_precision(tts, weight_quant=True)``:
+          int8 T3 weights with fused q/k/v (``bench.py``'s tts_b8_wquant);
+       G. path F with ``flow_steps=4`` (tts_b8_turbo): T3's tokens and the
+          wav lengths must equal F's, and the flow launches K3 exactly
+          4 x 56 times;
      after each first call a second, warm call is timed (audio seconds per
      second, per stage) and a third profiled (device time by kernel, the
-     busy share) while the run is under half its limit; no TTS path
-     launches K5;
-  6. the VC path E: ``ChatterboxVC.from_random(seed=0)`` (the same S3Gen
+     busy share), except on path D, whose device work is path A's; no TTS
+     path launches K5;
+  7. the VC path E: ``ChatterboxVC.from_random(seed=0)`` (the same S3Gen
      weights), ``generate_batch`` of 8 seeded 3-12 s sources written as
      16 kHz WAVs, with ``target_voice_path`` the reference of path D: in
      the fused attention layout (K3 and K4, no K5), then with the UNet's
@@ -44,7 +57,8 @@ Phases (any failure exits non-zero before the last line):
      transformer block at every Euler step, K4, no K3), each a first and a
      warm call, the unfused one profiled; then the two layouts' flow mels
      on one batch against each other;
-  7. prints the kernel table as one JSON line, the card line, and then
+  8. prints the kernel table as one JSON line (K1a-K5 and one row for each
+     probe, its variants under it), the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
 Numerics: fp32 matmuls and convolutions run in full fp32 (TF32 off) so the
@@ -64,8 +78,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-# H100 SXM published peaks (dense): bf16 tensor cores and HBM3 bandwidth
+# H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside the
+# tensor cores (the probes' fp32 fragments), and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # K1, K3, K4 and K5 against their plain versions in bf16 (8 significant
@@ -98,6 +114,7 @@ FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
 # K5's (padded T, valid mel frames): path A's flow (250 + 250 tokens) and
 # path B's (250 + 1000)
 K5_T = ((1024, 1000), (2560, 2500))
+TURBO_STEPS = 4  # path G's per-call flow_steps
 
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
@@ -131,26 +148,9 @@ def timed(fn, iters, warmup=3):
     one CUDA graph, replayed once to warm and once between CUDA events. The
     replay issues no host work between launches, so the figure is the card's
     time, not the host's launch rate."""
-    import torch
+    from chatterbox_tpu_torch.probes import graph_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # builds, loads and allocates outside the capture
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return graph_ms(fn, iters, warmup)
 
 
 def rotating(fn, n):
@@ -161,9 +161,9 @@ def rotating(fn, n):
     return lambda: fn(next(calls) % n)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak_flops=PEAK_BF16_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -543,6 +543,183 @@ def kernel_phase():
     return rows
 
 
+def _share(got, want, limit):
+    """The worst element's share of its limit (0 where both are 0)."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    return float(torch.where(diff == 0, torch.zeros_like(diff), diff / limit).max())
+
+
+def probe_kernel_phase():
+    """P1-P5 at the probes' own shapes (``chatterbox_tpu_torch/probes/``):
+    each kernel against its plain version (the copies and P4's store bit
+    for bit, the sums within the probes' stated limits), then timed with
+    its plain version and, where one PyTorch call computes the same
+    function, that call. P2 and P3 time each variant as the scripts do: a
+    chain of 30 writes at slot 200, here in one CUDA graph; K2 writes the
+    same column into the port's (S, D) cache beside them. Returns one row
+    per probe, its variants under it."""
+    import torch
+
+    from chatterbox_tpu_torch.ops import flash_decode as fd
+    from chatterbox_tpu_torch.ops import probes as pk
+    from chatterbox_tpu_torch.probes import cache_write, int8_cache, ops
+
+    dev = torch.device("cuda")
+    rows = {}
+
+    # ---- P1: the copy of q (16 CFG rows x 16 heads x 64) in each layer's
+    # attention slot
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((ROWS, T3_HEADS, HEAD_DIM), generator=g, device=dev).to(torch.bfloat16)
+    err, tol, share = check_kernel("noop_copy", pk.noop_copy(q), pk.noop_copy_plain(q), exact=True)
+    rows["P1"] = dict(
+        name="noop_copy", err=err, tol=tol, share=share, library_err=0.0,
+        ms=timed(lambda: pk.noop_copy(q), 500), plain_ms=timed(lambda: pk.noop_copy_plain(q), 500),
+        library_ms=timed(lambda: q.clone(), 500),
+        library_note="q.clone(), which is also the plain version",
+        bound=bound(2 * q.numel() * 2, 0),
+    )
+
+    # ---- P2, P3: one column into the (30, 2, 16, 16, 64, 384) bf16 cache
+    cache, new = cache_write.make_inputs(dev)
+    pos = cache_write.POS
+    want = pk.cache_column_write_plain(cache.clone(), new, pos)
+    pos_idx = torch.tensor([pos], device=dev)
+    lib_err = library_err("cache column write", cache.clone().index_copy_(5, pos_idx, new), want)
+    col_bound = bound(2 * new.numel() * 2, 0)  # the column read once and written once
+    plain_ms = timed(lambda: pk.cache_column_write_plain(cache, new, pos), cache_write.CHAIN)
+    library_ms = timed(lambda: cache.index_copy_(5, pos_idx, new), cache_write.CHAIN)
+    sd = cache.transpose(-1, -2).contiguous()
+    new_sd = new[..., 0].contiguous()
+    got = fd.kv_cache_append(sd.clone(), new_sd, pos)
+    k2_err, _, _ = check_kernel("kv_cache_append (P2/P3 shapes, (S, D))", got,
+                                fd.kv_cache_append_plain(sd.clone(), new_sd, pos), exact=True)
+    k2 = {"layout": "(S, D)", "ms": timed(lambda: fd.kv_cache_append(sd, new_sd, pos),
+                                           cache_write.CHAIN),
+          "bound_ms": col_bound[0], "max_abs_err": k2_err}
+    del sd, got
+    for script, headline in (("P2", "rmw b_blk=8 kvsep"), ("P3", "col b_blk=16")):
+        variants = {}
+        for (sc, name), var in cache_write.VARIANTS.items():
+            if sc != script:
+                continue
+            err, _, _ = check_kernel(f"{script} {name}",
+                                     cache_write.write(cache.clone(), new, pos, var), want,
+                                     exact=True)
+            variants[name] = {
+                "ms": timed(lambda v=var: cache_write.write(cache, new, pos, v), cache_write.CHAIN),
+                "max_abs_err": err, "moved_bytes": cache_write.moved_bytes(var, cache.shape)}
+        variants["K2 kv_cache_append on (S, D), beside"] = k2
+        h = variants[headline]
+        rows[script] = dict(
+            name="cache_column_write" if headline.startswith("col") else "cache_block_rmw",
+            headline_variant=headline, err=max(v["max_abs_err"] for v in variants.values()),
+            tol="exact", share=0.0, library_err=lib_err, ms=h["ms"], plain_ms=plain_ms,
+            library_ms=library_ms, library_note="index_copy_ of the column",
+            bound=col_bound, variants=variants)
+    del cache, new, want
+    torch.cuda.empty_cache()
+
+    # ---- P4: the six int8 fragments; bytes each case reads and writes
+    ins = int8_cache.inputs(dev)
+    sb, pd = pk.SB, pk.PD
+    io_bytes = {"i8_load_convert": (pd * pd, 4 * pd * pd),
+                "i8_dequant_matmul": (pd * sb + 4 * sb + 4 * pd, 4 * pd),
+                "i8_pv": (4 * sb + pd * sb, 4 * pd), "i8_matmul_direct": (pd * sb + 4 * pd, 4 * pd),
+                "i8_store": (4 * 8 * sb, 8 * sb), "i8_sd_tail": (8 * pd + 4 * pd, 4 * pd)}
+    flops = {"i8_load_convert": pd * pd, "i8_dequant_matmul": 3 * pd * sb, "i8_pv": 2 * pd * sb,
+             "i8_matmul_direct": 2 * pd * sb, "i8_store": 8 * sb, "i8_sd_tail": 2 * 8 * pd}
+    variants = {}
+    for case in pk.INT8_CASES:
+        got, want = pk.int8_probe(case, *ins), pk.int8_probe_plain(case, *ins)
+        lim, tol = int8_cache.limit(case, ins)
+        if lim is None:
+            err, tol, share = check_kernel(f"int8_probe {case}", got, want, exact=True)
+        else:
+            torch.cuda.synchronize()
+            err, share = float((got - want).abs().max()), _share(got, want, lim)
+            print(f"kernel int8_probe {case}: max_abs_err={err:.3e}, worst element at "
+                  f"{share:.3f} of its limit |err| <= {tol}", flush=True)
+            if not share <= 1.0:
+                fail(f"int8_probe {case}: an element exceeds its limit ({tol}) by {share:.3f}x")
+        variants[case] = {
+            "ms": timed(lambda c=case: pk.int8_probe(c, *ins), 200),
+            "plain_ms": timed(lambda c=case: pk.int8_probe_plain(c, *ins), 200),
+            "bound_ms": bound(sum(io_bytes[case]), flops[case], PEAK_FP32_FLOPS)[0],
+            "max_abs_err": err, "tol": tol, "err_share_of_tol": share}
+    rows["P4"] = _case_row("int8_probe", "i8_dequant_matmul", variants, io_bytes, flops)
+
+    # ---- P5: the nine online-softmax fragments from a zero scratch
+    x, v = ops.inputs(dev)
+    scr0 = torch.zeros((1, pd), device=dev)
+    io_bytes, flops = {}, {}
+    for case in pk.SOFTMAX_CASES:
+        x_bytes = 4 * (pd if case[0] in "HI" else sb)  # row 0 of x, or its first 64
+        v_bytes = 4 * sb * pd if case[0] in "AEGHI" else 0
+        io_bytes[case] = (x_bytes + v_bytes + (4 * pd if case[0] == "H" else 0), 4 * pd)
+        flops[case] = 2 * 2 * sb * pd * (2 if case[0] in "HI" else 1 if v_bytes else 0) + 4 * sb
+    variants = {}
+    for case in pk.SOFTMAX_CASES:
+        got, want = pk.softmax_probe(case, x, v, scr0), pk.softmax_probe_plain(case, x, v, scr0)
+        lim, tol = ops.limit(case, x, v, scr0)
+        torch.cuda.synchronize()
+        err, share = float((got - want).abs().max()), _share(got, want, lim)
+        print(f"kernel softmax_probe {case}: max_abs_err={err:.3e}, worst element at "
+              f"{share:.3f} of its limit |err| <= {tol}", flush=True)
+        if not (bool(torch.isfinite(got).all()) and share <= 1.0):
+            fail(f"softmax_probe {case}: an element exceeds its limit ({tol}) by {share:.3f}x")
+        variants[case] = {
+            "ms": timed(lambda c=case: pk.softmax_probe(c, x, v, scr0), 200),
+            "plain_ms": timed(lambda c=case: pk.softmax_probe_plain(c, x, v, scr0), 200),
+            "bound_ms": bound(sum(io_bytes[case]), flops[case], PEAK_FP32_FLOPS)[0],
+            "max_abs_err": err, "tol": tol, "err_share_of_tol": share}
+    rows["P5"] = _case_row("softmax_probe", "H_dotgen_transpose_rhs", variants, io_bytes, flops)
+    torch.cuda.synchronize()
+    return rows
+
+
+def _case_row(name, headline, variants, io_bytes, flops):
+    """A P4/P5 row: the headline case's numbers, every case under it."""
+    h = variants[headline]
+    return dict(name=name, headline_variant=headline,
+                err=max(c["max_abs_err"] for c in variants.values()),
+                tol=h["tol"], share=max(c["err_share_of_tol"] for c in variants.values()),
+                library_err=None, ms=h["ms"], plain_ms=h["plain_ms"], library_ms=None,
+                library_note="no single PyTorch call computes a case",
+                bound=bound(sum(io_bytes[headline]), flops[headline], PEAK_FP32_FLOPS),
+                variants=variants)
+
+
+def probe_phase(card):
+    """The probes' entry points on the card, the launch counters set to 0
+    just before and read just after: P1 (``probes.boundary``: the four
+    30-layer chains at full width, eager and as a CUDA graph, with bf16 and
+    with int8 weights), then P2/P3, P4 and P5 (each checks its kernels
+    against their plain versions and times them). Prints P1's results as
+    one JSON line and the rest as another; fails if a probe kernel was not
+    launched. Returns (results, counts)."""
+    import torch
+
+    from chatterbox_tpu_torch.ops import PROBE_KERNELS, launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.probes import boundary, cache_write, int8_cache, ops
+
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    p1 = {"bf16": boundary.run(dev), "int8": boundary.run(dev, wquant=True)}
+    rest = {"P2/P3": cache_write.run(dev), "P4": int8_cache.run(dev), "P5": ops.run(dev)}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print("probe P1: " + json.dumps({"card": card, **p1}), flush=True)
+    print("probe P2-P5: " + json.dumps({"card": card, **rest}), flush=True)
+    print("probe phase: kernel launches " + json.dumps(counts), flush=True)
+    for k in PROBE_KERNELS:
+        if counts[k] <= 0:
+            fail(f"probe phase: kernel {k} was not launched")
+    return {"P1": p1, **rest}, counts
+
+
 KERNEL_INFO = {
     "flash_decode_layer_attention": (
         "chatterbox_tpu_torch/csrc/flash_decode.cu",
@@ -577,6 +754,16 @@ KERNEL_INFO = {
         "chatterbox_tpu_torch/csrc/flash_attention.cu",
         "chatterbox_tpu/ops/flash_attention.py:172",
     ),
+    "P1": ("chatterbox_tpu_torch/csrc/probes.cu",
+           "scripts/probe_boundary.py:120 (_noop, :114-122)"),
+    "P2": ("chatterbox_tpu_torch/csrc/probes.cu",
+           "scripts/probe_cache_write2.py:67 (make_rmw, :30-78), :103 (make_col, :81-114)"),
+    "P3": ("chatterbox_tpu_torch/csrc/probes.cu",
+           "scripts/probe_cache_write3.py:48 (make_col, :27-59), :86 (make_rmw, :62-97)"),
+    "P4": ("chatterbox_tpu_torch/csrc/probes.cu",
+           "scripts/probe_int8_cache.py:41 (run_case, :39-58; cases :61-97)"),
+    "P5": ("chatterbox_tpu_torch/csrc/probes.cu",
+           "scripts/probe_ops.py:26 (run_case, :22-41; cases A-I :45-144)"),
 }
 
 
@@ -596,6 +783,8 @@ def reference_phase():
       - HiFT (fp32 on both, TF32 off) on the card's mel, zero noise:
         max |err| within 2e-3 (the JAX package's decode tolerance);
       - the watermark on the card's wav: max |err| within 1e-4."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -605,7 +794,8 @@ def reference_phase():
     from chatterbox_tpu_torch.models.s3gen.flow import FlowConfig, flow_inference
     from chatterbox_tpu_torch.models.s3gen.hifigan import HiFTConfig, hift_generate
     from chatterbox_tpu_torch.models.s3gen.unet import UNetConfig
-    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig
+    from chatterbox_tpu_torch.models.t3.llama import (LlamaConfig, fuse_qkv_params,
+                                                      quantize_llama_weights)
     from chatterbox_tpu_torch.models.t3.t3 import T3Config, t3_generate
     from chatterbox_tpu_torch.models.watermark import SpreadSpectrumWatermarker
 
@@ -627,19 +817,31 @@ def reference_phase():
     cond = (rng.standard_normal((b, 256)).astype(np.float32),
             rng.integers(0, 6561, (b, 150)).astype(np.int32), np.full((b,), 0.5, np.float32))
     uniforms = rng.random((max_new, b)).astype(np.float32)
-    for variant in ({}, {"cache_quant": True}, {"alignment": True}):
-        for greedy in (True, False):
-            out = []
-            for p, d in ((p_dev, dev), (p_cpu, cpu)):
-                args = [torch.from_numpy(x).to(d) for x in (text, lens, *cond)]
-                res = t3_generate(p, t3_cfg, *args, SamplingConfig(greedy=greedy), max_new,
-                                  uniforms=torch.from_numpy(uniforms).to(d), **variant)
-                out.append((res.tokens.cpu(), res.lengths.cpu()))
-            if not (torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])):
-                fail(f"reference: T3 tokens on the card differ from the CPU ({variant}, "
-                     f"greedy={greedy})")
-        print(f"reference: T3 fp32 tokens equal to the CPU's, greedy and sampled "
-              f"({json.dumps(variant) if variant else 'K1a/K2'})", flush=True)
+    # the int8 weights of apply_tts_precision(weight_quant=True), fused
+    # q/k/v, quantized on the CPU; how many values the card's own
+    # quantization gives otherwise is printed
+    q_cpu = {**p_cpu, "llama": quantize_llama_weights(fuse_qkv_params(p_cpu["llama"]))}
+    q_dev = weights.tree_to(q_cpu, dev)
+    on_card = quantize_llama_weights(fuse_qkv_params(p_dev["llama"]))["layers"]
+    n_diff = sum(int((x.cpu() != q_cpu["llama"]["layers"][name][leaf]).sum())
+                 for name, wp in on_card.items() for leaf, x in wp.items())
+    print(f"reference: int8 T3 weights quantized on the card: {n_diff} values differ from the "
+          f"CPU's", flush=True)
+    for weights_kind, (pd, pc) in (("dense", (p_dev, p_cpu)), ("int8", (q_dev, q_cpu))):
+        for variant in ({}, {"cache_quant": True}, {"alignment": True}):
+            for greedy in (True, False):
+                out = []
+                for p, d in ((pd, dev), (pc, cpu)):
+                    args = [torch.from_numpy(x).to(d) for x in (text, lens, *cond)]
+                    res = t3_generate(p, t3_cfg, *args, SamplingConfig(greedy=greedy), max_new,
+                                      uniforms=torch.from_numpy(uniforms).to(d), **variant)
+                    out.append((res.tokens.cpu(), res.lengths.cpu()))
+                if not (torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])):
+                    fail(f"reference: T3 tokens on the card differ from the CPU ({weights_kind} "
+                         f"weights, {variant}, greedy={greedy})")
+            print(f"reference: T3 fp32 tokens equal to the CPU's, greedy and sampled "
+                  f"({weights_kind} weights, "
+                  f"{json.dumps(variant) if variant else 'K1a/K2'})", flush=True)
 
     # ---- flow: conformer 128 wide, 2 heads of 64; UNet 2 heads of 64
     flow_cfg = FlowConfig(
@@ -657,19 +859,24 @@ def reference_phase():
               (rng.standard_normal((b, 2 * n_prompt, 80)) * 0.5 - 4).astype(np.float32),
               rng.standard_normal((b, 192)).astype(np.float32),
               rng.standard_normal((b, 2 * (n_tok + n_prompt), 80)).astype(np.float32))
+    # the default 10 Euler steps, and path G's 4
+    turbo_cfg = replace(flow_cfg, n_timesteps=TURBO_STEPS)
     mels = {}
-    for layout, d, dt in (("fused", dev, torch.bfloat16), ("unfused", dev, torch.bfloat16),
-                          ("cpu", cpu, torch.float32)):
+    for layout, d, dt, cfg in (("fused", dev, torch.bfloat16, flow_cfg),
+                               ("unfused", dev, torch.bfloat16, flow_cfg),
+                               ("cpu", cpu, torch.float32, flow_cfg),
+                               ("fused, 4 steps", dev, torch.bfloat16, turbo_cfg),
+                               ("cpu, 4 steps", cpu, torch.float32, turbo_cfg)):
         p = weights.tree_to(flow_bf16, d, dt)
         if layout == "unfused":
             p = weights.split_unet_qkv(p)
-        mel, _ = flow_inference(p, flow_cfg, *(torch.from_numpy(x).to(d) for x in inputs))
+        mel, _ = flow_inference(p, cfg, *(torch.from_numpy(x).to(d) for x in inputs))
         mels[layout] = mel.float().cpu()
-    valid = [mels["cpu"][i, : 2 * (n_prompt + int(inputs[1][i]))] for i in range(b)]
-    for layout in ("fused", "unfused"):
+    for layout, ref in (("fused", "cpu"), ("unfused", "cpu"), ("fused, 4 steps", "cpu, 4 steps")):
+        valid = [mels[ref][i, : 2 * (n_prompt + int(inputs[1][i]))] for i in range(b)]
         got = [mels[layout][i, : len(v)] for i, v in enumerate(valid)]
         rel = max(float((g - v).norm() / v.norm()) for g, v in zip(got, valid))
-        print(f"reference: flow mel bf16 card ({layout} UNet attention) vs fp32 CPU "
+        print(f"reference: flow mel bf16 card ({layout} UNet attention layout) vs fp32 CPU "
               f"rel_l2_err={rel:.3e} tol=5.0e-02", flush=True)
         if not (np.isfinite(rel) and rel <= 5e-2):
             fail(f"reference: flow mel ({layout}) relative error {rel} exceeds 5e-2")
@@ -841,7 +1048,14 @@ PATHS = {
           (_K1C, _K2B, _K5)),
     # path A's call on conditionals prepared from the reference WAV
     "D": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5)),
+    # path A's call after apply_tts_precision(weight_quant=True): int8 T3
+    # weights, fused q/k/v (bench.py's tts_b8_wquant); G with 4 flow steps
+    # (tts_b8_turbo)
+    "F": ({"max_new_tokens": MAX_NEW}, "bf16", (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5)),
+    "G": ({"max_new_tokens": MAX_NEW, "flow_steps": TURBO_STEPS}, "bf16", (_K1A, _K2, _K3, _K4),
+          (_K1B, _K1C, _K2B, _K5)),
 }
+WQUANT_PATHS = ("F", "G")
 
 # path E: the reference and the sources, seeded synthetic speech
 REF_SECONDS = 10.0
@@ -877,11 +1091,12 @@ def check_wavs(path, wavs, n, lens=None):
             fail(f"path {path}: wav {i}: non-finite samples")
 
 
-def run_path(tts, conds, card, name, profile):
+def run_path(tts, conds, card, name, profile, exact=None):
     """One TTS path: a first call with the launch counters set to 0 just
-    before it and read just after, its wavs, KV cache and launches checked;
-    then a warm call timed and, when asked, a third profiled. Returns the
-    counts of the first call."""
+    before it and read just after, its wavs, KV cache and launches checked
+    (``exact``: {kernel: launches} where the count is known); then a warm
+    call timed and, when asked, a third profiled. Returns the counts, the
+    speech tokens and the wav lengths of the first call."""
     import torch
 
     from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -897,11 +1112,13 @@ def run_path(tts, conds, card, name, profile):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
+    tokens = [r.copy() for r in tts.last_speech_tokens]
+    lens = [len(w) for w in wavs]
 
     check_wavs(name, wavs, N_TEXTS)
     if tts.last_timings["kv_cache"] != kv_cache:
         fail(f"path {name}: T3 ran a {tts.last_timings['kv_cache']} KV cache, not {kv_cache}")
-    check_launches(name, counts, launched, not_launched)
+    check_launches(name, counts, launched, not_launched, exact)
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(f"path {name} ({json.dumps(kw)}): first call {wall:.3f} s for {audio_s:.3f} s of audio "
           f"(stages {json.dumps(tts.last_timings)})", flush=True)
@@ -924,7 +1141,7 @@ def run_path(tts, conds, card, name, profile):
     print(f"path {name}: warm stages " + json.dumps(tts.last_timings), flush=True)
     if profile:
         profile_call(call, wall)
-    return counts
+    return counts, tokens, lens
 
 
 def prepared_conditionals(tts, ref_path, card):
@@ -958,32 +1175,52 @@ def prepared_conditionals(tts, ref_path, card):
     return conds
 
 
-def main_path(card, ref_path, t_start):
+def main_path(card, ref_path):
     import torch
 
     from chatterbox_tpu_torch import ChatterboxTTS
+    from chatterbox_tpu_torch.runtime.precision import apply_tts_precision
 
     t0 = time.time()
     tts = ChatterboxTTS.from_random(seed=0)
     conds = random_conditionals(tts.device)
     torch.cuda.synchronize()
     print(f"paths: from_random at full width in {time.time() - t0:.1f} s", flush=True)
-    counts = {}
+    unet = tts.s3gen_cfg.flow.estimator
+    blocks = unet.n_blocks * (2 + unet.num_mid_blocks)  # UNet transformer blocks: 56
+    counts, tokens, lens = {}, {}, {}
     for name in PATHS:
         t0 = time.time()
+        if name == WQUANT_PATHS[0]:
+            apply_tts_precision(tts, weight_quant=True)
+            layers = tts.t3_params["llama"]["layers"]
+            if not ("w8" in layers["qkv"] and layers["qkv"]["w8"].dtype == torch.int8
+                    and "q" not in layers):
+                fail(f"path {name}: apply_tts_precision did not give fused int8 T3 weights")
+            print(f"path {name}: apply_tts_precision(weight_quant=True) in "
+                  f"{time.time() - t0:.1f} s", flush=True)
         c = prepared_conditionals(tts, ref_path, card) if name == "D" else conds
-        # a profile takes a call more: none once the run nears half its limit
-        counts[name] = run_path(tts, c, card, name, profile=time.time() - t_start < 500)
+        exact = {_K3: blocks * TURBO_STEPS} if name == "G" else None
+        # a profile takes a call more: none on path D, path A's call on other
+        # conditionals
+        counts[name], tokens[name], lens[name] = run_path(tts, c, card, name, name != "D", exact)
         print(f"path {name}: {time.time() - t0:.1f} s", flush=True)
+    # G changes only the flow: its T3 tokens and wav lengths are F's
+    f, g = WQUANT_PATHS
+    same = all(len(a) == len(b) and (a == b).all() for a, b in zip(tokens[f], tokens[g]))
+    print(f"path {g}: speech tokens equal to path {f}'s: {same}; wav lengths equal: "
+          f"{lens[f] == lens[g]}", flush=True)
+    if not (same and lens[f] == lens[g]):
+        fail(f"path {g}: flow_steps={TURBO_STEPS} changed T3's tokens or the wav lengths")
     return counts
 
 
-def vc_path(card, ref_path, src_paths, src_lens, t_start):
+def vc_path(card, ref_path, src_paths, src_lens):
     """Path E: ``ChatterboxVC.generate_batch`` of the sources into the
     reference's voice, in the fused UNet attention layout and then the
     unfused one, each a first call (launches counted and checked, wavs
-    checked) and a warm call timed; the unfused one profiled while the run
-    is under half its limit. Then the flow mels of one batch in both
+    checked) and a warm call timed; the unfused one profiled. Then the
+    flow mels of one batch in both
     layouts, held to each other within relative L2 5e-2 (the card-vs-CPU
     tolerance of the bf16 flow). Returns the first calls' counts by layout."""
     import numpy as np
@@ -1035,7 +1272,7 @@ def vc_path(card, ref_path, src_paths, src_lens, t_start):
         print(f"path E ({layout}): {N_SOURCES} sources: warm wall {wall:.3f} s, audio "
               f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, peak "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
-        if layout == "unfused" and time.time() - t_start < 500:
+        if layout == "unfused":
             profile_call(lambda: vc.generate_batch(src_paths), wall)
 
     # the flow alone, both layouts on one batch: the VC call's own tokens
@@ -1107,36 +1344,56 @@ def main():
         ref_path, src_paths, src_lens = write_audio(audio_dir)
         t0 = time.time()
         rows = kernel_phase()
+        rows.update(probe_kernel_phase())
         t1 = time.time()
+        probes, probe_counts = probe_phase(card)
+        t2 = time.time()
         reference_phase()
         conditioning_reference(ref_path)
-        t2 = time.time()
-        counts = main_path(card, ref_path, t_start)
         t3 = time.time()
-        vc_counts = vc_path(card, ref_path, src_paths, src_lens, t_start)
+        counts = main_path(card, ref_path)
         t4 = time.time()
-    print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, reference "
-          f"{t2 - t1:.1f} s, TTS paths {t3 - t2:.1f} s, VC path {t4 - t3:.1f} s", flush=True)
+        vc_counts = vc_path(card, ref_path, src_paths, src_lens)
+        t5 = time.time()
+    print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
+          f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s",
+          flush=True)
     counts["E"] = {k: vc_counts["fused"][k] + vc_counts["unfused"][k] for k in vc_counts["fused"]}
+    counts["probes"] = probe_counts
+    # each P2/P3 variant's launches in the probe phase
+    variant_launches = {k: v["launches"] for k, v in probes["P2/P3"]["variants"].items()}
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
     # under the two sets of names that readers of this line expect;
-    # "launches" sums the first calls of paths A-E (E: both layouts)
+    # "launches" sums the first calls of paths A-G (E: both layouts) and the
+    # probe phase; a probe's row counts its probe's launches in that phase
     table = []
-    for name, r in rows.items():
-        src, replaces = KERNEL_INFO[name]
+    for key, r in rows.items():
+        src, replaces = KERNEL_INFO[key]
         bound_ms, bound_by = r["bound"]
-        by_path = {p: c[name] for p, c in counts.items()}
+        name = r.get("name", key)
+        if key in ("P2", "P3"):
+            launches = sum(n for v, n in variant_launches.items() if v.startswith(key))
+            by_path = {"probes": launches}
+        elif key.startswith("P"):
+            launches = probe_counts[name]
+            by_path = {"probes": launches}
+        else:
+            by_path = {p: c[name] for p, c in counts.items()}
+            launches = sum(by_path.values())
         row = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches": launches, "launches_by_path": by_path,
             "max_abs_err": r["err"], "max_err": r["err"],
             "tol": r["tol"], "err_share_of_tol": r["share"], "ms": r["ms"],
             "kernel_ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"],
             "library_max_abs_err": r["library_err"],
         }
-        row.update({k: r[k] for k in ("library_note", "k1a_ms_same_live_lengths") if k in r})
+        if key.startswith("P"):
+            row["probe"] = key
+        row.update({k: r[k] for k in ("library_note", "k1a_ms_same_live_lengths",
+                                      "headline_variant", "variants") if k in r})
         row.update(r.get("extra", {}))
         table.append(row)
     print(json.dumps({"kernels": table}), flush=True)

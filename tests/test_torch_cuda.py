@@ -16,6 +16,8 @@ import torch
 
 from chatterbox_tpu_torch.ops import flash_attention as fa
 from chatterbox_tpu_torch.ops import flash_decode as fd
+from chatterbox_tpu_torch.ops import probes
+from chatterbox_tpu_torch.probes import cache_write, int8_cache, ops
 
 # bf16 (8 significant bits) limits, element by element, as in chip_smoke.py:
 #     |got - want| <= 2^-7 |want| + 2^-7 (P|v|) + 1e-5
@@ -209,3 +211,71 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         fd.flash_decode_layer_attention(cache, 0, 10, torch.full((2,), 10, dtype=torch.int32,
                                                                  device=cuda), 10, q, q, q)
+
+
+@pytest.mark.cuda
+def test_noop_copy_matches_plain(cuda):
+    q = _randn(cuda, 16, 16, 64, seed=30)
+    before = probes.noop_copy.launches
+    got = probes.noop_copy(q)
+    assert probes.noop_copy.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, q) and got.data_ptr() != q.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", list(cache_write.VARIANTS), ids=" ".join)
+def test_cache_writes_match_plain(cuda, key):
+    """P2/P3: every variant bit for bit against the slice assignment, at the
+    probes' widths with fewer layers and a slot inside the third segment."""
+    cache = _randn(cuda, 3, 2, 16, 16, 64, 384, seed=31)
+    new = _randn(cuda, 3, 2, 16, 16, 64, 1, seed=32)
+    want = probes.cache_column_write_plain(cache.clone(), new, 263)
+    got = cache_write.write(cache.clone(), new, 263, cache_write.VARIANTS[key])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_and_softmax_probes_match_plain(cuda):
+    """P4 (the store and the convert exact, the sums within (n + 2) 2^-24
+    sum|terms|) and P5 (within the limit of ``probes.ops.limit``) on the
+    probes' inputs."""
+    ins = int8_cache.inputs(cuda)
+    for case in probes.INT8_CASES:
+        got, want = probes.int8_probe(case, *ins), probes.int8_probe_plain(case, *ins)
+        torch.cuda.synchronize()
+        lim, _ = int8_cache.limit(case, ins)
+        assert torch.equal(got, want) if lim is None else bool(((got - want).abs() <= lim).all())
+    x, v = ops.inputs(cuda)
+    scr0 = torch.zeros((1, 64), device=cuda)
+    for case in probes.SOFTMAX_CASES:
+        got, want = probes.softmax_probe(case, x, v, scr0), probes.softmax_probe_plain(case, x, v,
+                                                                                      scr0)
+        torch.cuda.synchronize()
+        lim, _ = ops.limit(case, x, v, scr0)
+        assert bool(((got - want).abs() <= lim).all()), case
+
+
+@pytest.mark.cuda
+def test_wmat_int8_on_the_card_matches_the_cpu(cuda):
+    """_wmat with int8 weights on the card against the CPU. In fp32 (TF32
+    off) within 1e-5 A, A = sum |terms| of each output (fp32 round-off of a
+    1024-term sum in another order: 1024 * 2^-24 = 6e-5 at worst, ~1e-6 in
+    practice). In bf16 within 2^-7 |want| + 2^-8 A: the input's rounding to
+    bf16 moves a sum by at most 2^-9 A, and the product's output, the
+    scale and the scaled output each round once to bf16 (2^-9 |want|
+    each)."""
+    from chatterbox_tpu_torch.models.t3 import llama
+
+    w = _randn(cuda, 2, 3072, 1024, seed=33, scale=0.02, dtype=torch.float32)
+    wq = llama.quantize_llama_weights({"layers": {"qkv": {"w": w}}})["layers"]["qkv"]
+    wp = {k: v[1] for k, v in wq.items()}
+    y = _randn(cuda, 16, 1, 1024, seed=34, dtype=torch.float32)
+    wp_cpu = {k: v.cpu() for k, v in wp.items()}
+    want = llama._wmat(y.cpu(), wp_cpu)
+    a = llama._wmat(y.cpu().abs(), {"w8": wp_cpu["w8"].abs(), "scale": wp_cpu["scale"]})
+    got = llama._wmat(y, wp).cpu()
+    assert bool(((got - want).abs() <= 1e-5 * a).all())
+    got16 = llama._wmat(y.to(torch.bfloat16), wp).float().cpu()
+    assert bool(((got16 - want).abs() <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * a).all())

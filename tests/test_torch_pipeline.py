@@ -177,3 +177,99 @@ def test_punc_norm_and_buckets():
     for s in ["", "hello  world", "Hi there…", "test;", "a: b - c", "“quoted”"]:
         assert pt.punc_norm(s) == jt.punc_norm(s)
     assert pt.TEXT_BUCKETS == jt.TEXT_BUCKETS and pt.TOKEN_BUCKETS == jt.TOKEN_BUCKETS
+
+
+@pytest.fixture(scope="module")
+def jax_turbo_wavs(jax_tts):
+    """The JAX pipeline's wavs at ``flow_steps=4`` (zero vocoder noise)."""
+    from chatterbox_tpu.models.s3gen import s3gen as js
+
+    tts, _ = jax_tts
+    real = js.hift_generate
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
+    try:
+        return tts.generate_batch(TEXTS, greedy=True, max_new_tokens=MAX_NEW, flow_steps=4)
+    finally:
+        js.hift_generate = real
+
+
+def test_flow_steps_env_knob_and_validation(monkeypatch):
+    """CHATTERBOX_FLOW_STEPS sets the CFM Euler step count at construction,
+    as the JAX package's (test_pipeline.py:264-290): unset keeps 10, the
+    rest of the config stays as it is, and a value that is not an integer
+    >= 1 fails at construction."""
+    from chatterbox_tpu.pipeline.tts import ChatterboxTTS as JTTS
+
+    monkeypatch.delenv("CHATTERBOX_FLOW_STEPS", raising=False)
+    base = _port_tts()
+    assert base.s3gen_cfg == P_S3GEN and base.s3gen_cfg.flow.n_timesteps == 10
+    monkeypatch.setenv("CHATTERBOX_FLOW_STEPS", "6")
+    six = _port_tts()
+    want = JTTS(t3_params={}, s3gen_params={}, ve_params={}, tokenizer=None, s3gen_cfg=J_S3GEN)
+    assert six.s3gen_cfg.flow.n_timesteps == want.s3gen_cfg.flow.n_timesteps == 6
+    assert six.s3gen_cfg.flow.estimator == base.s3gen_cfg.flow.estimator
+    assert six.s3gen_cfg.tokenizer == base.s3gen_cfg.tokenizer
+    for bad in ("0", "-3", "four"):
+        monkeypatch.setenv("CHATTERBOX_FLOW_STEPS", bad)
+        with pytest.raises(ValueError, match="CHATTERBOX_FLOW_STEPS"):
+            _port_tts()
+
+
+def test_per_call_flow_steps_matches_jax(jax_tts, jax_turbo_wavs, zero_port_noise, monkeypatch):
+    """``flow_steps=4`` for one call (test_pipeline.py:293-310): the same T3
+    tokens and lengths, a different wav, the default tier unchanged on the
+    next call; the wavs within the pipeline limit of the JAX package's at
+    the same ``flow_steps``; ``flow_steps=0`` raises."""
+    from chatterbox_tpu_torch.pipeline.conditionals import Conditionals
+
+    monkeypatch.delenv("CHATTERBOX_FLOW_STEPS", raising=False)
+    tts = _port_tts()
+    conds = Conditionals.load(jax_tts[1] / "conds.safetensors")
+    kw = dict(conds=conds, greedy=True, max_new_tokens=MAX_NEW)
+    base = tts.generate_batch(TEXTS, **kw)
+    base_tokens = tts.last_speech_tokens
+    turbo = tts.generate_batch(TEXTS, flow_steps=4, **kw)
+    assert tts.last_timings["flow_steps"] == 4
+    for a, b in zip(base_tokens, tts.last_speech_tokens):
+        np.testing.assert_array_equal(a, b)
+    assert [len(w) for w in base] == [len(w) for w in turbo]
+    assert not all(np.array_equal(a, b) for a, b in zip(base, turbo))
+    _check(turbo, jax_turbo_wavs)
+    again = tts.generate_batch(TEXTS, **kw)
+    assert tts.last_timings["flow_steps"] == 10
+    for a, b in zip(base, again):
+        np.testing.assert_array_equal(a, b)
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="flow_steps"):
+            tts.generate_batch(TEXTS, flow_steps=bad, **kw)
+
+
+def test_generate_batch_int8_weights_match_jax(jax_tts, zero_port_noise):
+    """``apply_tts_precision(weight_quant=True)`` end to end on both sides
+    (test_weight_quant.py::test_pipeline_weight_quant_smoke), kept in fp32
+    so that the comparison holds the int8 layout and not bf16 round-off:
+    the wavs within the pipeline limit of the JAX package's, and
+    ``_unfuse_qkv`` back to the canonical layout gives the dense model's
+    int8-rounded weights."""
+    from chatterbox_tpu.models.s3gen import s3gen as js
+    from chatterbox_tpu.runtime.precision import apply_tts_precision as j_apply
+    from chatterbox_tpu_torch.pipeline.conditionals import Conditionals
+    from chatterbox_tpu_torch.runtime.precision import apply_tts_precision
+
+    jtts, native = jax_tts
+    saved = jtts.t3_params, jtts.s3gen_params
+    real = js.hift_generate
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
+    try:
+        j_apply(jtts, dtype=jnp.float32, weight_quant=True)
+        want = jtts.generate_batch(TEXTS, greedy=True, max_new_tokens=MAX_NEW)
+    finally:
+        js.hift_generate = real
+        jtts.t3_params, jtts.s3gen_params = saved
+    tts = apply_tts_precision(_port_tts(), dtype=torch.float32, weight_quant=True)
+    assert tts._runtime_llama_layout(tts.t3_params)
+    conds = Conditionals.load(native / "conds.safetensors")
+    _check(tts.generate_batch(TEXTS, conds=conds, greedy=True, max_new_tokens=MAX_NEW), want)
+    tts._unfuse_qkv()
+    layers = tts.t3_params["llama"]["layers"]
+    assert not tts._runtime_llama_layout(tts.t3_params) and layers["q"]["w"].dtype == torch.float32

@@ -95,3 +95,46 @@ def test_vc_generate_batch_matches_jax(jax_vc_wavs, target_wav, zero_port_noise,
         np.testing.assert_allclose(g, w, atol=5e-3)  # test_hifigan.py's full-inference limit
     single = vc.generate(SOURCES[1], seed=3)
     assert single.shape == (1, 15 * 960)
+
+
+def test_vc_flow_steps_env_knob_and_validation(monkeypatch):
+    """CHATTERBOX_FLOW_STEPS covers VC too (test_pipeline.py:277-281), and an
+    invalid value fails at construction."""
+    from chatterbox_tpu.pipeline.vc import ChatterboxVC as JVC
+    from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
+
+    monkeypatch.setenv("CHATTERBOX_FLOW_STEPS", "6")
+    vc = ChatterboxVC({}, "cpu", P_S3GEN)
+    assert vc.s3gen_cfg.flow.n_timesteps == JVC(s3gen_params={}).s3gen_cfg.flow.n_timesteps == 6
+    assert vc.s3gen_cfg.flow.estimator == P_S3GEN.flow.estimator
+    for bad in ("0", "x"):
+        monkeypatch.setenv("CHATTERBOX_FLOW_STEPS", bad)
+        with pytest.raises(ValueError, match="CHATTERBOX_FLOW_STEPS"):
+            ChatterboxVC({}, "cpu", P_S3GEN)
+
+
+def test_vc_per_call_flow_steps_matches_jax(jax_vc_wavs, target_wav, zero_port_noise,
+                                            monkeypatch):
+    """``flow_steps=4`` for one call (test_pipeline.py:313-327): the same
+    lengths, a different wav than the default tier's, within the pipeline
+    limit of the JAX package's ``generate_batch(..., flow_steps=4)``; a
+    value below 1 raises."""
+    from chatterbox_tpu.models.s3gen import s3gen as js
+    from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
+
+    monkeypatch.delenv("CHATTERBOX_FLOW_STEPS", raising=False)
+    jvc, base = jax_vc_wavs
+    real = js.hift_generate
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
+    try:
+        want = jvc.generate_batch(SOURCES, seed=3, flow_steps=4)
+    finally:
+        js.hift_generate = real
+    vc = ChatterboxVC(s3gen_with_conditioning()[1], "cpu", P_S3GEN)
+    got = vc.generate_batch(SOURCES, target_voice_path=target_wav, seed=3, flow_steps=4)
+    assert vc.last_timings["flow_steps"] == 4
+    for g, w, b in zip(got, want, base):
+        assert g.shape == w.shape == b.shape and not np.array_equal(w, b)
+        np.testing.assert_allclose(g, w, atol=5e-3)  # test_hifigan.py's full-inference limit
+    with pytest.raises(ValueError, match="flow_steps"):
+        vc.generate(SOURCES[0], seed=3, flow_steps=0)
