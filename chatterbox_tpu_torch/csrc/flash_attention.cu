@@ -1,37 +1,29 @@
-// K3, K4 and K5: exact (non-causal) softmax attention of the S3Gen flow, one
-// templated tensor-core kernel body behind three entry points.
+// K4: the conformer's exact (non-causal) rel-pos softmax attention, a WMMA
+// tensor-core kernel. K3 and K5 (the UNet's self-attention) run the Hopper
+// kernel of flash_attention_sm90.cu; the body here keeps its RELPOS template
+// parameter, and only RELPOS = true is instantiated.
 //
-// K3 replaces chatterbox_tpu/ops/flash_attention.py::flash_self_attention_packed
-// (Pallas _packed_kernel, flash_attention.py:76-108): UNet self-attention read
-// straight from the packed to_qkv output (B, T, 3*H*D); q, k and v are the
-// column bands [0, HD), [HD, 2HD), [2HD, 3HD). scores = q.k^T / sqrt(D) +
-// key_bias.
 // K4 replaces chatterbox_tpu/ops/flash_attention.py::flash_relpos_attention
 // (Pallas _relpos_kernel, flash_attention.py:229-261): conformer ESPnet
 // rel-pos attention, scores = (q_u.k^T + qhat.shat^T) * scale + key_bias,
 // where qhat (B, T, H*C) is the rope-rotated query folded with W_pos and shat
 // (T, C) the absolute sinusoid table shared by all heads (C = model width).
-// K5 replaces chatterbox_tpu/ops/flash_attention.py::flash_self_attention
-// (Pallas _kernel, flash_attention.py:52-73): K3's function on separate
-// q, k, v in (B, H, T, D), the UNet's branch for unfused to_q/to_k/to_v
-// weights. Only the strides differ from K3: a head is a contiguous (T, D)
-// block, and the output is (B, H, T, D). Like the Pallas kernel, it rounds
-// the unnormalised probabilities to bf16 for the value product and divides
-// by the row sum afterwards.
+// Like the Pallas kernel, it rounds the unnormalised probabilities to bf16
+// for the value product and divides by the row sum afterwards.
 //
-// What bounds them: operations. At the flow's shapes (T ~ 1000, D = 64) a
-// (row, head) reads 3*T*D bf16 values and does 4*T*T*D flops (K4 adds
-// 2*T*T*C), well above the bf16 ridge of ~295 flop/byte.
+// What bounds it: operations. At the flow's shapes (T ~ 1000-2560, D = 64,
+// C = 512) a (row, head) reads 3*T*D + T*C bf16 values and does
+// 4*T*T*D + 2*T*T*C flops, well above the bf16 ridge of ~295 flop/byte.
 // Design: one 128-thread block (4 warps) per (q-tile of 64 rows, head, row).
 // The block walks the keys in tiles of 64 with an fp32 online softmax; the
 // TPU kernel's full (Tq, T) logits row does not fit shared memory at the
 // long-form bucket (T = 2304), and its 8-row bias tiling is not needed. Both
 // products run on the tensor cores through WMMA 16x16x16 bf16 fragments with
-// fp32 accumulation: each warp owns 16 query rows of the tile. K4's second
+// fp32 accumulation: each warp owns 16 query rows of the tile. The second
 // term accumulates into the same score fragments over C in chunks of 64 (the
 // block's qhat rows stay in shared memory). Tiles move to shared memory with
-// plain 16-byte loads. The Hopper-native form -- TMA loads into a ring of
-// stages and wgmma on 64-row warpgroup tiles -- is queued for a later PR.
+// plain 16-byte loads. The Hopper-native form (TMA, wgmma), as K3 and K5
+// have it, is queued.
 
 #include "common.cuh"
 #include <mma.h>
@@ -248,15 +240,10 @@ __device__ __forceinline__ void attention_body(const AttnArgs a) {
   }
 }
 
-// K3 (RELPOS = false) and K4 (RELPOS = true)
+// K4 (RELPOS = true)
 template <bool RELPOS>
 __global__ void __launch_bounds__(NT) flash_attention_kernel(AttnArgs a) {
   attention_body<RELPOS>(a);
-}
-
-// K5: its own symbol, so that a profile tells its launches from K3's
-__global__ void __launch_bounds__(NT) flash_attention_heads_kernel(AttnArgs a) {
-  attention_body<false>(a);
 }
 
 template <bool RELPOS>
@@ -270,7 +257,7 @@ int launch(void (*kernel)(AttnArgs), const AttnArgs& a, int B, cudaStream_t st) 
   return (int)cudaGetLastError();
 }
 
-// the (B, T, H*D) output of K3 and K4
+// the (B, T, H*D) output of K4
 void set_token_major_out(AttnArgs& a, void* out) {
   a.out = reinterpret_cast<bf16*>(out);
   a.out_ld = (long long)a.H * HD;
@@ -281,30 +268,6 @@ void set_token_major_out(AttnArgs& a, void* out) {
 }  // namespace
 
 extern "C" {
-
-// K3. qkv (B, T, 3*H*64) bf16, bias (B, T) f32, out (B, T, H*64) bf16.
-// T % 64 == 0.
-int cbx_flash_attention_packed(const void* qkv, const void* bias, void* out, int B, int T,
-                               int H, float scale, void* stream) {
-  if (T % BM != 0) return (int)cudaErrorInvalidValue;
-  AttnArgs a{};
-  const bf16* base = reinterpret_cast<const bf16*>(qkv);
-  const long long hd = (long long)H * HD;
-  a.q = base;
-  a.k = base + hd;
-  a.v = base + 2 * hd;
-  a.ld = 3 * hd;
-  a.bstride = (long long)T * 3 * hd;
-  a.hstride = HD;
-  a.bias = reinterpret_cast<const float*>(bias);
-  a.T = T;
-  a.H = H;
-  a.C = 0;
-  a.scale = scale;
-  set_token_major_out(a, out);
-  return launch<false>(flash_attention_kernel<false>, a, B,
-                       reinterpret_cast<cudaStream_t>(stream));
-}
 
 // K4. q_u, k, v, out (B, T, H*64) bf16; qhat (B, T, H*C) bf16; shat (T, C)
 // bf16; bias (B, T) f32. T % 64 == 0, C % 64 == 0.
@@ -329,28 +292,6 @@ int cbx_flash_relpos(const void* q_u, const void* k, const void* v, const void* 
   set_token_major_out(a, out);
   return launch<true>(flash_attention_kernel<true>, a, B,
                       reinterpret_cast<cudaStream_t>(stream));
-}
-
-// K5. q, k, v, out (B, H, T, 64) bf16, each contiguous; bias (B, T) f32.
-// T % 64 == 0.
-int cbx_flash_attention_heads(const void* q, const void* k, const void* v, const void* bias,
-                              void* out, int B, int T, int H, float scale, void* stream) {
-  if (T % BM != 0) return (int)cudaErrorInvalidValue;
-  AttnArgs a{};
-  a.q = reinterpret_cast<const bf16*>(q);
-  a.k = reinterpret_cast<const bf16*>(k);
-  a.v = reinterpret_cast<const bf16*>(v);
-  a.ld = a.out_ld = HD;
-  a.hstride = a.out_hstride = (long long)T * HD;
-  a.bstride = a.out_bstride = (long long)H * T * HD;
-  a.bias = reinterpret_cast<const float*>(bias);
-  a.out = reinterpret_cast<bf16*>(out);
-  a.T = T;
-  a.H = H;
-  a.C = 0;
-  a.scale = scale;
-  return launch<false>(flash_attention_heads_kernel, a, B,
-                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

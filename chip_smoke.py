@@ -7,7 +7,9 @@ Phases (any failure exits non-zero before the last line):
   2. build: compiles every kernel of ``chatterbox_tpu_torch/csrc`` with nvcc;
   3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3, K4 and K5 at the full-width
      shapes of the TTS and VC paths (K1b, K1c+d and K2b at the default
-     budget's cache length, S = 1152; K5 at T = 1024 and 2560), holds each
+     budget's cache length, S = 1152; K3 and K5 at T = 1024, 1536 and 2560,
+     paths A, E and B, where the two must agree bit for bit on the same
+     q, k, v; K4 at T = 1024 and 2560), holds each
      against its plain PyTorch version on the same inputs (the limits are
      stated at ``OUT_RTOL``) and times the kernel, the plain version and,
      as a yardstick only, one PyTorch library call for the same function,
@@ -111,9 +113,9 @@ PROMPT_TOKENS = 250  # flow prompt: 250 tokens / 500 mel frames
 T3_LAYERS, T3_HEADS, HEAD_DIM = 30, 16, 64
 N_COND, TEXT_BUCKET, N_BOS = 34, 64, 2
 FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
-# K5's (padded T, valid mel frames): path A's flow (250 + 250 tokens) and
-# path B's (250 + 1000)
-K5_T = ((1024, 1000), (2560, 2500))
+# K3's and K5's (padded T, valid mel frames): path A's flow (250 + 250
+# tokens), path E's (1500 frames) and path B's (250 + 1000)
+SELF_ATTN_T = ((1024, 1000), (1536, 1500), (2560, 2500))
 TURBO_STEPS = 4  # path G's per-call flow_steps
 
 TEXTS = [
@@ -422,122 +424,149 @@ def kernel_phase():
     )
     del cache8, scales, tails, tail
 
-    # ---- K3: UNet self-attention from packed qkv, 16 CFG rows, mel length
-    t_mel = 2 * (PROMPT_TOKENS + MAX_NEW)
-    tp = -(-t_mel // 128) * 128
+    # ---- K3 and K5: the UNet's self-attention, 16 CFG rows x 8 heads of 64,
+    # from the packed to_qkv output (K3) and on (B, H, T, D) q, k, v (K5, the
+    # unfused layout), at the padded mel lengths of paths A, E and B. Each
+    # timed launch reads the next of enough input sets to pass 4x the 50 MB
+    # L2, as the main path's launches (one a transformer block) do. K3 and K5
+    # run one kernel body: on the same q, k, v they must agree bit for bit.
     hd = FLOW_HEADS * HEAD_DIM
-    qkv = randn(ROWS, tp, 3 * hd)
-    key_valid = torch.arange(tp, device=dev)[None] < t_mel
-    key_bias = torch.where(key_valid, 0.0, -1.0e10).expand(ROWS, tp).contiguous().float()
-    want = fa.flash_self_attention_packed_plain(qkv, key_bias, FLOW_HEADS)
-    qkv_abs_v = torch.cat([qkv[..., :2 * hd], qkv[..., 2 * hd:].abs()], dim=-1)
-    err, tol, share = check_kernel(
-        "flash_self_attention_packed", fa.flash_self_attention_packed(qkv, key_bias, FLOW_HEADS),
-        want, fa.flash_self_attention_packed_plain(qkv_abs_v, key_bias, FLOW_HEADS))
-    del qkv_abs_v
-    qh, kh, vh = (qkv[..., i * hd:(i + 1) * hd].unflatten(-1, (FLOW_HEADS, HEAD_DIM)).transpose(1, 2)
-                  for i in range(3))
-    bias4 = key_bias[:, None, None, :].to(bf)
-
-    def k3_library():
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias4)
-
-    k3_flops = 4 * ROWS * FLOW_HEADS * tp * tp * HEAD_DIM
-    k3_bytes = qkv.numel() * 2 + key_bias.numel() * 4 + ROWS * tp * hd * 2
-    rows["flash_self_attention_packed"] = dict(
-        err=err, tol=tol, share=share,
-        library_err=library_err("flash_self_attention_packed",
-                                k3_library().transpose(1, 2).flatten(2), want),
-        ms=timed(lambda: fa.flash_self_attention_packed(qkv, key_bias, FLOW_HEADS), 50),
-        plain_ms=timed(lambda: fa.flash_self_attention_packed_plain(qkv, key_bias, FLOW_HEADS), 10),
-        library_ms=timed(k3_library, 50),
-        bound=bound(k3_bytes, k3_flops),
-    )
-    del qkv, qh, kh, vh
-
-    # ---- K5: the same attention on (B, H, T, D) q, k, v (the UNet's unfused
-    # layout), at path A's T and path B's; each timed launch reads the next
-    # of enough input sets to pass 4x the 50 MB L2
-    k5_runs = []
-    for t_pad, t_valid in K5_T:
+    attn_runs = {"flash_self_attention_packed": [], "flash_self_attention": []}
+    for t_pad, t_valid in SELF_ATTN_T:
         set_bytes = 3 * ROWS * FLOW_HEADS * t_pad * HEAD_DIM * 2
         n_sets = max(2, -(-200 * 2**20 // set_bytes))
-        sets = [tuple(randn(ROWS, FLOW_HEADS, t_pad, HEAD_DIM) for _ in range(3))
-                for _ in range(n_sets)]
-        bias5 = torch.where(torch.arange(t_pad, device=dev)[None] < t_valid, 0.0, -1.0e10)
-        bias5 = bias5.expand(ROWS, t_pad).contiguous().float()
-        q5, k5, v5 = sets[0]
-        want = fa.flash_self_attention_plain(q5, k5, v5, bias5)
-        err, tol, share = check_kernel(f"flash_self_attention (T = {t_pad})",
-                                       fa.flash_self_attention(q5, k5, v5, bias5), want,
-                                       fa.flash_self_attention_plain(q5, k5, v5.abs(), bias5))
-        bias5_4 = bias5[:, None, None, :].to(bf)
-        lib_err = library_err(f"flash_self_attention (T = {t_pad})",
-                              F.scaled_dot_product_attention(q5, k5, v5, attn_mask=bias5_4), want)
+        bias_t = torch.where(torch.arange(t_pad, device=dev)[None] < t_valid, 0.0, -1.0e10)
+        bias_t = bias_t.expand(ROWS, t_pad).contiguous().float()
+        bias_4 = bias_t[:, None, None, :].to(bf)
+        flops = 4 * ROWS * FLOW_HEADS * t_pad * t_pad * HEAD_DIM
+        # each input read once, the output written once
+        t_bound = bound(set_bytes * 4 // 3 + bias_t.numel() * 4, flops)
+        packed = [randn(ROWS, t_pad, 3 * hd) for _ in range(n_sets)]
+
+        def split(x, i):  # (B, T, 3HD) -> band i as (B, H, T, D)
+            return x[..., i * hd:(i + 1) * hd].unflatten(-1, (FLOW_HEADS, HEAD_DIM)).transpose(1, 2)
+
+        qkv = packed[0]
+        want = fa.flash_self_attention_packed_plain(qkv, bias_t, FLOW_HEADS)
+        got3 = fa.flash_self_attention_packed(qkv, bias_t, FLOW_HEADS)
+        qkv_abs_v = torch.cat([qkv[..., :2 * hd], qkv[..., 2 * hd:].abs()], dim=-1)
+        err, tol, share = check_kernel(f"flash_self_attention_packed (T = {t_pad})", got3, want,
+                                       fa.flash_self_attention_packed_plain(qkv_abs_v, bias_t,
+                                                                            FLOW_HEADS))
+        del qkv_abs_v
+        lib_err = library_err(f"flash_self_attention_packed (T = {t_pad})",
+                              F.scaled_dot_product_attention(
+                                  *(split(qkv, i) for i in range(3)),
+                                  attn_mask=bias_4).transpose(1, 2).flatten(2), want)
         del want
-        iters = 50 if t_pad <= 1024 else 10
-        k5_runs.append(dict(
-            err=err, tol=tol, share=share, library_err=lib_err, n_sets=n_sets,
-            ms=timed(rotating(lambda i: fa.flash_self_attention(*sets[i], bias5), n_sets), iters),
-            plain_ms=timed(rotating(lambda i: fa.flash_self_attention_plain(*sets[i], bias5),
+        lib_sets = [tuple(split(x, i) for i in range(3)) for x in packed]  # strided views
+        iters = 50 if t_pad <= 1024 else 20
+        attn_runs["flash_self_attention_packed"].append(dict(
+            T=t_pad, err=err, tol=tol, share=share, library_err=lib_err, n_sets=n_sets,
+            ms=timed(rotating(lambda i: fa.flash_self_attention_packed(packed[i], bias_t,
+                                                                        FLOW_HEADS), n_sets), iters),
+            plain_ms=timed(rotating(lambda i: fa.flash_self_attention_packed_plain(
+                packed[i], bias_t, FLOW_HEADS), n_sets), max(2, iters // 5)),
+            library_ms=timed(rotating(lambda i: F.scaled_dot_product_attention(
+                *lib_sets[i], attn_mask=bias_4), n_sets), iters),
+            bound=t_bound,
+        ))
+        del lib_sets
+        sets = [tuple(split(x, i).contiguous() for i in range(3)) for x in packed]
+        del packed, qkv
+        q5, k5, v5 = sets[0]
+        got5 = fa.flash_self_attention(q5, k5, v5, bias_t)
+        torch.cuda.synchronize()
+        same = torch.equal(got5.transpose(1, 2).flatten(2), got3)
+        print(f"kernel flash_self_attention (T = {t_pad}): bit-identical to "
+              f"flash_self_attention_packed on the same q, k, v: {same}", flush=True)
+        if not same:
+            fail(f"flash_self_attention and flash_self_attention_packed disagree at T = {t_pad}")
+        del got3
+        want = fa.flash_self_attention_plain(q5, k5, v5, bias_t)
+        err, tol, share = check_kernel(f"flash_self_attention (T = {t_pad})", got5, want,
+                                       fa.flash_self_attention_plain(q5, k5, v5.abs(), bias_t))
+        lib_err = library_err(f"flash_self_attention (T = {t_pad})",
+                              F.scaled_dot_product_attention(q5, k5, v5, attn_mask=bias_4), want)
+        del want, got5
+        attn_runs["flash_self_attention"].append(dict(
+            T=t_pad, err=err, tol=tol, share=share, library_err=lib_err, n_sets=n_sets,
+            ms=timed(rotating(lambda i: fa.flash_self_attention(*sets[i], bias_t), n_sets), iters),
+            plain_ms=timed(rotating(lambda i: fa.flash_self_attention_plain(*sets[i], bias_t),
                                     n_sets), max(2, iters // 5)),
             library_ms=timed(rotating(lambda i: F.scaled_dot_product_attention(
-                *sets[i], attn_mask=bias5_4), n_sets), iters),
-            bound=bound(set_bytes * 4 // 3 + bias5.numel() * 4,
-                        4 * ROWS * FLOW_HEADS * t_pad * t_pad * HEAD_DIM),
+                *sets[i], attn_mask=bias_4), n_sets), iters),
+            bound=t_bound,
         ))
         del sets, q5, k5, v5
         torch.cuda.empty_cache()
-    # the row holds path A's T (as K3's row), path B's beside it
-    (t_a, _), (t_b, _) = K5_T
-    short, long = k5_runs
-    rows["flash_self_attention"] = dict(
-        short, err=max(short["err"], long["err"]), share=max(short["share"], long["share"]),
-        library_err=max(short["library_err"], long["library_err"]),
-        extra={"T": t_a, f"ms_t{t_b}": long["ms"], f"plain_ms_t{t_b}": long["plain_ms"],
-               f"library_ms_t{t_b}": long["library_ms"], f"bound_ms_t{t_b}": long["bound"][0],
-               f"max_abs_err_t{t_b}": long["err"], f"err_share_of_tol_t{t_b}": long["share"],
-               "input_sets": {str(t_a): short["n_sets"], str(t_b): long["n_sets"]}},
-    )
+    # each row holds path A's T; the other T's figures beside it
+    for name, runs in attn_runs.items():
+        first = runs[0]
+        extra = {"T": first["T"], "input_sets": {str(r["T"]): r["n_sets"] for r in runs}}
+        for r in runs[1:]:
+            t = r["T"]
+            extra.update({f"ms_t{t}": r["ms"], f"plain_ms_t{t}": r["plain_ms"],
+                          f"library_ms_t{t}": r["library_ms"], f"bound_ms_t{t}": r["bound"][0],
+                          f"max_abs_err_t{t}": r["err"], f"err_share_of_tol_t{t}": r["share"]})
+        rows[name] = dict(first, err=max(r["err"] for r in runs),
+                          share=max(r["share"] for r in runs),
+                          library_err=max(r["library_err"] for r in runs), extra=extra)
 
-    # ---- K4: conformer rel-pos attention, 8 rows, the 50 Hz (upsampled) layers
-    t_conf = tp
+    # ---- K4: conformer rel-pos attention, 8 rows, the 50 Hz (upsampled) layers,
+    # at path A's T and path B's
     cd = CONF_C
     dk = cd // CONF_HEADS
-    q_u, k, v = (randn(N_TEXTS, t_conf, cd, scale=0.5) for _ in range(3))
-    q_hat = randn(N_TEXTS, t_conf, CONF_HEADS * cd, scale=0.5)
-    s_hat = randn(1, t_conf, cd, scale=0.7)
-    bias = key_bias[:N_TEXTS].contiguous()
     scale = 1.0 / math.sqrt(dk)
-    kargs = (q_u, q_hat, k, s_hat, v, bias, CONF_HEADS, scale)
-    want = fa.flash_relpos_attention_plain(*kargs)
-    err, tol, share = check_kernel(
-        "flash_relpos_attention", fa.flash_relpos_attention(*kargs), want,
-        fa.flash_relpos_attention_plain(q_u, q_hat, k, s_hat, v.abs(), bias, CONF_HEADS, scale))
+    k4_runs = []
+    for t_conf, t_valid in (SELF_ATTN_T[0], SELF_ATTN_T[-1]):
+        q_u, k, v = (randn(N_TEXTS, t_conf, cd, scale=0.5) for _ in range(3))
+        q_hat = randn(N_TEXTS, t_conf, CONF_HEADS * cd, scale=0.5)
+        s_hat = randn(1, t_conf, cd, scale=0.7)
+        bias = torch.where(torch.arange(t_conf, device=dev)[None] < t_valid, 0.0, -1.0e10)
+        bias = bias.expand(N_TEXTS, t_conf).contiguous().float()
+        kargs = (q_u, q_hat, k, s_hat, v, bias, CONF_HEADS, scale)
+        want = fa.flash_relpos_attention_plain(*kargs)
+        err, tol, share = check_kernel(
+            f"flash_relpos_attention (T = {t_conf})", fa.flash_relpos_attention(*kargs), want,
+            fa.flash_relpos_attention_plain(q_u, q_hat, k, s_hat, v.abs(), bias, CONF_HEADS,
+                                            scale))
 
-    # the library call: one SDPA of depth dk + C on q = [q_u_h, qhat_h] and
-    # k = [k_h, shat], whose q.k^T is q_u.k^T + qhat.shat^T
-    def heads(x, n):
-        return x.unflatten(-1, (CONF_HEADS, n)).transpose(1, 2)
+        # the library call: one SDPA of depth dk + C on q = [q_u_h, qhat_h] and
+        # k = [k_h, shat], whose q.k^T is q_u.k^T + qhat.shat^T
+        def heads(x, n):
+            return x.unflatten(-1, (CONF_HEADS, n)).transpose(1, 2)
 
-    q_cat = torch.cat([heads(q_u, dk), heads(q_hat, cd)], dim=-1)
-    s_heads = s_hat[:, None].expand(N_TEXTS, CONF_HEADS, t_conf, cd)
-    k_cat = torch.cat([heads(k, dk), s_heads], dim=-1)
-    v_h, bias4 = heads(v, dk), bias[:, None, None, :].to(bf)
+        q_cat = torch.cat([heads(q_u, dk), heads(q_hat, cd)], dim=-1)
+        s_heads = s_hat[:, None].expand(N_TEXTS, CONF_HEADS, t_conf, cd)
+        k_cat = torch.cat([heads(k, dk), s_heads], dim=-1)
+        v_h, bias4 = heads(v, dk), bias[:, None, None, :].to(bf)
 
-    def k4_library():
-        return F.scaled_dot_product_attention(q_cat, k_cat, v_h, attn_mask=bias4, scale=scale)
+        def k4_library():
+            return F.scaled_dot_product_attention(q_cat, k_cat, v_h, attn_mask=bias4, scale=scale)
 
-    k4_flops = 2 * N_TEXTS * CONF_HEADS * t_conf * t_conf * (2 * dk + cd)
-    k4_bytes = (4 * q_u.numel() + q_hat.numel() + s_hat.numel()) * 2 + bias.numel() * 4
+        k4_flops = 2 * N_TEXTS * CONF_HEADS * t_conf * t_conf * (2 * dk + cd)
+        k4_bytes = (4 * q_u.numel() + q_hat.numel() + s_hat.numel()) * 2 + bias.numel() * 4
+        k4_runs.append(dict(
+            T=t_conf, err=err, tol=tol, share=share,
+            library_err=library_err(f"flash_relpos_attention (T = {t_conf})",
+                                    k4_library().transpose(1, 2).flatten(2), want),
+            ms=timed(lambda: fa.flash_relpos_attention(*kargs), 50 if t_conf <= 1024 else 20),
+            plain_ms=timed(lambda: fa.flash_relpos_attention_plain(*kargs), 10 if t_conf <= 1024
+                           else 4),
+            library_ms=timed(k4_library, 50 if t_conf <= 1024 else 20),
+            bound=bound(k4_bytes, k4_flops),
+        ))
+        del q_u, k, v, q_hat, s_hat, q_cat, k_cat, s_heads, v_h, want
+        torch.cuda.empty_cache()
+    short, long = k4_runs
+    t_b = long["T"]
     rows["flash_relpos_attention"] = dict(
-        err=err, tol=tol, share=share,
-        library_err=library_err("flash_relpos_attention",
-                                k4_library().transpose(1, 2).flatten(2), want),
-        ms=timed(lambda: fa.flash_relpos_attention(*kargs), 50),
-        plain_ms=timed(lambda: fa.flash_relpos_attention_plain(*kargs), 10),
-        library_ms=timed(k4_library, 50),
-        bound=bound(k4_bytes, k4_flops),
+        short, err=max(short["err"], long["err"]), share=max(short["share"], long["share"]),
+        library_err=max(short["library_err"], long["library_err"]),
+        extra={"T": short["T"], f"ms_t{t_b}": long["ms"], f"plain_ms_t{t_b}": long["plain_ms"],
+               f"library_ms_t{t_b}": long["library_ms"], f"bound_ms_t{t_b}": long["bound"][0],
+               f"max_abs_err_t{t_b}": long["err"], f"err_share_of_tol_t{t_b}": long["share"]},
     )
     torch.cuda.synchronize()
     return rows
@@ -743,7 +772,7 @@ KERNEL_INFO = {
         "chatterbox_tpu/models/t3/llama.py:632-646)",
     ),
     "flash_self_attention_packed": (
-        "chatterbox_tpu_torch/csrc/flash_attention.cu",
+        "chatterbox_tpu_torch/csrc/flash_attention_sm90.cu",
         "chatterbox_tpu/ops/flash_attention.py:126",
     ),
     "flash_relpos_attention": (
@@ -751,7 +780,7 @@ KERNEL_INFO = {
         "chatterbox_tpu/ops/flash_attention.py:267",
     ),
     "flash_self_attention": (
-        "chatterbox_tpu_torch/csrc/flash_attention.cu",
+        "chatterbox_tpu_torch/csrc/flash_attention_sm90.cu",
         "chatterbox_tpu/ops/flash_attention.py:172",
     ),
     "P1": ("chatterbox_tpu_torch/csrc/probes.cu",
@@ -990,7 +1019,8 @@ def random_conditionals(dev, seed=0):
 
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_int8_kernel", "kv_append_kernel",
-                "kv_quantize_kernel", "flash_attention_kernel", "flash_attention_heads_kernel")
+                "kv_quantize_kernel", "flash_attention_kernel",
+                "flash_attention_packed_sm90_kernel", "flash_attention_heads_sm90_kernel")
 
 
 def profile_call(fn, warm_wall):

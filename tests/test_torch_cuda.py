@@ -185,6 +185,69 @@ def test_flash_self_attention_matches_plain(cuda):
                    fa.flash_self_attention_plain(q, k, v.abs(), bias))
 
 
+def _self_attention_rows(dev, t, seed):
+    """q, k, v (5, 8, t, 64) bf16 and the (5, t) f32 key bias of the K3/K5
+    cases: row 0 a general finite bias, row 1 a single valid key, row 2
+    valid keys only in the last 128-key tile, row 3 logits scaled x8 (its q
+    x8: the running max moves and rescales O), row 4 every key masked (its
+    plain result is the mean of v over all keys, so no tile may be
+    skipped)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((5, 8, t, 64)).astype(np.float32) for _ in range(3))
+    q[3] *= 8
+    bias = np.zeros((5, t), np.float32)
+    bias[0] = rng.standard_normal(t) * 2
+    bias[1, 1:] = -1.0e10
+    bias[2, :t - 91] = -1.0e10
+    bias[4] = -1.0e10
+    q, k, v = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in (q, k, v))
+    return q, k, v, torch.from_numpy(bias).to(dev)
+
+
+def _packed(q, k, v):
+    """(B, H, T, D) q, k, v -> the (B, T, 3*H*D) to_qkv layout of K3."""
+    return torch.cat([x.transpose(1, 2).flatten(2) for x in (q, k, v)], dim=-1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 384, 1024, 2560])
+def test_flash_self_attention_packed_rows_match_plain(cuda, t):
+    """K3 on the rows of ``_self_attention_rows``; T = 384 is 3 key tiles,
+    not a multiple of the 2- or 3-stage ring."""
+    q, k, v, bias = _self_attention_rows(cuda, t, seed=40 + t)
+    qkv = _packed(q, k, v)
+    before = fa.flash_self_attention_packed.launches
+    got = fa.flash_self_attention_packed(qkv, bias, 8)
+    assert fa.flash_self_attention_packed.launches == before + 1
+    assert got.shape == (5, t, 512) and got.dtype == torch.bfloat16
+    _assert_within(got, fa.flash_self_attention_packed_plain(qkv, bias, 8),
+                   fa.flash_self_attention_packed_plain(_packed(q, k, v.abs()), bias, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 384, 1024, 2560])
+def test_flash_self_attention_rows_match_plain(cuda, t):
+    """K5 on the rows of ``_self_attention_rows``."""
+    q, k, v, bias = _self_attention_rows(cuda, t, seed=50 + t)
+    before = fa.flash_self_attention.launches
+    got = fa.flash_self_attention(q, k, v, bias)
+    assert fa.flash_self_attention.launches == before + 1
+    _assert_within(got, fa.flash_self_attention_plain(q, k, v, bias),
+                   fa.flash_self_attention_plain(q, k, v.abs(), bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 384, 1024, 2560])
+def test_packed_and_heads_layouts_agree_bit_for_bit(cuda, t):
+    """K3 and K5 run one kernel body: on the same q, k, v (packed against
+    split) their outputs are equal."""
+    q, k, v, bias = _self_attention_rows(cuda, t, seed=60 + t)
+    packed = fa.flash_self_attention_packed(_packed(q, k, v), bias, 8)
+    heads = fa.flash_self_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(heads.transpose(1, 2).flatten(2), packed)
+
+
 @pytest.mark.cuda
 def test_flash_relpos_matches_plain(cuda):
     q_u, k, v = (_randn(cuda, 2, 256, 8 * 64, seed=s, scale=0.5) for s in (7, 8, 9))
@@ -203,6 +266,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qkv = _randn(cuda, 1, 100, 3 * 8 * 64, seed=12)  # T not a multiple of 64
     with pytest.raises(ValueError):
         fa.flash_self_attention_packed(qkv, torch.zeros((1, 100), device=cuda), 8)
+    # K3 and K5 take 128-row tiles: a multiple of 64 that is not one of 128
+    qkv = _randn(cuda, 1, 192, 3 * 8 * 64, seed=19)
+    with pytest.raises(ValueError):
+        fa.flash_self_attention_packed(qkv, torch.zeros((1, 192), device=cuda), 8)
+    q = _randn(cuda, 1, 2, 192, 64, seed=20)
+    with pytest.raises(ValueError):
+        fa.flash_self_attention(q, q, q)
     q = _randn(cuda, 1, 2, 128, 32, seed=18)  # head dim 32
     with pytest.raises(ValueError):
         fa.flash_self_attention(q, q, q)

@@ -1,5 +1,6 @@
 """The port's kernels (K1a-d, K2, K2b, K3, K4, K5), held against the JAX
-package's Pallas kernels (interpret mode on the CPU).
+package's Pallas kernels (interpret mode on the CPU), and the tile walk of
+K3/K5's Hopper kernel emulated against their plain version.
 
 On the CPU each wrapper takes its plain PyTorch version, so these tests hold
 the kernels' arithmetic; the CUDA kernels themselves are held against the
@@ -195,6 +196,62 @@ def test_flash_self_attention_plain_matches_pallas(dtype):
         p_abs_v = p_fa.flash_self_attention_plain(t(q), t(k), t(np.abs(v)), t(bias)).numpy()
         limit = 2.0 ** -7 * (np.abs(want) + p_abs_v) + 1e-5
         assert (np.abs(got.float().numpy() - want) <= limit).all()
+
+
+def _sm90_tile_walk(q, k, v, bias, bn=128):
+    """The arithmetic of K3/K5's Hopper kernel (csrc/flash_attention_sm90.cu)
+    written out in fp32 on (B, H, T, 64) bf16 q, k, v: keys in tiles of
+    ``bn``; x = S * (scale * log2 e) + bias * log2 e; a running row max m;
+    P = exp2(x - m), rounded to bf16 for the value product; the row sum l in
+    fp32 from the unrounded P; O and l rescaled by exp2(m_old - m_new); O / l
+    rounded to bf16 at the end. (The kernel folds x into one FMA, which can
+    differ from this multiply-add in x's last bit.)"""
+    b, h, t, d = q.shape
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * log2e
+    bias_log2 = bias.float()[:, None, None, :] * log2e
+    m = torch.full((b, h, t, 1), -torch.inf)
+    l = torch.zeros((b, h, t, 1))
+    o = torch.zeros((b, h, t, d))
+    for t0 in range(0, t, bn):
+        x = (q.float() @ k[..., t0:t0 + bn, :].float().transpose(-1, -2)) * scale_log2
+        x = x + bias_log2[..., t0:t0 + bn]
+        m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        o = o * alpha + p.to(torch.bfloat16).float() @ v[..., t0:t0 + bn, :].float()
+        m = m_new
+    return (o / l).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("t_len", [128, 384, 1024])
+def test_sm90_tile_walk_matches_plain(t_len):
+    """The Hopper kernel's tile order, exp2 with the folded scale and the
+    per-tile bf16 rounding of the unnormalised P, emulated on the CPU,
+    against ``flash_self_attention_plain`` within chip_smoke.py's limit
+    |got - want| <= 2^-7 |want| + 2^-7 P|v| + 1e-5 (P|v|: the plain version
+    on |v|). Rows: a general finite bias, a single valid key, valid keys only
+    in the last tile, logits x8 (the running max moves), every key masked
+    (the plain result is the mean of v over all keys: no tile may be
+    skipped). T = 384 is 3 tiles."""
+    rng = np.random.default_rng(70 + t_len)
+    q, k, v = (rng.standard_normal((5, 2, t_len, 64)).astype(np.float32) for _ in range(3))
+    q[3] *= 8
+    bias = np.zeros((5, t_len), np.float32)
+    bias[0] = rng.standard_normal(t_len) * 2
+    bias[1, 1:] = -1.0e10
+    bias[2, :t_len - 91] = -1.0e10
+    bias[4] = -1.0e10
+    q, k, v = (t(x, torch.bfloat16) for x in (q, k, v))
+    got = _sm90_tile_walk(q, k, v, t(bias)).float()
+    want = p_fa.flash_self_attention_plain(q, k, v, t(bias)).float()
+    p_abs_v = p_fa.flash_self_attention_plain(q, k, v.abs(), t(bias)).float()
+    limit = 2.0 ** -7 * (want.abs() + p_abs_v) + 1e-5
+    assert bool(((got - want).abs() <= limit).all())
+    # the masked row: the plain version's uniform mean, within the output's rounding
+    mean_v = v[4].float().mean(dim=-2, keepdim=True).expand(2, t_len, 64)
+    assert bool(((got[4] - mean_v).abs() <= 2.0 ** -8 * mean_v.abs() + 1e-6).all())
 
 
 @pytest.mark.parametrize("layout", ["fused_aligned", "fused_unaligned", "unfused"])
