@@ -1,5 +1,5 @@
-// K3 and K5 on Hopper: exact (non-causal) softmax attention of the S3Gen
-// UNet, one warp-specialised wgmma kernel body behind two entry points.
+// K3, K4 and K5 on Hopper: the exact (non-causal) softmax attentions of the
+// S3Gen flow, one warp-specialised wgmma design behind three entry points.
 //
 // K3 replaces chatterbox_tpu/ops/flash_attention.py::flash_self_attention_packed
 // (Pallas _packed_kernel, flash_attention.py:76-108, called at :154): UNet
@@ -14,6 +14,13 @@
 // additive key bias (pad keys -1e10). Like the Pallas kernels they round the
 // unnormalised probabilities of the online softmax to bf16 before the value
 // product, keep the row sum in fp32 and divide by it at the end.
+// K4 replaces chatterbox_tpu/ops/flash_attention.py::flash_relpos_attention
+// (Pallas _relpos_kernel, flash_attention.py:229-261, called at :295): the
+// conformer's ESPnet rel-pos attention, scores = (q_u.k^T + qhat_h.shat^T) *
+// scale + key_bias, with q_u, k, v (B, T, H*64), qhat (B, T, H*C) (the
+// rope-rotated query folded with W_pos) and shat (T, C) (the sinusoid table
+// every (row, head) shares), C = 512 at full width; pad keys -1e9. It is
+// K3's function at q/k depth 64 + C, and rounds P the same way.
 //
 // What bounds them: operations. A (row, head) reads 3*T*64 bf16 values and
 // does 4*T*T*64 flops on the tensor cores; at T = 1024 that is ~680
@@ -21,6 +28,7 @@
 // exponentials are as costly as the products: a score costs 256 tensor
 // flops and one exp2, and an SM does 4096 dense bf16 flops but 16 exp2 a
 // clock, so the SFU alone needs about as long as the tensor-core bound.
+// K4 likewise: 2*T*T*(2*64 + C) flops on (3*64 + C)*T values a (row, head).
 //
 // Design (one CTA of 3 warpgroups per 128 query rows of one (row, head);
 // grid (T/128, H, B), the query tile fastest so that the CTAs reading one
@@ -58,6 +66,24 @@
 // K3 and K5 differ only in their TMA descriptors and output strides: the
 // kernel body is the same, so the two give bit-identical results on the
 // same q, k, v.
+// K4 (relpos_body) keeps the warp roles, the online softmax, P.V and the
+// epilogue. Its tensor work a key tile is (64 + C) / 64 + 1 = 10 times a
+// 128 x 128 x 64 product against K3's 2, for the same softmax, so the
+// exponentials no longer set the pace: the products and their operands do.
+// Q of depth 576 is 144 KB, a K-side tile as much: so Q (q_u and the 8
+// 64-wide qhat chunks, one 128-byte-swizzle box each) stays resident, and
+// every key tile streams through a ring of RP_RING single 16 KB boxes, in
+// order k, shat chunks 0-7, v (with the tile's bias). S accumulates in one
+// fp32 fragment over the 9 depth chunks (4 k-steps of m64n128k16 each); a
+// box is released as soon as the wgmma group that reads it completes, while
+// the next chunk's group runs. shat is one (T, C) tensor that every CTA
+// reads (L2 holds it: 2.6 MB at T = 2560). Shared memory: 147,456 (Q) +
+// 5 x 16,384 (the ring) + 1,024 (bias by tile parity) + barriers and the
+// alignment slack: 231,576 B of the 232,448 a block may have. The output is
+// staged in the warpgroup's own rows of the q_u box, read by then.
+// The S chain waits for its last chunk before the softmax, and P.V before
+// the next tile: within a warpgroup nothing overlaps the softmax; the other
+// warpgroup's products do.
 // The descriptors are encoded on the host for every call through the
 // driver's cuTensorMapEncodeTiled, fetched once with the runtime's
 // cudaGetDriverEntryPoint[ByVersion] (no -lcuda), and passed by value as
@@ -96,6 +122,22 @@ struct Smem {
 };
 constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + the alignment slack
 
+// K4: Q of depth 64 + C resident (q_u, then q-hat in 64-wide chunks, one TMA
+// box each), and a ring of single boxes through which every key tile
+// streams its K side and V: k, s-hat chunks 0 .. C/64 - 1, v.
+constexpr int RP_QBOXES = 1 + 8;  // q_u and up to 8 q-hat chunks: C <= 512
+constexpr int RP_RING = 5;
+struct SmemRelpos {
+  bf16 q[RP_QBOXES][BM * D];
+  bf16 ring[RP_RING][BN * D];
+  float bias[2][BN];  // the key tile's bias, by the tile's parity
+  uint64_t q_full[RP_QBOXES];
+  uint64_t full[RP_RING];
+  uint64_t empty[RP_RING];
+};
+constexpr int RP_SMEM_BYTES = sizeof(SmemRelpos) + 1024;
+static_assert(RP_SMEM_BYTES <= 232448, "K4's shared memory exceeds a block's 227 KB");
+
 struct Args {
   const float* bias;  // (B, T) additive key bias
   bf16* out;          // element (b, h, t, d) at b*out_bstride + h*out_hstride + t*out_ld + d
@@ -104,6 +146,8 @@ struct Args {
   int row_b, row_h;   // TMA row of (b, h, t): b*row_b + h*row_h + t
   int col_q, col_k, col_v, col_h;  // TMA column of head h's band: col_x + h*col_h
   float scale_log2;   // softmax scale * log2(e)
+  int col_qh_h;       // K4: the q-hat column of depth chunk c of head h is
+                      // h*col_qh_h + 64c, of the s-hat table 64c
 };
 
 // ---- PTX wrappers ----------------------------------------------------------
@@ -371,6 +415,37 @@ __device__ __forceinline__ void rescale(float (&o)[32], float2 alpha) {
   }
 }
 
+// A consumer warpgroup's epilogue: O / l (l reduced across the quad) in
+// bf16, staged in ``stage`` (64 rows of 128 B) with its 16-byte chunks
+// XOR-swizzled by row (conflict-free), then written with 16-byte stores to
+// query rows [t0, t0 + 64) of head h of batch row b.
+__device__ __forceinline__ void store_rows(const float (&o)[32], const OnlineSoftmax& st,
+                                           unsigned char* stage, const Args& a, int b, int h,
+                                           int t0, int tid) {
+  const int lane = tid % 32;
+  const int r_lo = (tid / 32) * 16 + lane / 4;
+  const float l_lo_all = quad_sum(st.l_lo), l_hi_all = quad_sum(st.l_hi);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = (j ^ (r_lo & 7)) * 16 + (lane % 4) * 4;
+    *reinterpret_cast<uint32_t*>(stage + r_lo * 128 + c) =
+        pack_bf16(o[4 * j + 0] / l_lo_all, o[4 * j + 1] / l_lo_all);
+    *reinterpret_cast<uint32_t*>(stage + (r_lo + 8) * 128 + c) =
+        pack_bf16(o[4 * j + 2] / l_hi_all, o[4 * j + 3] / l_hi_all);
+  }
+  named_barrier(1 + threadIdx.x / 128, 128);  // this warpgroup's staging is written
+  bf16* out = a.out + (long long)b * a.out_bstride + (long long)h * a.out_hstride +
+              (long long)t0 * a.out_ld;
+#pragma unroll
+  for (int i = 0; i < 64 * D / 8 / 128; ++i) {
+    const int idx = tid + 128 * i;
+    const int r = idx / 8;
+    const int c = idx % 8;
+    *reinterpret_cast<uint4*>(out + (long long)r * a.out_ld + c * 8) =
+        *reinterpret_cast<const uint4*>(stage + r * 128 + ((c ^ (r & 7)) * 16));
+  }
+}
+
 // The kernel body of K3 and K5 (see the note at the top).
 __device__ __forceinline__ void attention_body(const CUtensorMap* tq, const CUtensorMap* tk,
                                                const CUtensorMap* tv, const Args& a) {
@@ -420,10 +495,8 @@ __device__ __forceinline__ void attention_body(const CUtensorMap* tq, const CUte
     // other instruction may write a register of a pending wgmma: where one
     // does, ptxas serialises every wgmma of the kernel (its note C7513).
     setmaxnreg_inc<CONSUMER_REGS>();
-    const int warp = tid / 32;
     const int lane = tid % 32;
-    const int r_lo = warp * 16 + lane / 4;  // this thread's rows: r_lo and r_lo + 8
-    const int cq = 2 * (lane % 4);          // its first column in each 8-column block
+    const int cq = 2 * (lane % 4);  // this thread's first column in each 8-column block
     float o[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
@@ -505,30 +578,150 @@ __device__ __forceinline__ void attention_body(const CUtensorMap* tq, const CUte
       reg_fence(p[i]);
     }
 
-    const float l_lo_all = quad_sum(sm_state.l_lo), l_hi_all = quad_sum(sm_state.l_hi);
+    store_rows(o, sm_state, reinterpret_cast<unsigned char*>(sm.o + wg * 64 * D), a, b, h,
+               q0 + wg * 64, tid);
+  }
+}
 
-    // epilogue: O / l in bf16, staged with its 16-byte chunks XOR-swizzled by
-    // row (conflict-free), then written with 16-byte stores
-    unsigned char* stage = reinterpret_cast<unsigned char*>(sm.o + wg * 64 * D);
+// The kernel body of K4 (see the note at the top): K3's warp roles and
+// online softmax; S accumulates in one fp32 wgmma fragment over the depth
+// chunks of a key tile, each a 16 KB box of the ring, released as soon as
+// the wgmma that reads it completes.
+template <int NQH>
+__device__ __forceinline__ void relpos_body(const CUtensorMap* tq, const CUtensorMap* tqh,
+                                            const CUtensorMap* tk, const CUtensorMap* ts,
+                                            const CUtensorMap* tv, const Args& a) {
+  extern __shared__ unsigned char smem_raw[];
+  SmemRelpos& sm = *reinterpret_cast<SmemRelpos*>(
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = a.T / BN;
+  constexpr int n_q = 1 + NQH;     // Q boxes, and the depth chunks of a key tile
+  constexpr int n_box = n_q + 1;   // ring boxes a key tile: the depth chunks, then v
+  const int row0 = b * a.row_b + h * a.row_h;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < RP_QBOXES; ++c) mbar_init(&sm.q_full[c], 1);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = (j ^ (r_lo & 7)) * 16 + (lane % 4) * 4;
-      *reinterpret_cast<uint32_t*>(stage + r_lo * 128 + c) =
-          pack_bf16(o[4 * j + 0] / l_lo_all, o[4 * j + 1] / l_lo_all);
-      *reinterpret_cast<uint32_t*>(stage + (r_lo + 8) * 128 + c) =
-          pack_bf16(o[4 * j + 2] / l_hi_all, o[4 * j + 3] / l_hi_all);
+    for (int s = 0; s < RP_RING; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 2 * 128);
     }
-    named_barrier(1 + wg, 128);
-    bf16* out = a.out + (long long)b * a.out_bstride + (long long)h * a.out_hstride +
-                (long long)(q0 + wg * 64) * a.out_ld;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy. Tile kt's bias goes to
+    // bias[kt & 1] with its v box, whose slot is free only once the
+    // consumers have released a box of tile kt - 1, after tile kt - 2's
+    // softmax read bias[kt & 1] (n_box >= 3 > RP_RING / 2).
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      for (int c = 0; c < n_q; ++c) {
+        mbar_expect_tx(&sm.q_full[c], TILE_BYTES);
+        if (c == 0) {
+          tma_load(sm.q[0], tq, &sm.q_full[0], a.col_q + h * a.col_h, row0 + q0);
+        } else {
+          tma_load(sm.q[c], tqh, &sm.q_full[c], h * a.col_qh_h + (c - 1) * D, row0 + q0);
+        }
+      }
+      const float* bias = a.bias + (long long)b * a.T;
+      int n = 0;
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        for (int j = 0; j < n_box; ++j, ++n) {
+          const int s = n % RP_RING;
+          if (n >= RP_RING) mbar_wait(&sm.empty[s], ((n / RP_RING) + 1) & 1);
+          if (j == n_box - 1) {
+            mbar_expect_tx(&sm.full[s], TILE_BYTES + BIAS_BYTES);
+            tma_load(sm.ring[s], tv, &sm.full[s], a.col_v + h * a.col_h, row0 + kt * BN);
+            bulk_load(sm.bias[kt & 1], bias + kt * BN, BIAS_BYTES, &sm.full[s]);
+          } else {
+            mbar_expect_tx(&sm.full[s], TILE_BYTES);
+            if (j == 0) {
+              tma_load(sm.ring[s], tk, &sm.full[s], a.col_k + h * a.col_h, row0 + kt * BN);
+            } else {
+              tma_load(sm.ring[s], ts, &sm.full[s], (j - 1) * D, kt * BN);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each. For every key tile, S takes one
+    // depth chunk at a time (4 k-steps of m64n128k16), each box released
+    // when its wgmma group is complete while the next is on the tensor
+    // cores; then the online softmax on S's registers, then O += P.V.
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int lane = tid % 32;
+    const int cq = 2 * (lane % 4);
+    float o[32];
 #pragma unroll
-    for (int i = 0; i < 64 * D / 8 / 128; ++i) {
-      const int idx = tid + 128 * i;
-      const int r = idx / 8;
-      const int c = idx % 8;
-      *reinterpret_cast<uint4*>(out + (long long)r * a.out_ld + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * 128 + ((c ^ (r & 7)) * 16));
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float sc[64];
+    uint32_t p[32];
+    OnlineSoftmax sm_state;
+    int n = 0;
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      // unrolled: a chunk's wgmma group is pending across the next chunk's
+      // issue, and a loop edge there would copy S's registers under it
+#pragma unroll
+      for (int c = 0; c < n_q; ++c, ++n) {
+        const int s = n % RP_RING;
+        if (kt == 0) mbar_wait(&sm.q_full[c], 0);
+        mbar_wait(&sm.full[s], (n / RP_RING) & 1);
+        uint64_t dq[D / 16], dk[D / 16];
+        step_descs(dq, sm.q[c] + wg * 64 * D, 2);
+        step_descs(dk, sm.ring[s], 2);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k) wgmma_m64n128k16_ss(sc, dq[k], dk[k], c > 0 || k > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+        if (c > 0) {
+          wgmma_wait<1>();  // the previous chunk's box is read
+          mbar_arrive(&sm.empty[(n - 1) % RP_RING]);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) reg_fence(sc[i]);
+      mbar_arrive(&sm.empty[(n - 1) % RP_RING]);
+
+      const int s = n % RP_RING;  // v and the bias
+      mbar_wait(&sm.full[s], (n / RP_RING) & 1);
+      const float2 alpha = sm_state.tile(sc, sm.bias[kt & 1], cq, a.scale_log2);
+      rescale(o, alpha);  // alpha is 0 on the first tile, where O is 0
+      pack_p(sc, p);
+      uint64_t dv[BN / 16];
+      step_descs(dv, sm.ring[s], 16 * 128 / 16);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        reg_fence(o[i]);
+        reg_fence(p[i]);
+      }
+      wgmma_fence();
+      issue_pv(o, p, dv);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        reg_fence(o[i]);
+        reg_fence(p[i]);
+      }
+      mbar_arrive(&sm.empty[s]);
+      ++n;
     }
+    // the q_u box of this warpgroup's rows is read: it stages the output
+    store_rows(o, sm_state, reinterpret_cast<unsigned char*>(sm.q[0] + wg * 64 * D), a, b, h,
+               q0 + wg * 64, tid);
   }
 }
 
@@ -545,6 +738,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                                       const __grid_constant__ CUtensorMap tk,
                                       const __grid_constant__ CUtensorMap tv, const Args a) {
   attention_body(&tq, &tk, &tv, a);
+}
+
+template <int NQH>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_relpos_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tqh,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap ts,
+                             const __grid_constant__ CUtensorMap tv, const Args a) {
+  relpos_body<NQH>(&tq, &tqh, &tk, &ts, &tv, a);
 }
 
 // ---- host side --------------------------------------------------------------
@@ -670,6 +873,52 @@ int cbx_flash_attention_heads(const void* q, const void* k, const void* v, const
   a.scale_log2 = scale * LOG2E;
   return launch(flash_attention_heads_sm90_kernel, mq, mk, mv, a, B, H,
                 reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K4. q_u, k, v, out (B, T, H*64) bf16; q_hat (B, T, H*C) bf16; s_hat (T, C)
+// bf16; bias (B, T) f32. T % 128 == 0; C a multiple of 64, at most 512.
+int cbx_flash_relpos(const void* q_u, const void* k, const void* v, const void* q_hat,
+                     const void* s_hat, const void* bias, void* out, int B, int T, int H, int C,
+                     float scale, void* stream) {
+  if (!shapes_ok(B, T, H) || C <= 0 || C % D != 0 || C / D > RP_QBOXES - 1 ||
+      (long long)B * T * H * C >= (1LL << 31) || !aligned16(q_u) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(q_hat) || !aligned16(s_hat) || !aligned16(bias) ||
+      !aligned16(out))
+    return (int)cudaErrorInvalidValue;
+  const long long hd = (long long)H * D, rows = (long long)B * T;
+  CUtensorMap mq, mqh, mk, ms, mv;
+  int st = encode_map(&mq, q_u, rows, hd, hd);
+  if (st == 0) st = encode_map(&mqh, q_hat, rows, (long long)H * C, (long long)H * C);
+  if (st == 0) st = encode_map(&mk, k, rows, hd, hd);
+  if (st == 0) st = encode_map(&ms, s_hat, T, C, C);
+  if (st == 0) st = encode_map(&mv, v, rows, hd, hd);
+  if (st != 0) return st;
+  Args a{};
+  a.bias = reinterpret_cast<const float*>(bias);
+  a.out = reinterpret_cast<bf16*>(out);
+  a.out_ld = hd;
+  a.out_bstride = (long long)T * hd;
+  a.out_hstride = D;
+  a.T = T;
+  a.row_b = T;
+  a.row_h = 0;
+  a.col_q = a.col_k = a.col_v = 0;
+  a.col_h = D;
+  a.scale_log2 = scale * LOG2E;
+  a.col_qh_h = C;
+  using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, Args);
+  static const Kernel kernels[RP_QBOXES - 1] = {
+      flash_relpos_sm90_kernel<1>, flash_relpos_sm90_kernel<2>, flash_relpos_sm90_kernel<3>,
+      flash_relpos_sm90_kernel<4>, flash_relpos_sm90_kernel<5>, flash_relpos_sm90_kernel<6>,
+      flash_relpos_sm90_kernel<7>, flash_relpos_sm90_kernel<8>};
+  const Kernel kernel = kernels[C / D - 1];
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RP_SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(T / BM, H, B);
+  kernel<<<grid, THREADS, RP_SMEM_BYTES, reinterpret_cast<cudaStream_t>(stream)>>>(mq, mqh, mk,
+                                                                                   ms, mv, a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -2,7 +2,8 @@
 // writes of one step's K/V into that cache.
 //
 // K1 replaces chatterbox_tpu/ops/flash_decode.py::flash_decode_layer_attention
-// (Pallas _kernel, flash_decode.py:54-270), in three variants:
+// (Pallas _kernel, flash_decode.py:54-270, called at :542), in three
+// variants:
 //   a  (flash_decode_kernel<T, false>): bf16 cache, no stats;
 //   b  (flash_decode_kernel<T, true>): a, plus the final softmax stats (m, l)
 //      of each (row, head) (Pallas return_stats, flash_decode.py:260-270);
@@ -28,26 +29,41 @@
 // W at a time, so the int8 path matches the JAX package's arithmetic.
 //
 // K1 -- what bounds it: bytes. Each (row, head) reads its live K and V rows
-// once (2 * cur_len * D elements, 1 byte each below merge_base on the int8
-// path, plus 8 bytes of scales per slot) and does 4 flops per element, far
-// below Hopper's ~295 flop/byte bf16 ridge. Design: one 128-thread block per
-// (row, head) of layer `layer`, addressed by strides into the full cache (no
-// copy). The block walks the live slots in tiles of 128, one slot per thread
-// for the q.k dot (16-byte loads of the K row: 8 bf16 or 16 int8 values), an
-// fp32 online softmax seeded with the current token's self-logit, and a
-// dim-parallel pass over the V rows whose probability is non-zero. On the
-// int8 path the K scale multiplies the logit and the V scale the
-// probability, as the Pallas kernel folds them (flash_decode.py:231-243), so
-// no dequantized row is formed; the tail is one more tile, read exact.
-// Slots that are invalid (the text-padding gap) or at/after cur_len are
-// never read. Only B*H blocks exist (2*batch*16 at full width): at small
-// batch the card is under-filled and each block streams its rows serially.
-// Splitting S across blocks (flash-decoding), wgmma and TMA are queued for a
-// later PR. Variant b writes two floats more per block and is launched at
-// the alignment layer only. The main path runs K1 in bf16; the float
-// instantiations serve one check: chip_smoke.py's reference phase runs a
-// small T3 in fp32 on the card and requires its tokens to equal the CPU's
-// exactly, which a bf16 cache cannot promise.
+// once (2 * 64 values a slot; 1 byte each below merge_base on the int8 path,
+// plus 8 bytes of scales a slot) and does 4 flops a value, far below
+// Hopper's ~295 flop/byte bf16 ridge. Design: split-S flash-decoding in one
+// launch. The live slots [0, cur_len) of each (row, head) are cut into
+// chunks of CH = 64; one 128-thread CTA owns one chunk of one (row, head),
+// so that 16 CFG rows x 16 heads give thousands of CTAs, several waves over
+// the 132 SMs. Each lane owns 8 of the 64 dims, 8 lanes a cache row: every
+// thread issues its 4 rows' K and V segments (16 bytes each in bf16) with
+// cp.async into shared memory before it reads any (16 KB a CTA in flight,
+// and ~14 CTAs an SM), and reads back only the bytes it copied, so no
+// barrier guards the copies. Invalid slots (the text-padding gap) and slots
+// at or past cur_len are zero-filled, never read; on the int8 path nothing
+// of the int8 cache at or past merge_base is read: those slots come from the
+// tail, exact. The q.k dot is 8 products a lane and 3 shuffles; each warp
+// takes the max and the sums of its 16 rows by shuffles, and the 4 warps'
+// partials merge once, through shared memory, into the chunk's (m, l,
+// acc[64]) in fp32. On the int8 path the K scale multiplies the logit and
+// the V scale the probability, as the Pallas kernel folds them
+// (flash_decode.py:231-243), so no dequantized row is formed.
+// The combine runs in the same launch: each chunk writes its partial to a
+// workspace, then takes a ticket on its (row, head)'s counter after a
+// __threadfence; the last chunk to arrive takes the max and each chunk's
+// factor exp(m_c - M) one chunk a thread, then sums the partials in chunk
+// order (so the result does not depend on which CTA came last: repeated
+// calls are bit-identical); an empty chunk (m = -inf, l = 0) weighs 0. It
+// folds in the current token's self-logit once, writes the output (and for
+// K1b the whole softmax's m and l), and resets the counter to 0. No second
+// kernel: T3 is host-bound, and one would add a launch a layer a step. The
+// workspace and the counters belong to the cache (the wrapper allocates them
+// once per cache). The grid is (chunks of S, B*H): its shape does not depend
+// on cur_len, and the chunks past cur_len return at once. Chunks of 128
+// slots were tried in development and were no faster. The main path runs K1
+// in bf16; the float instantiations serve one check: chip_smoke.py's
+// reference phase runs a small T3 in fp32 on the card and requires its
+// tokens to equal the CPU's exactly, which a bf16 cache cannot promise.
 //
 // K2 -- what bounds it: bytes (L*2*B*H*D elements read and written once).
 // Design: one thread per 16-byte vector of the (L, 2, B, H, D) new K/V,
@@ -67,148 +83,286 @@
 
 namespace {
 
-constexpr int DEC_THREADS = 128;
-constexpr int DEC_MAX_D = 128;
+constexpr int HD = 64;                        // head dim (T3's only one)
+constexpr int CH = 64;                        // slots a chunk: one CTA
+constexpr int DEC_THREADS = 128;              // 4 warps
+constexpr int WARPS = DEC_THREADS / 32;
+constexpr int LPR = HD / 8;                   // lanes a cache row, 8 dims each
+constexpr int ROWS_STEP = DEC_THREADS / LPR;  // rows the CTA covers at once: 16
+constexpr int NR = CH / ROWS_STEP;            // rows a thread: 4
+constexpr int PART = HD + 2;                  // a chunk's partial: acc[HD], m, l
+constexpr int MAX_CHUNKS = 256;               // chunks a (row, head) may have
+constexpr unsigned FULL = 0xffffffffu;
 
-// q.k for one cache row held in shared memory as fp32; 16-byte loads.
+static_assert(CH % ROWS_STEP == 0 && 32 % LPR == 0 && HD <= DEC_THREADS, "K1's thread layout");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 or 8 bytes global -> shared with cp.async; where pred is false the
+// destination is zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(pred ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// this lane's segment of a row (8 values, 8 * sizeof(T) bytes), copied
 template <typename T>
-__device__ __forceinline__ float dot_row(const T* __restrict__ row, const float* q_s, int D) {
-  float acc = 0.f;
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  if constexpr (std::is_same<T, bf16>::value) {
-    for (int c = 0; c < D / 8; ++c) {
-      uint4 u = r[c];
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float2 f = __bfloat1622float2(h2[j]);
-        acc += f.x * q_s[c * 8 + 2 * j] + f.y * q_s[c * 8 + 2 * j + 1];
-      }
-    }
+__device__ __forceinline__ void copy_seg(void* dst, const T* src, bool pred) {
+  if constexpr (sizeof(T) == 1) {
+    cp_async8(dst, src, pred);
   } else {
-    for (int c = 0; c < D / 4; ++c) {
-      uint4 u = r[c];
-      const float* f = reinterpret_cast<const float*>(&u);
-      acc += f[0] * q_s[c * 4] + f[1] * q_s[c * 4 + 1] + f[2] * q_s[c * 4 + 2] +
-             f[3] * q_s[c * 4 + 3];
+#pragma unroll
+    for (int o = 0; o < 8 * (int)sizeof(T); o += 16) {
+      cp_async16(static_cast<char*>(dst) + o, reinterpret_cast<const char*>(src) + o, pred);
     }
   }
-  return acc;
 }
 
-// q.k8 for one int8 cache row (D % 16 == 0); 16-byte loads. The scale is
-// applied by the caller.
-__device__ __forceinline__ float dot_row_i8(const int8_t* __restrict__ row, const float* q_s,
-                                            int D) {
-  float acc = 0.f;
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  for (int c = 0; c < D / 16; ++c) {
-    uint4 u = r[c];
-    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+// 8 values of T (shared or global memory, 8 * sizeof(T)-byte aligned) as float
+template <typename T>
+__device__ __forceinline__ void seg_to_float(const void* p, float (&x)[8]) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc += static_cast<float>(b[j]) * q_s[c * 16 + j];
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      x[2 * j] = f.x;
+      x[2 * j + 1] = f.y;
+    }
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = static_cast<float>(c[j]);
   }
-  return acc;
 }
 
-// The block's online softmax: every thread holds the same running max m (of
-// the scaled logits) and sum l = sum exp(logit - m); thread d < D holds the
-// accumulator of output dim d.
-struct Softmax {
-  float m, l, acc;
+// this lane's part of a dot product, summed over the LPR lanes of its row
+__device__ __forceinline__ float row_dot(const float (&x)[8], const float (&q)[8]) {
+  float d = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) d += x[k] * q[k];
+#pragma unroll
+  for (int o = 1; o < LPR; o <<= 1) d += __shfl_xor_sync(FULL, d, o);
+  return d;
+}
+
+// the warps' partials of a chunk, merged through shared memory
+struct WarpParts {
+  float m[WARPS], l[WARPS];
+  float acc[WARPS][HD];
 };
 
-// Load q into shared memory and seed the softmax with the current token's
-// self-logit: m = q.k_new * scale, l = 1, acc = v_new.
+// The chunk's softmax partial from this thread's NR rows: s[j] the scaled
+// logit of row j (-INF where the slot is invalid), w[j] the factor its
+// probability takes into the V sum (1, or the slot's V scale), v_row(j, x)
+// row j's 8 values of this lane. Each warp reduces its rows by shuffles;
+// the warps merge in order into part = (acc[HD], m, l): m the chunk's max
+// logit (-INF if it has no valid slot), l = sum exp(s - m), acc = sum
+// exp(s - m) w v. Rows whose probability is 0 are not read.
+template <typename VRow>
+__device__ __forceinline__ void chunk_partial(const float (&s)[NR], const float (&w)[NR],
+                                              VRow v_row, WarpParts& red, float* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float m = s[0];
+#pragma unroll
+  for (int j = 1; j < NR; ++j) m = fmaxf(m, s[j]);
+  m = warp_max(m);
+  float l = 0.f, acc[8] = {};
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const float p = s[j] == -INFINITY ? 0.f : expf(s[j] - m);
+    l += p;
+    if (p != 0.f) {
+      float x[8];
+      v_row(j, x);
+      const float pw = p * w[j];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc[k] += pw * x[k];
+    }
+  }
+  l = warp_sum(lane % LPR == 0 ? l : 0.f);  // one lane a row group
+#pragma unroll
+  for (int o = LPR; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] += __shfl_xor_sync(FULL, acc[k], o);
+  }
+  if (lane == 0) {
+    red.m[warp] = m;
+    red.l[warp] = l;
+  }
+  if (lane < LPR) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red.acc[warp][8 * lane + k] = acc[k];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < HD) {
+    float mc = red.m[0];
+#pragma unroll
+    for (int i = 1; i < WARPS; ++i) mc = fmaxf(mc, red.m[i]);
+    float lc = 0.f, ac = 0.f;
+#pragma unroll
+    for (int i = 0; i < WARPS; ++i) {
+      if (red.l[i] > 0.f) {
+        const float e = expf(red.m[i] - mc);
+        lc += red.l[i] * e;
+        ac += red.acc[i][t] * e;
+      }
+    }
+    part[t] = ac;
+    if (t == 0) {
+      part[HD] = mc;
+      part[HD + 1] = lc;
+    }
+  }
+}
+
+// After the CTA's partial is written: true (in every thread) in the last of
+// the (row, head)'s n chunk CTAs to take a ticket, which resets the counter.
+__device__ __forceinline__ bool last_chunk(int* ticket, int n, int* flag) {
+  __threadfence();  // this thread's partial is visible before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const bool last = atomicAdd(ticket, 1) == n - 1;
+    if (last) {
+      *ticket = 0;
+      __threadfence();
+    }
+    *flag = last;
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// In the last chunk CTA (every thread): fold the n partials (parts, PART
+// floats each) with the self-logit m_self (probability weight 1 at m_self,
+// value v_new) into out[t] = acc / l for t < HD. The max M and each chunk's
+// factor exp(m_c - M) (0 for a chunk without a valid slot: m_c = -inf, and
+// its l and acc are 0) are taken one chunk a thread, into e_s and le_s
+// (shared, MAX_CHUNKS floats each); the sums then run in chunk order.
+// Returns (M, l) of the whole softmax (l in threads t < HD).
 template <typename T>
-__device__ __forceinline__ Softmax seed_self(const T* __restrict__ q, const T* __restrict__ k_new,
-                                             const T* __restrict__ v_new, long long vec, int D,
-                                             float scale, float* q_s, float* red_s) {
-  const int tid = threadIdx.x;
-  if (tid < D) q_s[tid] = to_float(q[vec + tid]);
+__device__ __forceinline__ float2 combine(const float* parts, int n, float m_self,
+                                          const T* v_new, T* out, float* e_s, float* le_s,
+                                          float* red) {
+  const int t = threadIdx.x;
+  float mx = m_self;
+  for (int c = t; c < n; c += DEC_THREADS) mx = fmaxf(mx, __ldcg(parts + c * PART + HD));
+  mx = warp_max(mx);
+  if ((t & 31) == 0) red[t >> 5] = mx;
   __syncthreads();
-  const float self = block_sum<DEC_THREADS>(
-      tid < D ? q_s[tid] * to_float(k_new[vec + tid]) : 0.f, red_s);
-  Softmax st;
-  st.m = self * scale;
-  st.l = 1.f;
-  st.acc = tid < D ? to_float(v_new[vec + tid]) : 0.f;
-  return st;
+  mx = red[0];
+#pragma unroll
+  for (int i = 1; i < WARPS; ++i) mx = fmaxf(mx, red[i]);
+  for (int c = t; c < n; c += DEC_THREADS) {
+    const float e = expf(__ldcg(parts + c * PART + HD) - mx);
+    e_s[c] = e;
+    le_s[c] = __ldcg(parts + c * PART + HD + 1) * e;
+  }
+  __syncthreads();
+  float l = 0.f;
+  if (t < HD) {
+    const float es = expf(m_self - mx);
+    float a = es * to_float(v_new[t]);
+    l = es;
+    for (int c = 0; c < n; ++c) {
+      l += le_s[c];
+      a += __ldcg(parts + c * PART + t) * e_s[c];
+    }
+    out[t] = from_float<T>(a / l);
+  }
+  return make_float2(mx, l);
 }
 
-// Fold one tile of n <= DEC_THREADS slots into the softmax. Thread t brings
-// tile slot t's scaled logit s (-INF when the slot is invalid or t >= n) and
-// the factor its probability takes into the V sum (1, or the slot's V
-// scale; 1 for an invalid slot); v_at(j, dim) reads dim `dim` of tile slot
-// j's V row as float. Only slots with a non-zero product are read.
-template <typename VAt>
-__device__ __forceinline__ void fold_tile(Softmax& st, float s, float v_mult, int n, int D,
-                                          VAt v_at, float* p_s, float* part_s, float* red_s) {
-  const int tid = threadIdx.x;
-  const float m_new = fmaxf(st.m, block_max<DEC_THREADS>(s, red_s));
-  const float p = (s == -INFINITY) ? 0.f : expf(s - m_new);
-  p_s[tid] = p * v_mult;
-  const float l_tile = block_sum<DEC_THREADS>(p, red_s);  // its barriers also publish p_s
-  const float alpha = expf(st.m - m_new);
-
-  const int groups = DEC_THREADS / D;  // key groups of the V pass
-  const int dim = tid % D;
-  const int grp = tid / D;
-  float part = 0.f;
-  for (int j = grp; j < n; j += groups) {
-    const float pj = p_s[j];
-    if (pj != 0.f) part += pj * v_at(j, dim);
-  }
-  part_s[tid] = part;
-  __syncthreads();
-  if (tid < D) {
-    float sum = 0.f;
-    for (int g = 0; g < groups; ++g) sum += part_s[g * D + tid];
-    st.acc = st.acc * alpha + sum;
-  }
-  st.l = st.l * alpha + l_tile;
-  st.m = m_new;
-  __syncthreads();  // p_s / part_s are rewritten by the next tile
-}
+// the live chunks of a launch: at least one, so that a (row, head) with
+// cur_len = 0 still writes its self-only output
+__device__ __forceinline__ int live_chunks(int cur_len) { return max(1, (cur_len + CH - 1) / CH); }
 
 template <typename T, bool STATS>
 __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
     const T* __restrict__ k_layer,  // cache + offset of (layer, K plane)
     const T* __restrict__ v_layer,  // cache + offset of (layer, V plane)
-    int H, int S, int D,
-    const int* __restrict__ row_prefix, int gap_end, int cur_len,
+    int H, int S, const int* __restrict__ row_prefix, int gap_end, int cur_len,
     const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
-    T* __restrict__ out, float* __restrict__ ml, float scale) {
-  __shared__ float q_s[DEC_MAX_D];
-  __shared__ float p_s[DEC_THREADS];
-  __shared__ float part_s[DEC_THREADS];
-  __shared__ float red_s[DEC_THREADS / 32];
+    T* __restrict__ out, float* __restrict__ ml, float scale, float* __restrict__ parts,
+    int* __restrict__ tickets) {
+  const int chunk = blockIdx.x;
+  const int n_live = live_chunks(cur_len);
+  if (chunk >= n_live) return;
+  __shared__ __align__(16) unsigned char k_s[CH * HD * sizeof(T)];
+  __shared__ __align__(16) unsigned char v_s[CH * HD * sizeof(T)];
+  __shared__ WarpParts red;
+  __shared__ float e_s[MAX_CHUNKS], le_s[MAX_CHUNKS];
+  __shared__ int last;
 
-  const int bh = blockIdx.x;  // (row, head), row-major over (B, H)
-  const int b = bh / H;
+  const int bh = blockIdx.y;  // (row, head), row-major over (B, H)
   const int tid = threadIdx.x;
-  const long long plane = (long long)S * D;
-  const T* kbase = k_layer + (long long)bh * plane;
-  const T* vbase = v_layer + (long long)bh * plane;
-  const long long vec = (long long)bh * D;
+  const int g = tid % LPR;  // this lane's dims: [8g, 8g + 8)
+  const int start = chunk * CH, end = min(start + CH, cur_len);
+  const int rp = row_prefix[bh / H];
+  const long long plane = (long long)S * HD;
+  const T* kb = k_layer + bh * plane + 8 * g;
+  const T* vb = v_layer + bh * plane + 8 * g;
+  const int seg = (tid / LPR * HD + 8 * g) * sizeof(T);  // row tid / LPR, this lane's bytes
 
-  Softmax st = seed_self(q, k_new, v_new, vec, D, scale, q_s, red_s);
-  const int rp = row_prefix[b];
-  for (int start = 0; start < cur_len; start += DEC_THREADS) {
-    const int n = min(DEC_THREADS, cur_len - start);
-    const int i = start + tid;
-    float s = -INFINITY;
-    if (tid < n && (i < rp || i >= gap_end)) {
-      s = dot_row(kbase + (long long)i * D, q_s, D) * scale;
-    }
-    const T* vt = vbase + (long long)start * D;
-    fold_tile(st, s, 1.f, n, D, [&](int j, int c) { return to_float(vt[(long long)j * D + c]); },
-              p_s, part_s, red_s);
+  bool valid[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int i = start + j * ROWS_STEP + tid / LPR;
+    valid[j] = i < end && (i < rp || i >= gap_end);
+    const long long off = valid[j] ? (long long)i * HD : 0;
+    const int so = seg + j * ROWS_STEP * HD * sizeof(T);
+    copy_seg(k_s + so, kb + off, valid[j]);
+    copy_seg(v_s + so, vb + off, valid[j]);
   }
-  if (tid < D) out[vec + tid] = from_float<T>(st.acc / st.l);
+  float qf[8];
+  seg_to_float<T>(q + bh * HD + 8 * g, qf);
+  cp_async_wait_all();
+
+  float s[NR], w[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    float x[8];
+    seg_to_float<T>(k_s + seg + j * ROWS_STEP * HD * sizeof(T), x);
+    const float d = row_dot(x, qf);
+    s[j] = valid[j] ? d * scale : -INFINITY;
+    w[j] = 1.f;
+  }
+  float* bh_parts = parts + (long long)bh * gridDim.x * PART;
+  chunk_partial(
+      s, w,
+      [&](int j, float (&x)[8]) { seg_to_float<T>(v_s + seg + j * ROWS_STEP * HD * sizeof(T), x); },
+      red, bh_parts + chunk * PART);
+  if (!last_chunk(tickets + bh, n_live, &last)) return;
+
+  float kx[8];
+  seg_to_float<T>(k_new + bh * HD + 8 * g, kx);
+  const float m_self = row_dot(kx, qf) * scale;
+  const float2 st =
+      combine(bh_parts, n_live, m_self, v_new + bh * HD, out + bh * HD, e_s, le_s, red.m);
   if (STATS && tid == 0) {
-    ml[2 * bh] = st.m;
-    ml[2 * bh + 1] = st.l;
+    ml[2 * bh] = st.x;
+    ml[2 * bh + 1] = st.y;
   }
 }
 
@@ -217,54 +371,93 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_int8_kernel(
     const int8_t* __restrict__ k_layer, const int8_t* __restrict__ v_layer,  // int8 cache planes
     const float* __restrict__ sk_layer, const float* __restrict__ sv_layer,  // their scales
     const T* __restrict__ tk_layer, const T* __restrict__ tv_layer,          // tail planes
-    int H, int S, int W, int D,
-    const int* __restrict__ row_prefix, int gap_end, int cur_len, int merge_base,
-    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
-    T* __restrict__ out, float scale) {
-  __shared__ float q_s[DEC_MAX_D];
-  __shared__ float p_s[DEC_THREADS];
-  __shared__ float part_s[DEC_THREADS];
-  __shared__ float red_s[DEC_THREADS / 32];
+    int H, int S, int W, const int* __restrict__ row_prefix, int gap_end, int cur_len,
+    int merge_base, const T* __restrict__ q, const T* __restrict__ k_new,
+    const T* __restrict__ v_new, T* __restrict__ out, float scale, float* __restrict__ parts,
+    int* __restrict__ tickets) {
+  const int chunk = blockIdx.x;
+  const int n_live = live_chunks(cur_len);
+  if (chunk >= n_live) return;
+  // a chunk row holds an int8 cache row (slot < merge_base, its first HD
+  // bytes) or a tail row, in a T-sized row of shared memory either way
+  __shared__ __align__(16) unsigned char k_s[CH * HD * sizeof(T)];
+  __shared__ __align__(16) unsigned char v_s[CH * HD * sizeof(T)];
+  __shared__ WarpParts red;
+  __shared__ float e_s[MAX_CHUNKS], le_s[MAX_CHUNKS];
+  __shared__ int last;
 
-  const int bh = blockIdx.x;
-  const int b = bh / H;
+  const int bh = blockIdx.y;
   const int tid = threadIdx.x;
-  const int8_t* kbase = k_layer + (long long)bh * S * D;
-  const int8_t* vbase = v_layer + (long long)bh * S * D;
-  const float* skb = sk_layer + (long long)bh * S;
-  const float* svb = sv_layer + (long long)bh * S;
-  const T* tkb = tk_layer + (long long)bh * W * D;
-  const T* tvb = tv_layer + (long long)bh * W * D;
-  const long long vec = (long long)bh * D;
+  const int g = tid % LPR;
+  const int start = chunk * CH, end = min(start + CH, cur_len);
+  const int rp = row_prefix[bh / H];
+  const int8_t* kb = k_layer + bh * (long long)S * HD + 8 * g;
+  const int8_t* vb = v_layer + bh * (long long)S * HD + 8 * g;
+  const float* skb = sk_layer + bh * (long long)S;
+  const float* svb = sv_layer + bh * (long long)S;
+  const T* tkb = tk_layer + bh * (long long)W * HD + 8 * g;
+  const T* tvb = tv_layer + bh * (long long)W * HD + 8 * g;
+  const int row = tid / LPR * HD * sizeof(T);  // this thread's first row in shared memory
+  const int seg8 = row + 8 * g, segt = row + 8 * g * sizeof(T);
 
-  Softmax st = seed_self(q, k_new, v_new, vec, D, scale, q_s, red_s);
-  const int rp = row_prefix[b];
-  // the int8 cache: slots [0, merge_base), k ~ k8 * s_k and v ~ v8 * s_v
-  for (int start = 0; start < merge_base; start += DEC_THREADS) {
-    const int n = min(DEC_THREADS, merge_base - start);
-    const int i = start + tid;
-    float s = -INFINITY, v_mult = 1.f;
-    if (tid < n && (i < rp || i >= gap_end)) {
-      s = dot_row_i8(kbase + (long long)i * D, q_s, D) * skb[i] * scale;
-      v_mult = svb[i];
+  bool valid[NR], tail[NR];
+  float sk[NR], w[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int i = start + j * ROWS_STEP + tid / LPR;
+    const int so = j * ROWS_STEP * HD * sizeof(T);
+    valid[j] = i < end && (i < rp || i >= gap_end);
+    tail[j] = i >= merge_base;
+    sk[j] = w[j] = 1.f;
+    if (tail[j]) {
+      const long long off = valid[j] ? (long long)(i - merge_base) * HD : 0;
+      copy_seg(k_s + segt + so, tkb + off, valid[j]);
+      copy_seg(v_s + segt + so, tvb + off, valid[j]);
+    } else {
+      const long long off = valid[j] ? (long long)i * HD : 0;
+      copy_seg(k_s + seg8 + so, kb + off, valid[j]);
+      copy_seg(v_s + seg8 + so, vb + off, valid[j]);
+      if (valid[j]) {
+        sk[j] = skb[i];
+        w[j] = svb[i];
+      }
     }
-    const int8_t* vt = vbase + (long long)start * D;
-    fold_tile(st, s, v_mult, n, D,
-              [&](int j, int c) { return static_cast<float>(vt[(long long)j * D + c]); },
-              p_s, part_s, red_s);
   }
-  // the tail: slots [merge_base, cur_len) at tail slot i - merge_base, exact
-  const int n_tail = cur_len - merge_base;
-  if (n_tail > 0) {
-    const int i = merge_base + tid;
-    float s = -INFINITY;
-    if (tid < n_tail && (i < rp || i >= gap_end)) {
-      s = dot_row(tkb + (long long)tid * D, q_s, D) * scale;
+  float qf[8];
+  seg_to_float<T>(q + bh * HD + 8 * g, qf);
+  cp_async_wait_all();
+
+  float s[NR];
+#pragma unroll
+  for (int j = 0; j < NR; ++j) {
+    const int so = j * ROWS_STEP * HD * sizeof(T);
+    float x[8];
+    if (tail[j]) {
+      seg_to_float<T>(k_s + segt + so, x);
+    } else {
+      seg_to_float<int8_t>(k_s + seg8 + so, x);
     }
-    fold_tile(st, s, 1.f, n_tail, D, [&](int j, int c) { return to_float(tvb[j * D + c]); },
-              p_s, part_s, red_s);
+    const float d = row_dot(x, qf);  // every lane of the row takes the same branch
+    s[j] = !valid[j] ? -INFINITY : tail[j] ? d * scale : d * sk[j] * scale;
   }
-  if (tid < D) out[vec + tid] = from_float<T>(st.acc / st.l);
+  float* bh_parts = parts + (long long)bh * gridDim.x * PART;
+  chunk_partial(
+      s, w,
+      [&](int j, float (&x)[8]) {
+        const int so = j * ROWS_STEP * HD * sizeof(T);
+        if (tail[j]) {
+          seg_to_float<T>(v_s + segt + so, x);
+        } else {
+          seg_to_float<int8_t>(v_s + seg8 + so, x);
+        }
+      },
+      red, bh_parts + chunk * PART);
+  if (!last_chunk(tickets + bh, n_live, &last)) return;
+
+  float kx[8];
+  seg_to_float<T>(k_new + bh * HD + 8 * g, kx);
+  const float m_self = row_dot(kx, qf) * scale;
+  combine(bh_parts, n_live, m_self, v_new + bh * HD, out + bh * HD, e_s, le_s, red.m);
 }
 
 __global__ void kv_append_kernel(char* __restrict__ cache, const char* __restrict__ new_kv,
@@ -302,12 +495,14 @@ __global__ void kv_quantize_kernel(int8_t* __restrict__ cache8, float* __restric
   if (lane == 0) scales[slot] = sc;
 }
 
+// the chunks a launch's grid holds along x: all of S's, whatever cur_len
+int s_chunks(int S) { return (S + CH - 1) / CH; }
+
 template <typename T>
-void launch_decode(const void* cache, int layer, int B, int H, int S, int D,
-                   const void* row_prefix, int gap_end, int cur_len, const void* q,
-                   const void* k_new, const void* v_new, void* out, void* ml, float scale,
-                   cudaStream_t st) {
-  const long long plane = (long long)B * H * S * D;  // one (layer, K|V) plane
+void launch_decode(const void* cache, int layer, int B, int H, int S, const void* row_prefix,
+                   int gap_end, int cur_len, const void* q, const void* k_new, const void* v_new,
+                   void* out, void* ml, float scale, void* work, void* tickets, cudaStream_t st) {
+  const long long plane = (long long)B * H * S * HD;  // one (layer, K|V) plane
   const T* c = reinterpret_cast<const T*>(cache);
   const T* kl = c + (2LL * layer) * plane;
   const T* vl = c + (2LL * layer + 1) * plane;
@@ -317,31 +512,43 @@ void launch_decode(const void* cache, int layer, int B, int H, int S, int D,
   const T* vn = reinterpret_cast<const T*>(v_new);
   T* o = reinterpret_cast<T*>(out);
   float* stats = reinterpret_cast<float*>(ml);
+  float* parts = reinterpret_cast<float*>(work);
+  int* tk = reinterpret_cast<int*>(tickets);
+  const dim3 grid(s_chunks(S), B * H);
   if (stats) {
-    flash_decode_kernel<T, true><<<B * H, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, D, rp, gap_end, cur_len, qq, kn, vn, o, stats, scale);
+    flash_decode_kernel<T, true><<<grid, DEC_THREADS, 0, st>>>(
+        kl, vl, H, S, rp, gap_end, cur_len, qq, kn, vn, o, stats, scale, parts, tk);
   } else {
-    flash_decode_kernel<T, false><<<B * H, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, D, rp, gap_end, cur_len, qq, kn, vn, o, nullptr, scale);
+    flash_decode_kernel<T, false><<<grid, DEC_THREADS, 0, st>>>(
+        kl, vl, H, S, rp, gap_end, cur_len, qq, kn, vn, o, nullptr, scale, parts, tk);
   }
 }
 
 template <typename T>
 void launch_decode_int8(const void* cache8, const void* scales, const void* tail, int layer, int B,
-                        int H, int S, int W, int D, const void* row_prefix, int gap_end,
-                        int cur_len, int merge_base, const void* q, const void* k_new,
-                        const void* v_new, void* out, float scale, cudaStream_t st) {
+                        int H, int S, int W, const void* row_prefix, int gap_end, int cur_len,
+                        int merge_base, const void* q, const void* k_new, const void* v_new,
+                        void* out, float scale, void* work, void* tickets, cudaStream_t st) {
   const long long bh = (long long)B * H;
   const int8_t* c8 = reinterpret_cast<const int8_t*>(cache8);
   const float* sc = reinterpret_cast<const float*>(scales);
   const T* tl = reinterpret_cast<const T*>(tail);
   const long long k_pl = 2LL * layer, v_pl = 2LL * layer + 1;  // plane indices
-  flash_decode_int8_kernel<T><<<B * H, DEC_THREADS, 0, st>>>(
-      c8 + k_pl * bh * S * D, c8 + v_pl * bh * S * D, sc + k_pl * bh * S, sc + v_pl * bh * S,
-      tl + k_pl * bh * W * D, tl + v_pl * bh * W * D, H, S, W, D,
+  const dim3 grid(s_chunks(S), B * H);
+  flash_decode_int8_kernel<T><<<grid, DEC_THREADS, 0, st>>>(
+      c8 + k_pl * bh * S * HD, c8 + v_pl * bh * S * HD, sc + k_pl * bh * S, sc + v_pl * bh * S,
+      tl + k_pl * bh * W * HD, tl + v_pl * bh * W * HD, H, S, W,
       reinterpret_cast<const int*>(row_prefix), gap_end, cur_len, merge_base,
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k_new),
-      reinterpret_cast<const T*>(v_new), reinterpret_cast<T*>(out), scale);
+      reinterpret_cast<const T*>(v_new), reinterpret_cast<T*>(out), scale,
+      reinterpret_cast<float*>(work), reinterpret_cast<int*>(tickets));
+}
+
+// what both K1 entry points take: head dim HD, a (B*H)-row grid,
+// 0 <= cur_len <= S, and 1 to MAX_CHUNKS chunks of S
+bool decode_shape_ok(int B, int H, int S, int D, int cur_len) {
+  return D == HD && B > 0 && H > 0 && (long long)B * H <= 65535 && 0 <= cur_len &&
+         cur_len <= S && 1 <= S && s_chunks(S) <= MAX_CHUNKS;
 }
 
 }  // namespace
@@ -350,19 +557,21 @@ extern "C" {
 
 // K1a / K1b. dtype: 0 = float32, 1 = bfloat16. cache (L, 2, B, H, S, D); q,
 // k_new, v_new, out (B, H, D); row_prefix (B,) int32; ml (B, H, 2) fp32 for
-// the stats (m, l), or null for none. All device pointers.
+// the stats (m, l), or null for none; work (B*H*ceil(S/64)*(D + 2),) fp32
+// and tickets (B*H,) int32, zero, both reused by the launches on one cache,
+// which must run in order; 1 <= S <= 256*64. All device pointers.
 int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int S, int D,
                      const void* row_prefix, int gap_end, int cur_len, const void* q,
                      const void* k_new, const void* v_new, void* out, void* ml, float scale,
-                     void* stream) {
-  if (D > DEC_MAX_D || DEC_THREADS % D != 0) return (int)cudaErrorInvalidValue;
+                     void* work, void* tickets, void* stream) {
+  if (!decode_shape_ok(B, H, S, D, cur_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    launch_decode<bf16>(cache, layer, B, H, S, D, row_prefix, gap_end, cur_len, q, k_new, v_new,
-                        out, ml, scale, st);
+    launch_decode<bf16>(cache, layer, B, H, S, row_prefix, gap_end, cur_len, q, k_new, v_new, out,
+                        ml, scale, work, tickets, st);
   } else if (dtype == 0) {
-    launch_decode<float>(cache, layer, B, H, S, D, row_prefix, gap_end, cur_len, q, k_new, v_new,
-                         out, ml, scale, st);
+    launch_decode<float>(cache, layer, B, H, S, row_prefix, gap_end, cur_len, q, k_new, v_new, out,
+                         ml, scale, work, tickets, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -371,24 +580,26 @@ int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int 
 
 // K1c+d. cache8 (L, 2, B, H, S, D) int8; scales (L, 2, B, H, S) fp32; tail
 // (L, 2, B, H, W, D), q, k_new, v_new and out (B, H, D) of `dtype` (0 =
-// float32, 1 = bfloat16); row_prefix (B,) int32. Requires
-// 0 <= merge_base <= cur_len <= merge_base + W and D % 16 == 0.
+// float32, 1 = bfloat16); row_prefix (B,) int32; work and tickets as
+// K1a's. Requires 0 <= merge_base <= cur_len <= merge_base + W.
 int cbx_flash_decode_int8(const void* cache8, const void* scales, const void* tail, int dtype,
                           int layer, int B, int H, int S, int W, int D, const void* row_prefix,
                           int gap_end, int cur_len, int merge_base, const void* q,
                           const void* k_new, const void* v_new, void* out, float scale,
-                          void* stream) {
-  if (D > DEC_MAX_D || DEC_THREADS % D != 0 || D % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (merge_base < 0 || merge_base > cur_len || cur_len - merge_base > W || W > DEC_THREADS) {
+                          void* work, void* tickets, void* stream) {
+  if (!decode_shape_ok(B, H, S, D, cur_len)) return (int)cudaErrorInvalidValue;
+  if (merge_base < 0 || merge_base > cur_len || cur_len - merge_base > W) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    launch_decode_int8<bf16>(cache8, scales, tail, layer, B, H, S, W, D, row_prefix, gap_end,
-                             cur_len, merge_base, q, k_new, v_new, out, scale, st);
+    launch_decode_int8<bf16>(cache8, scales, tail, layer, B, H, S, W, row_prefix, gap_end,
+                             cur_len, merge_base, q, k_new, v_new, out, scale, work, tickets,
+                             st);
   } else if (dtype == 0) {
-    launch_decode_int8<float>(cache8, scales, tail, layer, B, H, S, W, D, row_prefix, gap_end,
-                              cur_len, merge_base, q, k_new, v_new, out, scale, st);
+    launch_decode_int8<float>(cache8, scales, tail, layer, B, H, S, W, row_prefix, gap_end,
+                              cur_len, merge_base, q, k_new, v_new, out, scale, work, tickets,
+                              st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,19 +1,21 @@
 """Flow attention kernels K3, K4 and K5, each beside its plain PyTorch
-version. Two hand-written CUDA kernels for Hopper (``sm_90a``) compute them:
+version. One hand-written CUDA source for Hopper (``sm_90a``,
+``csrc/flash_attention_sm90.cu``) computes all three with one
+warp-specialised design: a producer warpgroup feeds shared memory with TMA
+(128-byte swizzle, mbarriers); two consumer warpgroups of 64 query rows
+compute S = Q.K^T with ``wgmma`` from shared memory, the online softmax on
+the fp32 accumulator in registers (scale and bias folded into one FMA in
+the log2 domain), and O += P.V with ``wgmma``, P in registers as its A
+operand.
 
-- K3 and K5 run one warp-specialised kernel body
-  (``csrc/flash_attention_sm90.cu``): a producer warpgroup feeds Q once and
-  a ring of three K/V/bias stages with TMA (128-byte swizzle, mbarriers);
-  two consumer warpgroups of 64 query rows compute S = Q.K^T with ``wgmma``
-  from shared memory, the online softmax on the fp32 accumulator in
-  registers (scale and bias folded into one FMA in the log2 domain), and
-  O += P.V with ``wgmma``, P in registers as its A operand; each tile's
-  softmax runs while the previous tile's P.V is on the tensor cores. The
-  two entry points differ only in their TMA descriptors and output
-  strides, so they agree bit for bit on the same q, k, v.
-- K4 runs the WMMA tensor-core body of ``csrc/flash_attention.cu``: one
-  4-warp block per 64 query rows, an fp32 online softmax over 64-key tiles
-  staged in shared memory.
+- K3 and K5 run one kernel body: Q once, then a ring of three K/V/bias
+  stages; each tile's softmax runs while the previous tile's P.V is on the
+  tensor cores. The two entry points differ only in their TMA descriptors
+  and output strides, so they agree bit for bit on the same q, k, v.
+- K4 keeps Q at depth 64 + C resident (q_u and the 64-wide q-hat chunks)
+  and streams each key tile's k, s-hat chunks and v through a ring of
+  single 16 KB boxes; S accumulates over the depth chunks in one fp32
+  fragment.
 
 K3 ``flash_self_attention_packed`` replaces the Pallas kernel
 ``chatterbox_tpu/ops/flash_attention.py::flash_self_attention_packed``: UNet
@@ -35,10 +37,11 @@ are not a multiple of 128.
 All three round the unnormalised probabilities of the online softmax to
 bf16 for the value product and divide by their fp32 sum afterwards. What
 bounds them on the card: operations (T*T*D work per (row, head) on T*D
-data); see the source notes. The kernels take bf16 operands and head dim 64
-(the flow's working dtype and width); T a multiple of 128 for K3 and K5 (the
-query and key tiles), of 64 for K4. A wrapper takes its plain version only
-for CPU tensors; for CUDA tensors it launches the kernel or raises.
+data); see the source note. The kernels take bf16 operands, head dim 64
+(the flow's working dtype and width) and T a multiple of 128 (the query
+and key tiles; the UNet and the conformer pad to it); K4 a q-hat depth C a
+multiple of 64, at most 512. A wrapper takes its plain version only for
+CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 import ctypes
@@ -50,11 +53,11 @@ from . import _build
 from ._build import require
 
 _HEAD_DIM = 64
-_T_MULT = 128  # K3 and K5: 128-row query and key tiles
-_T_MULT_RELPOS = 64  # K4: 64-row tiles
+_T_MULT = 128  # 128-row query and key tiles
+_C_MAX_RELPOS = 512  # K4: q-hat depth chunks of 64 held in shared memory
 
 
-_SIG_SM90 = {
+_SIG = {
     "cbx_flash_attention_packed": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
@@ -63,8 +66,6 @@ _SIG_SM90 = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ],
-}
-_SIG = {
     "cbx_flash_relpos": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -74,11 +75,7 @@ _SIG = {
 
 
 def _lib():
-    return _build.load("flash_attention", _SIG)
-
-
-def _lib_sm90():
-    return _build.load("flash_attention_sm90", _SIG_SM90)
+    return _build.load("flash_attention_sm90", _SIG)
 
 
 def _check_operand(name, t, shape, dtype, device):
@@ -124,7 +121,7 @@ def flash_self_attention_packed(qkv, key_bias, n_heads: int):
         key_bias = torch.zeros((b, t), dtype=torch.float32, device=qkv.device)
     _check_operand("key_bias", key_bias, (b, t), torch.float32, qkv.device)
     out = torch.empty((b, t, hd), dtype=qkv.dtype, device=qkv.device)
-    status = _lib_sm90().cbx_flash_attention_packed(
+    status = _lib().cbx_flash_attention_packed(
         qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), b, t, n_heads,
         _HEAD_DIM ** -0.5, _build.stream_ptr(qkv),
     )
@@ -168,7 +165,7 @@ def flash_self_attention(q, k, v, key_bias=None):
         key_bias = torch.zeros((b, t), dtype=torch.float32, device=q.device)
     _check_operand("key_bias", key_bias, (b, t), torch.float32, q.device)
     out = torch.empty_like(q)
-    status = _lib_sm90().cbx_flash_attention_heads(
+    status = _lib().cbx_flash_attention_heads(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(), out.data_ptr(), b, t, h,
         _HEAD_DIM ** -0.5, _build.stream_ptr(q),
     )
@@ -211,8 +208,9 @@ def flash_relpos_attention(q_u, q_hat, k, s_hat, v, key_bias, n_heads: int,
     c = q_hat.shape[-1] // n_heads
     dev = q_u.device
     require(hd == n_heads * _HEAD_DIM, f"kernel takes head dim {_HEAD_DIM}")
-    require(t % _T_MULT_RELPOS == 0 and c % 64 == 0 and c > 0,
-            f"T={t} must be a multiple of {_T_MULT_RELPOS} and C={c} of 64")
+    require(t % _T_MULT == 0 and c % 64 == 0 and 0 < c <= _C_MAX_RELPOS,
+            f"T={t} must be a multiple of {_T_MULT} and C={c} a multiple of 64 up to "
+            f"{_C_MAX_RELPOS}")
     for name, x in (("q_u", q_u), ("k", k), ("v", v)):
         _check_operand(name, x, (b, t, hd), torch.bfloat16, dev)
     _check_operand("q_hat", q_hat, (b, t, n_heads * c), torch.bfloat16, dev)

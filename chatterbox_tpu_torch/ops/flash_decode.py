@@ -24,12 +24,19 @@ read. Three variants, one wrapper each:
   exact in the working dtype (flash_decode.py:109-140, 398-418).
 
 What bounds K1 on the card: bytes (the live K/V rows of the layer; on the
-int8 path one byte per value plus two fp32 scales per slot). Design: one
-block per (row, head), an fp32 online softmax over 128-slot tiles; see the
-source note in csrc/flash_decode.cu. Split-S, ``wgmma`` and TMA are queued
-for a later PR. The main path runs it in bf16; the fp32 kernels serve the
-exact-token check of a small fp32 T3 on the card against the CPU
-(``chip_smoke.py``).
+int8 path one byte per value plus two fp32 scales per slot). Design:
+split-S flash-decoding in one launch: one CTA per chunk of 64 live slots
+of one (row, head), each writing an fp32 partial (m, l, acc) to a
+workspace; the last chunk of each (row, head) to finish folds the partials
+in chunk order with the self-logit (see the source note in
+csrc/flash_decode.cu). The grid is all of S's chunks, whatever ``cur_len``.
+The workspace and its tickets belong to the cache (``_workspace``): sized
+once from its (B*H, S), reused by every launch on it, and freed with it;
+the tickets are 0 between launches. Launches on one cache must therefore
+run in order on the device, as its writes already must. The kernels take
+head dim 64 (T3's). The
+main path runs K1 in bf16; the fp32 kernels serve the exact-token check of
+a small fp32 T3 on the card against the CPU (``chip_smoke.py``).
 
 K2 replaces ``flash_cache_merge_ds`` (flash_decode.py:273-353):
 - ``kv_cache_append``: the (L, 2, B, H, D) new K/V of one decode step,
@@ -49,6 +56,7 @@ launches the kernel or raises.
 import ctypes
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from . import _build
 from ._build import require
@@ -59,17 +67,48 @@ TAIL_W = 8
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIG = {
-    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P],
+    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P, _P,
+                         _P],
     "cbx_flash_decode_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
-                              _P, _P, _F, _P],
+                              _P, _P, _F, _P, _P, _P],
     "cbx_kv_append": [_P, _P, _LL, _I, _I, _I, _P],
     "cbx_kv_quantize": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIM = 64  # K1's kernels: T3's head dim
+_CHUNK = 64  # slots a K1 CTA: csrc/flash_decode.cu's CH
+_workspaces = WeakTensorKeyDictionary()  # cache -> (partials, tickets, streams recorded)
 
 
 def _lib():
     return _build.load("flash_decode", _SIG)
+
+
+def _workspace(cache, pairs: int, s: int):
+    """K1's workspace for ``cache`` (the tensor the kernel reads: the cache,
+    or the int8 values): pairs * ceil(s / 64) fp32 partials of D + 2 floats,
+    and ``pairs`` int32 tickets that are 0 between launches (each launch's
+    last chunk CTA resets its own). It belongs to the cache: made at the
+    cache's first K1 launch, never regrown, and freed with it, so a CUDA
+    graph that captured a launch on the cache stays valid while the cache
+    lives. It cannot be made while a graph is being captured: the first
+    launch on a cache runs outside the capture. Each stream that launches
+    on it is recorded with the allocator, so its memory is not handed out
+    again before that stream's work is done."""
+    have = _workspaces.get(cache)
+    if have is None:
+        require(not torch.cuda.is_current_stream_capturing(),
+                "K1's workspace is made at the cache's first launch: launch once before capturing")
+        have = (torch.empty(pairs * -(-s // _CHUNK) * (_HEAD_DIM + 2), dtype=torch.float32,
+                            device=cache.device),
+                torch.zeros(pairs, dtype=torch.int32, device=cache.device), set())
+        _workspaces[cache] = have
+    stream = torch.cuda.current_stream(cache.device)
+    if stream.cuda_stream not in have[2] and not torch.cuda.is_current_stream_capturing():
+        have[0].record_stream(stream)
+        have[1].record_stream(stream)
+        have[2].add(stream.cuda_stream)
+    return have[0], have[1]
 
 
 # ---------------------------------------------------------------------------
@@ -185,13 +224,13 @@ def _check_decode_args(cache, row_prefix, q, k_new, v_new):
     require(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype} is not float32/bfloat16")
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         require(t.shape == (b, h, d) and t.dtype == q.dtype and t.is_contiguous()
-                and t.device == cache.device,
-                f"{name} must be a contiguous {(b, h, d)} {q.dtype} tensor on {cache.device}")
+                and t.device == cache.device and t.data_ptr() % 16 == 0,
+                f"{name} must be a contiguous, 16-byte aligned {(b, h, d)} {q.dtype} tensor "
+                f"on {cache.device}")
     require(row_prefix.shape == (b,) and row_prefix.dtype == torch.int32
             and row_prefix.is_contiguous() and row_prefix.device == cache.device,
             "row_prefix must be a contiguous (B,) int32 tensor on the cache's device")
-    require(128 % d == 0 and (d * q.element_size()) % 16 == 0,
-            f"head dim {d} must divide 128 and span whole 16-byte vectors")
+    require(d == _HEAD_DIM, f"head dim {d}: the kernels take {_HEAD_DIM}")
     return b, h, d
 
 
@@ -203,11 +242,13 @@ def _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml)
     require(0 <= layer_idx < n_layers and 0 <= cur_len <= s, "layer_idx / cur_len out of range")
     require(cache.data_ptr() % 16 == 0, "cache must be 16-byte aligned")
     out = torch.empty_like(q)
+    work, tickets = _workspace(cache, b * h, s)
     status = _lib().cbx_flash_decode(
         cache.data_ptr(), _DTYPE_CODE[cache.dtype], int(layer_idx), b, h, s, d,
         row_prefix.data_ptr(), int(gap_end), int(cur_len), q.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        None if ml is None else ml.data_ptr(), d ** -0.5, _build.stream_ptr(cache),
+        None if ml is None else ml.data_ptr(), d ** -0.5, work.data_ptr(), tickets.data_ptr(),
+        _build.stream_ptr(cache),
     )
     _build.check(status, "flash_decode")
     return out
@@ -265,11 +306,12 @@ def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base: int, lay
     require(d % 16 == 0 and cache8.data_ptr() % 16 == 0 and tail.data_ptr() % 16 == 0,
             "int8 rows must be whole, aligned 16-byte vectors")
     out = torch.empty_like(q)
+    work, tickets = _workspace(cache8, b * h, s)
     status = _lib().cbx_flash_decode_int8(
         cache8.data_ptr(), scales.data_ptr(), tail.data_ptr(), _DTYPE_CODE[q.dtype],
         int(layer_idx), b, h, s, w, d, row_prefix.data_ptr(), int(gap_end), int(cur_len),
         int(merge_base), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        d ** -0.5, _build.stream_ptr(cache8),
+        d ** -0.5, work.data_ptr(), tickets.data_ptr(), _build.stream_ptr(cache8),
     )
     _build.check(status, "flash_decode_layer_attention_int8")
     flash_decode_layer_attention_int8.launches += 1

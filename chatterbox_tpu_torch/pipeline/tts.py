@@ -271,15 +271,39 @@ class ChatterboxTTS:
         return self.conds
 
     # ------------------------------------------------------------- generate
-    def generate(self, text: str, audio_prompt_path=None, exaggeration: float = 0.5,
-                 num_return_sequences: int = 1, **kw) -> np.ndarray:
+    def generate(
+        self,
+        text: str,
+        repetition_penalty: float = 1.2,
+        min_p: float = 0.05,
+        top_p: float = 1.0,
+        audio_prompt_path=None,
+        exaggeration: float = 0.5,
+        cfg_weight: float = 0.5,
+        temperature: float = 0.8,
+        seed: int = 0,
+        max_new_tokens: int = 1000,
+        min_new_tokens: int = 0,
+        num_return_sequences: int = 1,
+        greedy: bool = False,
+        flow_steps: Optional[int] = None,
+        alignment: bool = False,
+        *,
+        conds: Optional[Conditionals] = None,
+    ) -> np.ndarray:
         """One text -> (k, T) float32, k = ``num_return_sequences`` sampled
-        variants right-padded to the longest. With ``audio_prompt_path`` the
-        voice comes from ``prepare_conditionals`` on that wav; other
-        keywords as generate_batch."""
+        variants right-padded to the longest; the JAX package's parameters in
+        its order (the reference API's). With ``audio_prompt_path`` the voice
+        comes from ``prepare_conditionals`` on that wav, else from ``conds``
+        or the pipeline's; the rest as generate_batch."""
         if audio_prompt_path is not None:
-            kw["conds"] = self.prepare_conditionals(audio_prompt_path, exaggeration)
-        wavs = self.generate_batch([text] * num_return_sequences, exaggeration=exaggeration, **kw)
+            conds = self.prepare_conditionals(audio_prompt_path, exaggeration)
+        wavs = self.generate_batch(
+            [text] * num_return_sequences, conds=conds, repetition_penalty=repetition_penalty,
+            min_p=min_p, top_p=top_p, exaggeration=exaggeration, cfg_weight=cfg_weight,
+            temperature=temperature, seed=seed, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, greedy=greedy, flow_steps=flow_steps,
+            alignment=alignment)
         out = np.zeros((len(wavs), max(len(w) for w in wavs)), np.float32)
         for i, w in enumerate(wavs):
             out[i, : len(w)] = w
@@ -300,11 +324,15 @@ class ChatterboxTTS:
         max_new_tokens: int = 1000,
         min_new_tokens: int = 0,
         greedy: bool = False,
-        alignment: bool = False,
+        *,
         flow_steps: Optional[int] = None,
+        alignment: bool = False,
     ) -> List[np.ndarray]:
         """One T3 decode and one S3Gen pass over the batch -> one float32
-        waveform per text (int16 PCM scaled back to [-1, 1]).
+        waveform per text (int16 PCM scaled back to [-1, 1]). The parameters
+        up to ``greedy`` are the JAX package's, in its order; the JAX
+        package's next two (``device_chain``, ``defer_collect``) are not
+        ported, so those after them are keyword-only.
         ``alignment=True`` runs the hallucination watchdog in the decode loop
         (``models/t3/alignment.py``) on a working-dtype KV cache.
         ``flow_steps`` sets the CFM Euler step count of this call only (the

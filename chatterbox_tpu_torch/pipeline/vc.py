@@ -122,11 +122,12 @@ class ChatterboxVC:
         return batch, n_toks, wav_bucket
 
     @torch.inference_mode()
-    def generate_batch(self, audios: List, target_voice_path=None, seed: int = 0,
+    def generate_batch(self, audios: List, target_voice_path=None, seed: int = 0, *,
                        flow_steps: Optional[int] = None) -> List[np.ndarray]:
         """Sources -> one float32 waveform each (int16 PCM scaled back to
         [-1, 1]), 2 * 480 samples a source token. ``flow_steps`` sets the
-        CFM Euler step count of this call only."""
+        CFM Euler step count of this call only; it is keyword-only, as the
+        JAX package's next parameter (``defer_collect``) is not ported."""
         n_steps = self._effective_flow_steps(flow_steps)
         if target_voice_path is not None:
             self.set_target_voice(target_voice_path)

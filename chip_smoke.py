@@ -6,14 +6,17 @@ Phases (any failure exits non-zero before the last line):
   1. device: requires CUDA and prints the card's name and power limit;
   2. build: compiles every kernel of ``chatterbox_tpu_torch/csrc`` with nvcc;
   3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3, K4 and K5 at the full-width
-     shapes of the TTS and VC paths (K1b, K1c+d and K2b at the default
-     budget's cache length, S = 1152; K3 and K5 at T = 1024, 1536 and 2560,
-     paths A, E and B, where the two must agree bit for bit on the same
-     q, k, v; K4 at T = 1024 and 2560), holds each
+     shapes of the TTS and VC paths (K1a at path A's cache length, S = 384,
+     and at the default budget's, S = 1152, where K1b, K1c+d and K2b run;
+     K1a, K1b and K1c+d each called twice on the same inputs, which must
+     agree bit for bit; K3 and K5 at T = 1024, 1536 and 2560, paths A, E
+     and B, where the two must agree bit for bit on the same q, k, v; K4 at
+     T = 1024 and 2560), holds each
      against its plain PyTorch version on the same inputs (the limits are
      stated at ``OUT_RTOL``) and times the kernel, the plain version and,
      as a yardstick only, one PyTorch library call for the same function,
-     each as device time from a replayed CUDA graph; then the probe kernels
+     each as device time from a replayed CUDA graph, and prints each
+     kernel's share of its bound; then the probe kernels
      P1-P5 at the probes' own shapes, each against its plain version and
      timed the same way (``probe_kernel_phase``), K2 beside the P2/P3
      column writes;
@@ -47,6 +50,8 @@ Phases (any failure exits non-zero before the last line):
        G. path F with ``flow_steps=4`` (tts_b8_turbo): T3's tokens and the
           wav lengths must equal F's, and the flow launches K3 exactly
           4 x 56 times;
+     K1 must launch once a layer a decode step (A: 30 x 249, B: 30 x 999;
+     C: 29 x 249 K1a and 249 K1b);
      after each first call a second, warm call is timed (audio seconds per
      second, per stage) and a third profiled (device time by kernel, the
      busy share), except on path D, whose device work is path A's; no TTS
@@ -209,6 +214,20 @@ def library_err(name, got, want):
     return err
 
 
+def check_repeat(name, fn):
+    """Two calls of ``fn`` on the same inputs must agree bit for bit (K1's
+    combine folds its chunks in order, whichever CTA comes last)."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else \
+        torch.equal(a, b)
+    print(f"kernel {name}: two calls on the same inputs bit-identical: {same}", flush=True)
+    if not same:
+        fail(f"{name}: two calls on the same inputs differ")
+
+
 def kernel_phase():
     """Every kernel at its path's full-width shapes: check, then time."""
     import torch
@@ -239,6 +258,7 @@ def kernel_phase():
     want = fd.flash_decode_layer_attention_plain(*args)
     err, tol, share = check_kernel("flash_decode_layer_attention",
                                    fd.flash_decode_layer_attention(*args), want)
+    check_repeat("flash_decode_layer_attention", lambda: fd.flash_decode_layer_attention(*args))
     n_valid = int((row_prefix.long() + (cur_len - gap_end)).sum()) * T3_HEADS  # (row, head, slot)
     k1_bytes = 2 * n_valid * HEAD_DIM * 2 + 4 * ROWS * T3_HEADS * HEAD_DIM * 2 + ROWS * 4
     k1_flops = 4 * (n_valid + ROWS * T3_HEADS) * HEAD_DIM
@@ -342,6 +362,8 @@ def kernel_phase():
     args = (kv, 7, c_mid + 3, row_prefix, gap_end, q, kn, vn)
     out, m, l = fd.flash_decode_layer_attention_stats(*args)
     want, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+    check_repeat("flash_decode_layer_attention_stats",
+                 lambda: fd.flash_decode_layer_attention_stats(*args))
     err, tol, share = check_kernel("flash_decode_layer_attention_stats", out, want)
     m_share = float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max())
     l_share = float(((l - want_l).abs() / (1e-4 * want_l)).max())
@@ -365,9 +387,21 @@ def kernel_phase():
         bound=mean_bound(lambda c: 2 * sum(live(c)) * T3_HEADS * HEAD_DIM * 2 + vec_bytes
                          + rows_h * 8, k1_flops),
     )
-    # K1a at the same live lengths, for the int8 kernel's comparison
+    # K1a at S = 1152 at the same live lengths (the int8 kernel's comparison),
+    # beside the same SDPA
     k1a_same_ms = timed(rotating(lambda i: fd.flash_decode_layer_attention(
         kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 240)
+    k1a_1152 = dict(
+        ms=k1a_same_ms, library_ms=rows["flash_decode_layer_attention_stats"]["library_ms"],
+        bound=mean_bound(lambda c: 2 * sum(live(c)) * T3_HEADS * HEAD_DIM * 2 + vec_bytes,
+                         k1_flops))
+    rows["flash_decode_layer_attention"]["extra"] = {
+        "S": s_cache, "cur_len": cur_len, "ms_s1152": k1a_same_ms,
+        "library_ms_s1152": k1a_1152["library_ms"], "bound_ms_s1152": k1a_1152["bound"][0],
+        "cur_len_s1152": f"{curs[0]}-{curs[-1]}"}
+    print(f"kernel flash_decode_layer_attention at S = {s_1000}: {k1a_same_ms:.5f} ms; "
+          f"SDPA {k1a_1152['library_ms']:.5f} ms; bound {k1a_1152['bound'][0]:.5f} ms "
+          f"({k1a_1152['bound'][0] / k1a_same_ms:.1%})", flush=True)
     del kv_lib
 
     # K1c+d: the int8 cache below merge_base, the bf16 tail from there on;
@@ -379,6 +413,7 @@ def kernel_phase():
 
     want = k1c(TAIL_W // 2, fd.flash_decode_layer_attention_int8_plain)  # layer 4 at c_lib
     err, tol, share = check_kernel("flash_decode_layer_attention_int8", k1c(TAIL_W // 2), want)
+    check_repeat("flash_decode_layer_attention_int8", lambda: k1c(TAIL_W // 2))
     deq = (cache8.float() * scales[..., None]).to(bf)  # the library's input, made once
     mb_lib = c_lib // TAIL_W * TAIL_W
     deq[:, :, :, :, mb_lib:mb_lib + TAIL_W] = tails[mb_lib]
@@ -776,7 +811,7 @@ KERNEL_INFO = {
         "chatterbox_tpu/ops/flash_attention.py:126",
     ),
     "flash_relpos_attention": (
-        "chatterbox_tpu_torch/csrc/flash_attention.cu",
+        "chatterbox_tpu_torch/csrc/flash_attention_sm90.cu",
         "chatterbox_tpu/ops/flash_attention.py:267",
     ),
     "flash_self_attention": (
@@ -1019,7 +1054,7 @@ def random_conditionals(dev, seed=0):
 
 # the __global__ functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("flash_decode_kernel", "flash_decode_int8_kernel", "kv_append_kernel",
-                "kv_quantize_kernel", "flash_attention_kernel",
+                "kv_quantize_kernel", "flash_relpos_sm90_kernel",
                 "flash_attention_packed_sm90_kernel", "flash_attention_heads_sm90_kernel")
 
 
@@ -1230,7 +1265,14 @@ def main_path(card, ref_path):
             print(f"path {name}: apply_tts_precision(weight_quant=True) in "
                   f"{time.time() - t0:.1f} s", flush=True)
         c = prepared_conditionals(tts, ref_path, card) if name == "D" else conds
-        exact = {_K3: blocks * TURBO_STEPS} if name == "G" else None
+        # K1: one launch a layer a decode step (budget - 1 steps: random
+        # weights never stop every row early); path C's alignment layer takes K1b
+        steps = PATHS[name][0].get("max_new_tokens", MAX_NEW_DEFAULT) - 1
+        exact = {"B": {_K1C: T3_LAYERS * steps},
+                 "C": {_K1A: (T3_LAYERS - 1) * steps, _K1B: steps}}.get(
+                     name, {_K1A: T3_LAYERS * steps})
+        if name == "G":
+            exact[_K3] = blocks * TURBO_STEPS
         # a profile takes a call more: none on path D, path A's call on other
         # conditionals
         counts[name], tokens[name], lens[name] = run_path(tts, c, card, name, name != "D", exact)
@@ -1426,6 +1468,10 @@ def main():
                                       "headline_variant", "variants") if k in r})
         row.update(r.get("extra", {}))
         table.append(row)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.5f}"
+        print(f"kernel {name}: {r['ms']:.5f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{bound_ms / r['ms']:.1%} of the bound; plain {r['plain_ms']:.5f} ms; library "
+              f"{lib} ms", flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -130,6 +130,161 @@ def test_flash_decode_int8_matches_plain(cuda, dtype, cur_len):
         _assert_within(got, want)
 
 
+# K1's split-S edges (64-slot chunks) on a 512-slot cache, 16 rows x 16
+# heads: (cur_len, gap_end, row_prefix of the 16 rows); every row_prefix is
+# at most gap_end, as in T3
+_SPLIT_CASES = {
+    "chunk_in_gap": (301, 150, [10 + i for i in range(16)]),  # [64, 128) all gap
+    "boundary_at_prefix_and_gap_end": (256, 128, [64] * 16),
+    "below_one_chunk": (37, 37, [1 + 2 * i for i in range(16)]),
+    "cur_len_at_s": (512, 100, [40 + 3 * i for i in range(16)]),
+    "row_prefix_0": (200, 70, [0, 64] * 8),
+}
+
+
+def _split_inputs(dev, dtype, seed, cur_len, row_prefix):
+    cache = _randn(dev, 3, 2, 16, 16, 512, 64, seed=seed, dtype=dtype)
+    q, kn, vn = (_randn(dev, 16, 16, 64, seed=seed + i, dtype=dtype) for i in (1, 2, 3))
+    rp = torch.tensor(row_prefix, dtype=torch.int32, device=dev)
+    return cache, q, kn, vn, rp
+
+
+def _assert_decode_close(got, want, dtype):
+    if dtype == torch.float32:
+        assert _max_err(got, want) <= 1e-5
+    else:
+        _assert_within(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_flash_decode_split_edges_match_plain(cuda, dtype, case):
+    """K1a and K1b where the 64-slot chunks meet the validity rule: a chunk
+    wholly inside the text-padding gap, chunk boundaries at row_prefix and
+    at gap_end, cur_len below one chunk and at S, rows with row_prefix 0."""
+    cur_len, gap_end, row_prefix = _SPLIT_CASES[case]
+    cache, q, kn, vn, rp = _split_inputs(cuda, dtype, 80, cur_len, row_prefix)
+    args = (cache, 1, cur_len, rp, gap_end, q, kn, vn)
+    _assert_decode_close(fd.flash_decode_layer_attention(*args),
+                         fd.flash_decode_layer_attention_plain(*args), dtype)
+    out, m, l = fd.flash_decode_layer_attention_stats(*args)
+    want_out, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+    _assert_decode_close(out, want_out, dtype)
+    assert float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max()) <= 1.0
+    assert float(((l - want_l).abs() / (1e-4 * want_l)).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cur_len,gap_end", [(128, 100), (135, 100), (511, 128), (71, 71)])
+def test_flash_decode_int8_split_edges_match_plain(cuda, dtype, cur_len, gap_end):
+    """K1c+d with merge_base on a chunk boundary (128: a tail of 0 and of 7
+    slots), a tail of 7 in the last chunk of S, and a tail of 7 past one
+    chunk; the int8 cache holds poison from merge_base on."""
+    kv = _randn(cuda, 3, 2, 16, 16, 512, 64, seed=90, dtype=torch.float32)
+    cache8, scales = fd.quantize_kv(kv)
+    mb = cur_len // fd.TAIL_W * fd.TAIL_W
+    tail = kv[:, :, :, :, mb:mb + fd.TAIL_W].to(dtype).contiguous()
+    cache8[..., mb:, :], scales[..., mb:] = 127, 1e4
+    q, kn, vn = (_randn(cuda, 16, 16, 64, seed=s, dtype=dtype) for s in (91, 92, 93))
+    rp = torch.tensor([min(gap_end, 64 * (i % 3)) for i in range(16)], dtype=torch.int32,
+                      device=cuda)
+    args = (cache8, scales, tail, mb, 2, cur_len, rp, gap_end, q, kn, vn)
+    _assert_decode_close(fd.flash_decode_layer_attention_int8(*args),
+                         fd.flash_decode_layer_attention_int8_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["a", "b", "int8"])
+def test_flash_decode_repeats_bit_identical_and_resets_tickets(cuda, variant):
+    """The combine folds the chunks in order: two calls on the same inputs
+    agree bit for bit. Calls on other inputs in between (another length,
+    another layer) each match the plain version, which they would not if a
+    launch left its tickets other than 0."""
+    cache, q, kn, vn, rp = _split_inputs(cuda, torch.bfloat16, 95, 301, [50] * 16)
+    kv = cache.float()
+    cache8, scales = fd.quantize_kv(kv)
+
+    def run(cur_len, layer, plain=False):
+        if variant == "int8":
+            mb = cur_len // fd.TAIL_W * fd.TAIL_W
+            tail = cache[:, :, :, :, mb:mb + fd.TAIL_W].contiguous()
+            fn = fd.flash_decode_layer_attention_int8_plain if plain else \
+                fd.flash_decode_layer_attention_int8
+            return fn(cache8, scales, tail, mb, layer, cur_len, rp, 98, q, kn, vn)
+        fn = {"a": (fd.flash_decode_layer_attention, fd.flash_decode_layer_attention_plain),
+              "b": (fd.flash_decode_layer_attention_stats,
+                    fd.flash_decode_layer_attention_stats_plain)}[variant][plain]
+        out = fn(cache, layer, cur_len, rp, 98, q, kn, vn)
+        return out[0] if variant == "b" else out
+
+    first = run(301, 1)
+    for cur_len, layer in ((497, 2), (64, 0), (301, 1)):
+        got = run(cur_len, layer)
+        _assert_within(got, run(cur_len, layer, plain=True))
+    torch.cuda.synchronize()
+    assert torch.equal(first, got)
+
+
+@pytest.mark.cuda
+def test_flash_decode_graph_outlives_other_caches(cuda):
+    """K1's workspace belongs to the cache it reads: a CUDA graph captured
+    on one cache replays right after launches on a longer cache (a larger
+    workspace, then freed) and on an int8 cache, and after allocations
+    that could take freed memory."""
+    cache, q, kn, vn, rp = _split_inputs(cuda, torch.bfloat16, 100, 301, [50] * 16)
+    args = (cache, 1, 301, rp, 98, q, kn, vn)
+    first = fd.flash_decode_layer_attention(*args)  # outside the capture: makes the workspace
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd.flash_decode_layer_attention(*args)
+    longer = _randn(cuda, 2, 2, 16, 16, 4096, 64, seed=101)
+    long_args = (longer, 1, 3000, rp, 98, q, kn, vn)
+    _assert_within(fd.flash_decode_layer_attention(*long_args),
+                   fd.flash_decode_layer_attention_plain(*long_args))
+    cache8, scales = fd.quantize_kv(longer.float())
+    tail = longer[:, :, :, :, 2000:2000 + fd.TAIL_W].contiguous()
+    int8_args = (cache8, scales, tail, 2000, 0, 2005, rp, 98, q, kn, vn)
+    _assert_within(fd.flash_decode_layer_attention_int8(*int8_args),
+                   fd.flash_decode_layer_attention_int8_plain(*int8_args))
+    del longer, cache8, scales, tail, long_args, int8_args
+    # tensors of the graph's workspace sizes, which would take its memory
+    # were it freed: the replay leaves them as they were
+    n_parts, pairs = 16 * 16 * (512 // 64) * (64 + 2), 16 * 16
+    junk = [torch.full((n,), 7, dtype=dt, device=cuda)
+            for n, dt in ((n_parts, torch.float32), (pairs, torch.int32)) for _ in range(16)]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    _assert_within(out, fd.flash_decode_layer_attention_plain(*args))
+    assert all(bool((j == 7).all()) for j in junk)
+
+
+@pytest.mark.cuda
+def test_flash_decode_on_two_streams_at_once(cuda):
+    """Two caches, each launched on its own stream with no order between
+    the streams: each has its own workspace and tickets, so each matches
+    its plain version."""
+    runs = []
+    for seed in (110, 120):
+        cache, q, kn, vn, rp = _split_inputs(cuda, torch.bfloat16, seed, 480, [30] * 16)
+        runs.append((cache, 2, 480, rp, 60, q, kn, vn))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in runs]
+    outs = [[] for _ in runs]
+    for _ in range(20):
+        for args, stream, got in zip(runs, streams, outs):
+            with torch.cuda.stream(stream):
+                got.append(fd.flash_decode_layer_attention(*args))
+    torch.cuda.synchronize()
+    for args, got in zip(runs, outs):
+        want = fd.flash_decode_layer_attention_plain(*args)
+        for g in got:
+            _assert_within(g, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n,pos", [(8, 296), (101, 0)])
@@ -261,6 +416,39 @@ def test_flash_relpos_matches_plain(cuda):
                    fa.flash_relpos_attention_plain(q_u, q_hat, k, s_hat, v.abs(), bias, 8, 0.125))
 
 
+def _relpos_rows(dev, t, seed, heads=8, c=512):
+    """K4's operands at the conformer's widths (8 heads of 64, C = 512) on 4
+    rows: row 0 all keys valid, row 1 the last 37 keys padded (bias -1e9, as
+    the conformer pads), row 2 one valid key, row 3 logits x8 (the running
+    max moves)."""
+    rng = np.random.default_rng(seed)
+    q_u, k, v = (rng.standard_normal((4, t, heads * 64)).astype(np.float32) * 0.5
+                 for _ in range(3))
+    q_u[3] *= 8
+    q_hat = (rng.standard_normal((4, t, heads * c)) * 0.1).astype(np.float32)
+    s_hat = rng.standard_normal((1, t, c)).astype(np.float32)
+    bias = np.zeros((4, t), np.float32)
+    bias[1, t - 37:] = -1.0e9
+    bias[2, 1:] = -1.0e9
+    bf = (torch.from_numpy(x).to(dev, torch.bfloat16) for x in (q_u, q_hat, k, v))
+    q_u, q_hat, k, v = bf
+    return q_u, q_hat, k, torch.from_numpy(s_hat).to(dev), v, torch.from_numpy(bias).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 384, 1024, 2560])
+def test_flash_relpos_rows_match_plain(cuda, t):
+    """K4 on the rows of ``_relpos_rows``; T = 384 is 3 key tiles."""
+    q_u, q_hat, k, s_hat, v, bias = _relpos_rows(cuda, t, seed=100 + t)
+    args = (q_u, q_hat, k, s_hat, v, bias, 8, 0.125)
+    before = fa.flash_relpos_attention.launches
+    got = fa.flash_relpos_attention(*args)
+    assert fa.flash_relpos_attention.launches == before + 1
+    assert got.shape == (4, t, 512) and got.dtype == torch.bfloat16
+    _assert_within(got, fa.flash_relpos_attention_plain(*args),
+                   fa.flash_relpos_attention_plain(q_u, q_hat, k, s_hat, v.abs(), bias, 8, 0.125))
+
+
 @pytest.mark.cuda
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     qkv = _randn(cuda, 1, 100, 3 * 8 * 64, seed=12)  # T not a multiple of 64
@@ -276,11 +464,30 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = _randn(cuda, 1, 2, 128, 32, seed=18)  # head dim 32
     with pytest.raises(ValueError):
         fa.flash_self_attention(q, q, q)
+    # K4 takes 128-row tiles too
+    q_u = _randn(cuda, 1, 192, 2 * 64, seed=21)
+    q_hat = _randn(cuda, 1, 192, 2 * 128, seed=22)
+    s_hat = _randn(cuda, 192, 128, seed=23)
+    with pytest.raises(ValueError):
+        fa.flash_relpos_attention(q_u, q_hat, q_u, s_hat, q_u, torch.zeros((1, 192), device=cuda),
+                                  2, 0.125)
     cache = _randn(cuda, 1, 2, 2, 2, 128, 64, seed=13).transpose(-1, -2)  # not contiguous
     q = _randn(cuda, 2, 2, 64, seed=14)
+    rp = torch.full((2,), 10, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
-        fd.flash_decode_layer_attention(cache, 0, 10, torch.full((2,), 10, dtype=torch.int32,
-                                                                 device=cuda), 10, q, q, q)
+        fd.flash_decode_layer_attention(cache, 0, 10, rp, 10, q, q, q)
+    # K1 reads q, k_new and v_new in 16-byte vectors: a contiguous view at an
+    # offset of one element is refused, for each of them and the int8 path too
+    cache = cache.contiguous()
+    odd = _randn(cuda, 2 * 2 * 64 + 1, seed=15)[1:].view(2, 2, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    cache8, scales = fd.quantize_kv(cache.float())
+    tail = cache[:, :, :, :, 8:8 + fd.TAIL_W].contiguous()
+    for qkv in ((odd, q, q), (q, odd, q), (q, q, odd)):
+        with pytest.raises(ValueError):
+            fd.flash_decode_layer_attention(cache, 0, 10, rp, 10, *qkv)
+        with pytest.raises(ValueError):
+            fd.flash_decode_layer_attention_int8(cache8, scales, tail, 8, 0, 10, rp, 10, *qkv)
 
 
 @pytest.mark.cuda

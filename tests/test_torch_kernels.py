@@ -118,6 +118,122 @@ def test_flash_decode_stats_plain_matches_pallas():
         t(cache), 1, 157, t(rp), 96, t(q), t(kn), t(vn)))
 
 
+def _split_s_walk(keys, values, v_scale, cur_len, row_prefix, gap_end, q, k_new, v_new,
+                  chunk, warps=4, rows_step=16):
+    """K1's split-S arithmetic (csrc/flash_decode.cu) written out in fp32.
+    keys (B, H, cur_len, D): the q.k factor of each slot (on the int8 path
+    the int8 values times their K scale: the kernel multiplies the dot by
+    the scale, as here in fp32 up to rounding); values (B, H, cur_len, D)
+    and v_scale (B, H, cur_len) (the factor a probability takes into the V
+    sum: the V scale, or 1). Each chunk of ``chunk`` slots is split among
+    its warps as the kernel's threads take rows (row r to warp
+    (r % rows_step) // (rows_step // warps)); each warp's (m, l, acc) over
+    its valid slots, the warps merged in order into the chunk's; the
+    chunks folded in chunk order with the self-logit. Returns (out, M, l)."""
+    b, h, _, d = keys.shape
+    scale = d ** -0.5
+    qf = q.float()
+    idx = torch.arange(cur_len)
+    valid = (idx[None] < row_prefix[:, None].long()) | (idx[None] >= gap_end)  # (B, S)
+    logits = torch.einsum("bhd,bhsd->bhs", qf, keys) * scale
+    logits = logits.masked_fill(~valid[:, None, :], -torch.inf)
+    n_live = max(1, -(-cur_len // chunk))
+    parts = []
+    for c in range(n_live):
+        lo, hi = c * chunk, min((c + 1) * chunk, cur_len)
+        warp_of = (torch.arange(lo, hi) - lo) % rows_step // (rows_step // warps)
+        mc = torch.full((b, h), -torch.inf)
+        wp = []
+        for w in range(warps):
+            sel = torch.arange(lo, hi)[warp_of == w]
+            s = logits[..., sel]
+            m = s.amax(dim=-1) if len(sel) else torch.full((b, h), -torch.inf)
+            p = torch.where(s == -torch.inf, 0.0, torch.exp(s - m[..., None]))
+            wp.append((m, p.sum(-1), torch.einsum("bhs,bhsd->bhd", p * v_scale[..., sel],
+                                                  values[..., sel, :])))
+            mc = torch.maximum(mc, m)
+        lc, ac = torch.zeros((b, h)), torch.zeros((b, h, d))
+        for m, l, acc in wp:
+            e = torch.where(l > 0, torch.exp(m - mc), 0.0)
+            lc, ac = lc + l * e, ac + acc * e[..., None]
+        parts.append((mc, lc, ac))
+    m_self = (qf * k_new.float()).sum(-1) * scale
+    big = m_self
+    for mc, _, _ in parts:
+        big = torch.maximum(big, mc)
+    es = torch.exp(m_self - big)
+    l, acc = es, es[..., None] * v_new.float()
+    for mc, lc, ac in parts:
+        e = torch.where(lc > 0, torch.exp(mc - big), 0.0)
+        l, acc = l + lc * e, acc + ac * e[..., None]
+    return acc / l[..., None], big, l
+
+
+# (cur_len, gap_end, row_prefix) on a 256-slot cache of 4 rows
+_SPLIT_CASES = {
+    "chunk_in_gap": (200, 150, [10, 12, 5, 0]),  # slots [64, 128) are all gap
+    "boundary_at_prefix_and_gap_end": (192, 128, [64, 64, 64, 64]),
+    "below_one_chunk": (10, 10, [3, 10, 0, 7]),
+    "cur_len_at_s": (256, 100, [40, 60, 80, 100]),
+    "row_prefix_0": (150, 70, [0, 0, 64, 0]),
+}
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_split_s_walk_matches_plain(chunk, case):
+    """K1a/K1b's chunking, the warps' merge and the in-order combine,
+    emulated in fp32, against ``flash_decode_layer_attention_stats_plain``
+    (itself held to the Pallas kernel above): the output within 1e-5, m
+    within 1e-5|m| + 1e-5, l within 1e-4|l| (the card tests' limits). The
+    cases put chunks wholly inside the gap, chunk boundaries at row_prefix
+    and gap_end, cur_len below one chunk and at S, and rows with
+    row_prefix 0."""
+    cur_len, gap_end, row_prefix = _SPLIT_CASES[case]
+    cache, q, kn, vn = _decode_case(30, d=64)
+    rp = t(np.asarray(row_prefix, np.int32))
+    k = t(cache[1, 0, :, :, :cur_len])
+    v = t(cache[1, 1, :, :, :cur_len])
+    out, m, l = _split_s_walk(k, v, torch.ones(k.shape[:3]), cur_len, rp, gap_end, t(q), t(kn),
+                              t(vn), chunk)
+    want, want_m, want_l = p_fd.flash_decode_layer_attention_stats_plain(
+        t(cache), 1, cur_len, rp, gap_end, t(q), t(kn), t(vn))
+    assert_close(out, want.numpy(), TOL, TOL)
+    assert bool(((m - want_m).abs() <= 1e-5 * want_m.abs() + 1e-5).all())
+    assert bool(((l - want_l).abs() <= 1e-4 * want_l).all())
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+@pytest.mark.parametrize("cur_len", [128, 135, 255, 7])
+def test_split_s_walk_int8_matches_plain(chunk, cur_len):
+    """K1c+d's walk: slots below merge_base from the int8 cache (the K scale
+    on the logit, the V scale on the probability), the tail exact, against
+    ``flash_decode_layer_attention_int8_plain``: merge_base on a chunk
+    boundary with a tail of 0 (128) and of 7 (135), a tail of 7 in the last
+    chunk of S (255), and cur_len below one chunk with merge_base 0 (7)."""
+    cache, q8, sc, q, kn, vn = _int8_case(40)
+    w = p_fd.TAIL_W
+    mb = cur_len // w * w
+    tail = cache[:, :, :, :, mb:mb + w]
+    rp, gap_end = np.asarray([30, 0, 64, 100], np.int32), 100
+    layer = 2
+
+    def slots(kv):  # the walk's operands: the int8 values (and scales), then the tail
+        vals = np.concatenate([q8[layer, kv, :, :, :mb].astype(np.float32),
+                               tail[layer, kv, :, :, :cur_len - mb]], axis=2)
+        scl = np.concatenate([sc[layer, kv, :, :, :mb],
+                              np.ones(tail.shape[2:4] + (cur_len - mb,), np.float32)], axis=2)
+        return t(vals), t(scl)
+
+    (k8, sk), (v8, sv) = slots(0), slots(1)
+    out, _, _ = _split_s_walk(k8 * sk[..., None], v8, sv, cur_len, t(rp), gap_end, t(q), t(kn),
+                              t(vn), chunk)
+    want = p_fd.flash_decode_layer_attention_int8_plain(
+        t(q8), t(sc), t(tail).contiguous(), mb, layer, cur_len, t(rp), gap_end, t(q), t(kn),
+        t(vn))
+    assert_close(out, want.numpy(), TOL, TOL)
+
+
 def test_kv_cache_quantize_write_matches_jax_merge():
     """K2b: n tokens quantized into the (S, D) int8 cache at ``pos`` equal
     the JAX package's ``quantize_kv`` followed by the int8 column merge into
@@ -198,24 +314,25 @@ def test_flash_self_attention_plain_matches_pallas(dtype):
         assert (np.abs(got.float().numpy() - want) <= limit).all()
 
 
-def _sm90_tile_walk(q, k, v, bias, bn=128):
-    """The arithmetic of K3/K5's Hopper kernel (csrc/flash_attention_sm90.cu)
-    written out in fp32 on (B, H, T, 64) bf16 q, k, v: keys in tiles of
-    ``bn``; x = S * (scale * log2 e) + bias * log2 e; a running row max m;
-    P = exp2(x - m), rounded to bf16 for the value product; the row sum l in
-    fp32 from the unrounded P; O and l rescaled by exp2(m_old - m_new); O / l
-    rounded to bf16 at the end. (The kernel folds x into one FMA, which can
-    differ from this multiply-add in x's last bit.)"""
-    b, h, t, d = q.shape
+def _tile_walk(tile_scores, v, bias, scale, bn=128):
+    """The online softmax of the Hopper kernels (csrc/flash_attention_sm90.cu)
+    written out in fp32: keys in tiles of ``bn``, ``tile_scores(t0)`` the
+    fp32 scores of keys [t0, t0 + bn) of every (row, head, query);
+    x = S * (scale * log2 e) + bias * log2 e; a running row max m;
+    P = exp2(x - m), rounded to bf16 for the value product with v (B, H, T,
+    D) bf16; the row sum l in fp32 from the unrounded P; O and l rescaled by
+    exp2(m_old - m_new); O / l rounded to bf16 at the end. (The kernel folds
+    x into one FMA, which can differ from this multiply-add in x's last
+    bit.)"""
+    b, h, t, d = v.shape
     log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
-    scale_log2 = torch.tensor(d ** -0.5, dtype=torch.float32) * log2e
+    scale_log2 = torch.tensor(scale, dtype=torch.float32) * log2e
     bias_log2 = bias.float()[:, None, None, :] * log2e
     m = torch.full((b, h, t, 1), -torch.inf)
     l = torch.zeros((b, h, t, 1))
     o = torch.zeros((b, h, t, d))
     for t0 in range(0, t, bn):
-        x = (q.float() @ k[..., t0:t0 + bn, :].float().transpose(-1, -2)) * scale_log2
-        x = x + bias_log2[..., t0:t0 + bn]
+        x = tile_scores(t0) * scale_log2 + bias_log2[..., t0:t0 + bn]
         m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(x - m_new)
@@ -223,6 +340,13 @@ def _sm90_tile_walk(q, k, v, bias, bn=128):
         o = o * alpha + p.to(torch.bfloat16).float() @ v[..., t0:t0 + bn, :].float()
         m = m_new
     return (o / l).to(torch.bfloat16)
+
+
+def _sm90_tile_walk(q, k, v, bias, bn=128):
+    """K3/K5's arithmetic (``_tile_walk``) on (B, H, T, 64) bf16 q, k, v."""
+    return _tile_walk(
+        lambda t0: q.float() @ k[..., t0:t0 + bn, :].float().transpose(-1, -2), v, bias,
+        q.shape[-1] ** -0.5, bn)
 
 
 @pytest.mark.parametrize("t_len", [128, 384, 1024])
@@ -317,6 +441,53 @@ def test_flash_relpos_plain_matches_pallas(t_len):
                                        n_heads=4, scale=scale, interpret=True, heads_per_cell=4)
     got = p_fa.flash_relpos_attention(t(q_u), t(q_hat), t(k), t(s_hat), t(v), t(bias), 4, scale)
     assert_close(got, np.asarray(want), TOL, TOL)
+
+
+def _relpos_sm90_walk(q_u, q_hat, k, s_hat, v, bias, n_heads, scale, bn=128):
+    """K4's arithmetic on the Hopper body: per key tile, S = q_u.k^T and then
+    q-hat.s-hat^T in 64-wide depth chunks, accumulated in fp32 in the
+    kernel's chunk order, then ``_tile_walk``'s softmax and P.V. Operands
+    as ``flash_relpos_attention`` takes them (bf16), output (B, T, H*64)."""
+    from chatterbox_tpu_torch.core.layers import merge_heads, split_heads
+
+    t, c = q_u.shape[1], q_hat.shape[-1] // n_heads
+    qu, kk, vv, qh = (split_heads(x, n_heads) for x in (q_u, k, v, q_hat))
+    sh = s_hat.reshape(t, c).to(torch.bfloat16).float()
+
+    def scores(t0):
+        s = qu.float() @ kk[..., t0:t0 + bn, :].float().transpose(-1, -2)
+        for c0 in range(0, c, 64):
+            s = s + qh[..., c0:c0 + 64].float() @ sh[t0:t0 + bn, c0:c0 + 64].t()
+        return s
+
+    return merge_heads(_tile_walk(scores, vv, bias, scale, bn))
+
+
+@pytest.mark.parametrize("t_len", [128, 384, 1024])
+def test_relpos_sm90_walk_matches_plain(t_len):
+    """K4's depth-chunked S, the exp2 fold and the per-tile bf16 P, emulated
+    on the CPU, against ``flash_relpos_attention_plain`` within
+    chip_smoke.py's limit |got - want| <= 2^-7 |want| + 2^-7 P|v| + 1e-5.
+    Rows: all keys valid; the last 29 keys padded at -1e9 (the conformer's
+    pad bias); a single valid key. T = 384 is 3 key tiles."""
+    rng = np.random.default_rng(200 + t_len)
+    heads, c = 2, 256
+    q_u, k, v = (rng.standard_normal((3, t_len, heads * 64)).astype(np.float32) * 0.5
+                 for _ in range(3))
+    q_hat = (rng.standard_normal((3, t_len, heads * c)) * 0.1).astype(np.float32)
+    s_hat = rng.standard_normal((1, t_len, c)).astype(np.float32)
+    bias = np.zeros((3, t_len), np.float32)
+    bias[1, t_len - 29:] = -1.0e9
+    bias[2, 1:] = -1.0e9
+    q_u, q_hat, k, v = (t(x, torch.bfloat16) for x in (q_u, q_hat, k, v))
+    args = (q_u, q_hat, k, t(s_hat), v, t(bias), heads, 0.125)
+    got = _relpos_sm90_walk(*args).float()
+    want = p_fa.flash_relpos_attention_plain(*args).float()
+    p_abs_v = p_fa.flash_relpos_attention_plain(q_u, q_hat, k, t(s_hat), v.abs(), t(bias), heads,
+                                                0.125).float()
+    assert got.shape == want.shape == (3, t_len, heads * 64)
+    limit = 2.0 ** -7 * (want.abs() + p_abs_v) + 1e-5
+    assert bool(((got - want).abs() <= limit).all())
 
 
 @pytest.mark.parametrize("t_len", [40, 128])

@@ -273,3 +273,50 @@ def test_generate_batch_int8_weights_match_jax(jax_tts, zero_port_noise):
     tts._unfuse_qkv()
     layers = tts.t3_params["llama"]["layers"]
     assert not tts._runtime_llama_layout(tts.t3_params) and layers["q"]["w"].dtype == torch.float32
+
+
+def _params(fn):
+    import inspect
+
+    return inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("cls,method", [("ChatterboxTTS", "generate"),
+                                        ("ChatterboxTTS", "generate_batch"),
+                                        ("ChatterboxVC", "generate"),
+                                        ("ChatterboxVC", "generate_batch")])
+def test_public_methods_take_positional_arguments_in_jax_order(cls, method):
+    """The pipelines' public methods take their positional parameters in the
+    JAX package's order, up to the first JAX parameter the port lacks
+    (TTS ``generate_batch``: ``device_chain``; VC: ``defer_collect``); the
+    JAX parameters after it that the port has are keyword-only in the port,
+    and every default the port gives is the JAX one (VC's ``audios`` has
+    none: JAX's None stands for its unported ``_uploaded``). So
+    ``generate("Hi", 1.3)`` is a repetition penalty on both sides."""
+    import importlib
+
+    from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxVC
+
+    mod = "tts" if cls == "ChatterboxTTS" else "vc"
+    want = _params(getattr(getattr(importlib.import_module(f"chatterbox_tpu.pipeline.{mod}"), cls),
+                           method))
+    got = _params(getattr({"ChatterboxTTS": ChatterboxTTS, "ChatterboxVC": ChatterboxVC}[cls],
+                          method))
+    positional = ("POSITIONAL_ONLY", "POSITIONAL_OR_KEYWORD")
+    want_pos = [n for n, p in want.items() if p.kind.name in positional]
+    got_pos = [n for n, p in got.items() if p.kind.name in positional]
+    missing = [i for i, n in enumerate(want_pos) if n not in got]
+    first_missing = missing[0] if missing else len(want_pos)
+    assert got_pos == want_pos[:first_missing]
+    for n in want_pos[first_missing:]:
+        if n in got:
+            assert got[n].kind.name == "KEYWORD_ONLY", n
+    for n, p in got.items():
+        if n in want and p.default is not p.empty:
+            assert p.default == want[n].default, n
+    if method == "generate" and cls == "ChatterboxTTS":
+        import inspect
+
+        sig = inspect.signature(ChatterboxTTS.generate)
+        assert sig.bind(None, "Hi", 1.3).arguments["repetition_penalty"] == 1.3
+        assert not missing  # every JAX parameter of generate is the port's
