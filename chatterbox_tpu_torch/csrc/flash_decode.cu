@@ -71,13 +71,22 @@
 // decode step for all layers.
 //
 // K2b -- what bounds it: bytes (n tokens read in the working dtype, written
-// as int8 plus one fp32 scale). Design: one warp per (layer, k/v, row, head,
-// token): the absmax over D by shuffle, scale = max(absmax * f32(1/127),
-// 1e-8) (the multiply XLA makes of quantize_kv's division by the constant
-// 127 when it compiles the decode loop), and q = clamp(rint(x / scale), -127,
+// as int8 plus one fp32 scale), with the IEEE divisions close behind. Design:
+// 8 lanes a token, each with one 16-byte vector of its 64 values (8 bf16, or
+// two float4 on the fp32 reference path), loaded non-coherently; the absmax
+// by a 3-step shuffle inside the 8-lane group, scale = max(absmax * f32(1/127),
+// 1e-8) (the multiply XLA makes of quantize_kv's division by the constant 127
+// when it compiles the decode loop), and q = clamp(rint(x / scale), -127,
 // 127), where x / scale is an IEEE division (nvcc's default -prec-div=true;
 // not a multiply by a reciprocal) and rintf rounds ties to even: the result
-// is bit-exact with quantize_kv as the JAX package runs it.
+// is bit-exact with quantize_kv as the JAX package runs it. Each lane stores
+// its 8 int8 values as one 8-byte word. A warp holds 8 consecutive tokens, 4
+// at a time over Q_TPT = 2 rounds, and issues both rounds' loads before any
+// reduction; its 8 scales are gathered into lanes 0-7 and written by one
+// store. The grid covers every token once, so blocks that start as others
+// finish overlap their loads with the others' divisions; a grid of one wave
+// striding over the tokens, 4 rounds a lane, was slower (PERF.md, K2b).
+// The first design, one warp a token, had 128 bytes in flight a warp.
 
 #include "common.cuh"
 
@@ -472,27 +481,86 @@ __global__ void kv_append_kernel(char* __restrict__ cache, const char* __restric
   *dst = *src;
 }
 
-template <typename T>
-__global__ void kv_quantize_kernel(int8_t* __restrict__ cache8, float* __restrict__ scales,
-                                   const T* __restrict__ src, long long rows, int S, int n, int D,
-                                   int pos) {
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows * n) return;  // warp-uniform: blockDim is a multiple of 32
-  const long long r = warp / n;
-  const int t = (int)(warp % n);
-  const T* x = src + (r * n + t) * D;
-  float amax = 0.f;
-  for (int c = lane; c < D; c += 32) amax = fmaxf(amax, fabsf(to_float(x[c])));
-  amax = warp_max(amax);
-  const float sc = fmaxf(amax * (1.f / 127.f), 1e-8f);
-  const long long slot = r * S + pos + t;
-  int8_t* dst = cache8 + slot * D;
-  for (int c = lane; c < D; c += 32) {
-    const float qv = fminf(fmaxf(rintf(to_float(x[c]) / sc), -127.f), 127.f);
-    dst[c] = static_cast<int8_t>(qv);
+constexpr int Q_THREADS = 256;  // K2b's block
+constexpr int Q_LANES = 8;      // lanes a token: 8 values each
+constexpr int Q_TPT = 2;        // rounds: tokens a lane holds at once
+constexpr int Q_WARP_TOKENS = (32 / Q_LANES) * Q_TPT;  // 8 consecutive tokens a warp
+
+// 8 values of a token's row from 16 (bf16) or 32 (fp32) bytes, read
+// through the non-coherent path (src is not written by this kernel)
+__device__ __forceinline__ void load8(const bf16* p, float* x) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[2 * j] = __uint_as_float(w[j] << 16);
+    x[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
   }
-  if (lane == 0) scales[slot] = sc;
+}
+
+__device__ __forceinline__ void load8(const float* p, float* x) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+  x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+__device__ __forceinline__ uint32_t pack4_int8(const float* q) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w |= (uint32_t)(uint8_t)(int8_t)(int)q[j] << (8 * j);
+  return w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(Q_THREADS) kv_quantize_kernel(
+    int8_t* __restrict__ cache8, float* __restrict__ scales, const T* __restrict__ src,
+    long long tokens, int S, int n, int pos) {
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / Q_LANES, sub = lane % Q_LANES;
+  const long long base = ((long long)blockIdx.x * (Q_THREADS / 32) + (threadIdx.x >> 5)) *
+                         Q_WARP_TOKENS;
+  if (base >= tokens) return;  // warp-uniform: the shuffles below see full warps
+  float x[Q_TPT][8];
+#pragma unroll
+  for (int it = 0; it < Q_TPT; ++it) {
+    const long long f = base + it * (32 / Q_LANES) + grp;
+    if (f < tokens) {
+      load8(src + f * HD + 8 * sub, x[it]);
+    } else {  // past the end: zeros, stored nowhere
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[it][j] = 0.f;
+    }
+  }
+  // the cache slot of the warp's token base + k: one division a warp (the
+  // launcher takes fewer than 2^31 tokens), then steps along the rows
+  const unsigned r0 = (unsigned)base / (unsigned)n, t0 = (unsigned)base - r0 * (unsigned)n;
+  auto slot = [&](int k) {
+    unsigned t = t0 + k, r = r0;
+    while (t >= (unsigned)n) t -= n, ++r;
+    return (long long)r * S + pos + t;
+  };
+  float my_scale = 0.f;  // lane l < 8 ends with token base + l's scale
+#pragma unroll
+  for (int it = 0; it < Q_TPT; ++it) {
+    const int k = it * (32 / Q_LANES) + grp;
+    float amax = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(x[it][j]));
+#pragma unroll
+    for (int o = 1; o < Q_LANES; o <<= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+    const float sc = fmaxf(amax * (1.f / 127.f), 1e-8f);
+    float q[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q[j] = fminf(fmaxf(rintf(x[it][j] / sc), -127.f), 127.f);
+    const float s_l = __shfl_sync(FULL, sc, (lane & 3) * Q_LANES);
+    if ((lane >> 2) == it) my_scale = s_l;
+    if (base + k < tokens) {
+      *reinterpret_cast<uint2*>(cache8 + slot(k) * HD + 8 * sub) =
+          make_uint2(pack4_int8(q), pack4_int8(q + 4));
+    }
+  }
+  if (lane < Q_WARP_TOKENS && base + lane < tokens) scales[slot(lane)] = my_scale;
 }
 
 // the chunks a launch's grid holds along x: all of S's, whatever cur_len
@@ -622,25 +690,28 @@ int cbx_kv_append(void* cache, const void* new_kv, long long rows, int S, int ro
 }
 
 // K2b. src (rows, n, D) of `dtype` (0 = float32, 1 = bfloat16), rows =
-// L*2*B*H; cache8 (rows, S, D) int8 and scales (rows, S) fp32. Quantizes
-// src[r, t] into cache8[r, pos + t] and scales[r, pos + t]; pos + n <= S.
+// L*2*B*H, 16-byte aligned; cache8 (rows, S, D) int8, 8-byte aligned, and
+// scales (rows, S) fp32. Quantizes src[r, t] into cache8[r, pos + t] and
+// scales[r, pos + t]; D = 64, pos + n <= S, rows * n < 2^31.
 int cbx_kv_quantize(void* cache8, void* scales, const void* src, int dtype, long long rows, int S,
                     int n, int D, int pos, void* stream) {
-  if (n <= 0 || pos < 0 || pos + n > S) return (int)cudaErrorInvalidValue;
-  const int threads = 256;  // 8 warps, one (row, token) each
-  const long long warps = rows * n;
-  const long long blocks = (warps * 32 + threads - 1) / threads;
+  const long long tokens = rows * n;
+  if (D != HD || n <= 0 || pos < 0 || pos + n > S || rows <= 0 || tokens >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  // one warp a group of Q_WARP_TOKENS tokens, each token once
+  const long long blocks = (tokens + Q_WARP_TOKENS * (Q_THREADS / 32) - 1) /
+                           (Q_WARP_TOKENS * (Q_THREADS / 32));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   int8_t* c8 = reinterpret_cast<int8_t*>(cache8);
   float* sc = reinterpret_cast<float*>(scales);
   if (dtype == 1) {
-    kv_quantize_kernel<bf16><<<(unsigned int)blocks, threads, 0, st>>>(
-        c8, sc, reinterpret_cast<const bf16*>(src), rows, S, n, D, pos);
-  } else if (dtype == 0) {
-    kv_quantize_kernel<float><<<(unsigned int)blocks, threads, 0, st>>>(
-        c8, sc, reinterpret_cast<const float*>(src), rows, S, n, D, pos);
+    kv_quantize_kernel<bf16><<<(unsigned int)blocks, Q_THREADS, 0, st>>>(
+        c8, sc, reinterpret_cast<const bf16*>(src), tokens, S, n, pos);
   } else {
-    return (int)cudaErrorInvalidValue;
+    kv_quantize_kernel<float><<<(unsigned int)blocks, Q_THREADS, 0, st>>>(
+        c8, sc, reinterpret_cast<const float*>(src), tokens, S, n, pos);
   }
   return (int)cudaGetLastError();
 }

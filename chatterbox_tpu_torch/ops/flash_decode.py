@@ -46,7 +46,9 @@ K2 replaces ``flash_cache_merge_ds`` (flash_decode.py:273-353):
   head) quantized by ``quantize_kv`` and written in place into the int8 cache
   and its scales (the JAX package's XLA ``quantize_kv`` followed by the int8
   column merge, llama.py:632-646): the prefill's tokens once, then the full
-  tail every ``TAIL_W`` steps. Bit-exact with ``quantize_kv``.
+  tail every ``TAIL_W`` steps. Bit-exact with ``quantize_kv``. Eight
+  lanes a token, one 16-byte vector each, two tokens a lane in flight
+  (see the source note).
 Both are bound by bytes.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
@@ -75,7 +77,7 @@ _SIG = {
     "cbx_kv_quantize": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 64  # K1's kernels: T3's head dim
+_HEAD_DIM = 64  # K1's and K2b's kernels: T3's head dim
 _CHUNK = 64  # slots a K1 CTA: csrc/flash_decode.cu's CH
 _workspaces = WeakTensorKeyDictionary()  # cache -> (partials, tickets, streams recorded)
 
@@ -358,8 +360,12 @@ def kv_cache_quantize_write(cache8, scales, src, pos: int):
     require(scales.shape == cache8.shape[:5] and scales.dtype == torch.float32
             and scales.is_contiguous() and scales.device == cache8.device,
             "scales must be a contiguous (L, 2, B, H, S) float32 tensor on the cache's device")
-    require(src.dtype in _DTYPE_CODE and src.is_contiguous() and src.device == cache8.device,
-            "src must be a contiguous float32/bfloat16 tensor on the cache's device")
+    require(src.dtype in _DTYPE_CODE and src.is_contiguous() and src.device == cache8.device
+            and src.data_ptr() % 16 == 0,
+            "src must be a contiguous, 16-byte aligned float32/bfloat16 tensor on the cache's "
+            "device")
+    require(d == _HEAD_DIM and cache8.data_ptr() % 16 == 0,
+            f"head dim {d}: the kernel takes {_HEAD_DIM}, in whole, aligned int8 rows")
     require(n > 0, "src holds no token")
     status = _lib().cbx_kv_quantize(
         cache8.data_ptr(), scales.data_ptr(), src.data_ptr(), _DTYPE_CODE[src.dtype],

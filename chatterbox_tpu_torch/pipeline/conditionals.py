@@ -24,6 +24,30 @@ class Conditionals(NamedTuple):
         emo = torch.full_like(self.t3.emotion_adv, exaggeration)
         return self._replace(t3=self.t3._replace(emotion_adv=emo))
 
+    def rows(self, i: int, j: int) -> "Conditionals":
+        """Rows [i, j) of batched (B, ...) conditionals; single-voice
+        (1, ...) conds pass through unchanged (they broadcast per batch)."""
+        if self.t3.speaker_emb.shape[0] == 1:
+            return self
+        return Conditionals(T3CondData(*(x[i:j] for x in self.t3)),
+                            RefDict(*(x[i:j] for x in self.gen)))
+
+    @classmethod
+    def stack(cls, conds: list) -> "Conditionals":
+        """Row-stack single-voice conditionals into one batched Conditionals
+        (leading dim ``len(conds)``), so that one generate_batch call serves
+        mixed voices: the pipeline broadcasts (1, ...) conds and takes
+        (B, ...) conds row by row. All entries must share their shapes past
+        the first axis (the same conditioning-length caps); otherwise
+        ValueError."""
+        if len(conds) == 1:
+            return conds[0]
+        shapes = {tuple(tuple(x.shape[1:]) for x in (*c.t3, *c.gen)) for c in conds}
+        if len(shapes) != 1:
+            raise ValueError(f"mixed conditional shapes cannot stack: {shapes}")
+        return cls(T3CondData(*(torch.cat(xs) for xs in zip(*(c.t3 for c in conds)))),
+                   RefDict(*(torch.cat(xs) for xs in zip(*(c.gen for c in conds)))))
+
     def to(self, device) -> "Conditionals":
         return Conditionals(
             T3CondData(*(x.to(device) for x in self.t3)), RefDict(*(x.to(device) for x in self.gen))

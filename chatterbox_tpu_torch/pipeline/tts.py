@@ -24,11 +24,19 @@ T3 tokens do not change with it). ``runtime/precision.apply_tts_precision``
 puts T3 in its runtime layout (fused q/k/v, int8 weights with
 ``CHATTERBOX_W_QUANT=1``); ``_unfuse_qkv`` restores the canonical one.
 
-Not in this slice: streaming, batch splitting under a memory budget
-(``_budget_batch_cap``), and serving.
+A batch above the card's one-shot cap (``_budget_batch_cap``: the T3 KV
+cache bytes against a budget sized from the card's memory) is split evenly
+into chunks under the pipelined cap (the same on the card) and run through
+``generate_batches_pipelined``, chunk c seeded ``seed + c``, as the JAX
+package does. ``device_chain=True`` compacts the tokens on the device and
+dispatches S3Gen without reading them back; ``defer_collect=True`` returns
+the device handle for ``collect``.
+
+Not in this slice: streaming and serving.
 """
 
 import os
+import sys
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -82,6 +90,26 @@ def _bucket(n: int, buckets) -> int:
     return next((b for b in buckets if n <= b), buckets[-1])
 
 
+# Device memory of one generate_batch call a text, over what the process
+# held before the call (torch.cuda.max_memory_allocated after
+# reset_peak_memory_stats, less memory_allocated before), at the 64-token
+# text bucket: 250 tokens on the bf16 KV cache, and the default 1000 on the
+# int8 cache. Measured by chip_smoke.py's paths A and B (8 texts; "peak over
+# the ... bytes held before the call"; path I's 81 texts gave 852 422 074
+# bytes a text at 1000 tokens) on an NVIDIA H100 80GB HBM3 at 700.00 W, in
+# the run PERF.md section 4 names.
+_ROW_PEAK_BYTES = {250: 213_619_712, 1000: 852_644_928}
+# the caching allocator's room at a call's peak for each byte the call
+# allocates: a fifth more for the segments its allocations fragment. Left
+# unbounded, the allocator reserved 1.16 (81 texts) and 1.33 (68 texts)
+# bytes for each byte path I allocated, taking what the card had free; path
+# I runs the cap with the allocator held to _USABLE_SHARE (same card)
+_RESERVED_PER_ALLOCATED = 1.2
+# the share of the card's memory the allocator may reserve: the rest is the
+# CUDA context's and the libraries' outside the allocator
+_USABLE_SHARE = 0.85
+
+
 def _default_dtype(device: torch.device) -> torch.dtype:
     """T3 and the flow run bf16 on the card and fp32 on the CPU."""
     return torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -115,6 +143,66 @@ def cfm_noise(device) -> torch.Tensor:
     return torch.from_numpy(
         np.random.default_rng(0).standard_normal((1, 15000, 80)).astype(np.float32)
     ).to(device)
+
+
+def _compact_tokens(tokens, lengths):
+    """Device-side drop of invalid tokens (reference tts.py:256-262): the
+    tokens below ``lengths`` and below SPEECH_VOCAB_SIZE, stable-partitioned
+    to the front of each row, zeros after; returns (tokens, new lengths
+    int32), as the JAX package's ``_compact_tokens``."""
+    t = tokens.shape[1]
+    pos = torch.arange(t, device=tokens.device)[None]
+    valid = (pos < lengths[:, None]) & (tokens < SPEECH_VOCAB_SIZE)
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+    compacted = torch.take_along_dim(tokens, order, dim=1)
+    new_lens = valid.sum(dim=1).to(torch.int32)
+    return torch.where(pos < new_lens[:, None], compacted, 0), new_lens
+
+
+def _cache_row_bytes(llama_cfg, max_new_tokens: int, text_bucket: int, itemsize: int) -> int:
+    """T3's KV-cache bytes for one text (its two CFG rows) at a token budget:
+    (L, 2, 2 rows, H, S, D) with S = cond + text bucket + BOS + budget,
+    padded to 128 slots (the JAX package's ``_budget_batch_cap``)."""
+    s = 34 + text_bucket + 2 + max_new_tokens
+    s = -(-s // 128) * 128
+    return (llama_cfg.num_hidden_layers * 2 * 2 * llama_cfg.num_key_value_heads
+            * llama_cfg.head_dim * s * itemsize)
+
+
+def card_batch_limits(device, llama_cfg, resident_bytes: int):
+    """(max_device_batch, max_pipelined_batch, one-shot cache budget,
+    pipelined cache budget) on ``device``: the card's own, from its
+    ``total_memory`` and ``_ROW_PEAK_BYTES``. Of the usable memory
+    (``_USABLE_SHARE`` of the card, less ``resident_bytes``, what the
+    process holds already), the one-shot budget is the KV-cache bytes of
+    the rows whose reservation (their peak times
+    ``_RESERVED_PER_ALLOCATED``) fills it at 1000 tokens on the int8
+    cache, where the cache
+    is the smallest share of a row's peak: a budget of cache bytes admits
+    fewer rows wherever a row carries more cache for its activations (a
+    bf16 cache, a longer text bucket). The hard cap is the rows that fill
+    it at 250 tokens, bounding the short budgets where the cache bytes say
+    little. The pipelined path gets the same: its chunks run in order on
+    one stream, so the allocator hands chunk c's memory to chunk c + 1 and
+    a split call peaks as one chunk does (chip_smoke.py's path H). Off the
+    card there is no bound (the CPU runs tests at tiny sizes; they set
+    these attributes)."""
+    if device.type != "cuda":
+        return sys.maxsize, sys.maxsize, float("inf"), float("inf")
+    usable = torch.cuda.get_device_properties(device).total_memory * _USABLE_SHARE
+    usable = (usable - resident_bytes) / _RESERVED_PER_ALLOCATED
+    budget = usable / _ROW_PEAK_BYTES[1000] * _cache_row_bytes(llama_cfg, 1000, 64, 1)
+    hard = max(1, int(usable // _ROW_PEAK_BYTES[250]))
+    return hard, hard, budget, budget
+
+
+def collect(handle) -> List[np.ndarray]:
+    """A deferred generate_batch result (int16 wav (B, T), lengths (B,)) on
+    the device -> one float32 waveform a row on the host (TTS and VC)."""
+    wav, wav_lens = handle
+    marked = wav.cpu().numpy().astype(np.float32) / 32767.0
+    wav_lens = wav_lens.cpu().numpy()
+    return [marked[i, : int(wav_lens[i])] for i in range(marked.shape[0])]
 
 
 def _tile(x, b):
@@ -172,6 +260,15 @@ class ChatterboxTTS:
         self.last_speech_tokens = []
         self.watermarker = SpreadSpectrumWatermarker()
         self._cfm_noise = cfm_noise(self.device)
+        # the largest batch one dispatch takes, and the largest chunk of the
+        # pipelined path, with the KV-cache byte budgets of
+        # _budget_batch_cap: the card's own (card_batch_limits), less what
+        # the process holds on the card once the weights are there
+        resident = (torch.cuda.memory_allocated(self.device) if self.device.type == "cuda"
+                    else 0)
+        (self.max_device_batch, self.max_pipelined_batch, self.cache_budget_bytes,
+         self.pipelined_cache_budget_bytes) = card_batch_limits(self.device, t3_cfg.llama,
+                                                                resident)
 
     # --------------------------------------------------------- weight layout
     @staticmethod
@@ -324,15 +421,32 @@ class ChatterboxTTS:
         max_new_tokens: int = 1000,
         min_new_tokens: int = 0,
         greedy: bool = False,
-        *,
+        device_chain: bool = False,
+        defer_collect: bool = False,
         flow_steps: Optional[int] = None,
         alignment: bool = False,
     ) -> List[np.ndarray]:
         """One T3 decode and one S3Gen pass over the batch -> one float32
-        waveform per text (int16 PCM scaled back to [-1, 1]). The parameters
-        up to ``greedy`` are the JAX package's, in its order; the JAX
-        package's next two (``device_chain``, ``defer_collect``) are not
-        ported, so those after them are keyword-only.
+        waveform per text (int16 PCM scaled back to [-1, 1]); the JAX
+        package's parameters in its order.
+
+        A batch above the one-shot cap (``_budget_batch_cap``) is split
+        evenly under the pipelined cap and run through
+        ``generate_batches_pipelined`` (chunk c seeded ``seed + c``).
+
+        ``device_chain=True`` compacts the tokens on the device and
+        dispatches S3Gen without reading them back; the flow then runs at
+        the full ``max_new_tokens`` width. ``defer_collect=True`` (only for
+        a batch under the cap, else ValueError) returns the device handle
+        (int16 wav (B, T), wav lengths (B,)) for ``collect``.
+
+        ``last_timings`` holds host seconds: ``t3_s`` to T3's return (its
+        decode loop ends in a read of the lengths, so T3's device work is
+        done by then); ``s3gen_s`` from there to the wav's readback, or
+        under ``defer_collect`` to S3Gen's dispatch only. ``last_speech_tokens``
+        holds the compacted tokens, one array a text; under ``device_chain``
+        they are not read back and it is None.
+
         ``alignment=True`` runs the hallucination watchdog in the decode loop
         (``models/t3/alignment.py``) on a working-dtype KV cache.
         ``flow_steps`` sets the CFM Euler step count of this call only (the
@@ -350,6 +464,20 @@ class ChatterboxTTS:
         tok_rows = [self._cap_text_row(self._encode_text(t)) for t in texts]
         lens = np.array([len(r) for r in tok_rows], np.int32)
         tmax = _bucket(int(lens.max()), TEXT_BUCKETS)
+        if b > self._budget_batch_cap(max_new_tokens, False, tmax, alignment):
+            if defer_collect:
+                raise ValueError(f"defer_collect takes a batch under the one-shot cap; {b} texts "
+                                 f"exceed it at {max_new_tokens} tokens")
+            # an even split under the cap (16 at a cap of 11: 8 + 8, not 11 + 5)
+            cap = self._budget_batch_cap(max_new_tokens, True, tmax, alignment)
+            step = -(-b // -(-b // cap))
+            rows = self.generate_batches_pipelined(
+                [texts[i:i + step] for i in range(0, b, step)], conds=conds,
+                repetition_penalty=repetition_penalty, min_p=min_p, top_p=top_p,
+                exaggeration=exaggeration, cfg_weight=cfg_weight, temperature=temperature,
+                seed=seed, max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
+                greedy=greedy, flow_steps=flow_steps, alignment=alignment)
+            return [w for chunk in rows for w in chunk]
         text_tokens = np.zeros((b, tmax), np.int32)
         for i, r in enumerate(tok_rows):
             text_tokens[i, : len(r)] = r
@@ -367,35 +495,82 @@ class ChatterboxTTS:
             generator=torch.Generator(device=self.device).manual_seed(seed),
             alignment=alignment, cache_quant=cache_quant,
         )
-
-        # host: drop invalid tokens per row (reference tts.py:256-262)
-        tokens, tok_lens = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
         t_t3 = time.perf_counter()
-        clean_rows = []
-        for i in range(b):
-            row = tokens[i, : tok_lens[i]]
-            clean_rows.append(row[row < SPEECH_VOCAB_SIZE])
-        clean_lens = np.array([len(r) for r in clean_rows], np.int32)
-        tbucket = _bucket(max(int(clean_lens.max()), 2), TOKEN_BUCKETS)
-        speech = np.zeros((b, tbucket), np.int32)
-        for i, r in enumerate(clean_rows):
-            speech[i, : len(r)] = r
 
-        wav, wav_lens = synthesize(
+        if device_chain:
+            speech, clean_lens = _compact_tokens(res.tokens, res.lengths)
+            clean_rows = None
+        else:
+            # host: drop invalid tokens per row (reference tts.py:256-262)
+            tokens, tok_lens = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
+            clean_rows = []
+            for i in range(b):
+                row = tokens[i, : tok_lens[i]]
+                clean_rows.append(row[row < SPEECH_VOCAB_SIZE])
+            n_clean = np.array([len(r) for r in clean_rows], np.int32)
+            speech = np.zeros((b, _bucket(max(int(n_clean.max()), 2), TOKEN_BUCKETS)), np.int32)
+            for i, r in enumerate(clean_rows):
+                speech[i, : len(r)] = r
+            speech = torch.from_numpy(speech).to(self.device)
+            clean_lens = torch.from_numpy(n_clean).to(self.device)
+
+        handle = synthesize(
             self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps), self._cfm_noise,
-            self.watermarker,
-            torch.from_numpy(speech).to(self.device), torch.from_numpy(clean_lens).to(self.device),
-            conds.gen, seed,
+            self.watermarker, speech, clean_lens, conds.gen, seed,
         )
-        marked = wav.cpu().numpy().astype(np.float32) / 32767.0
-        wav_lens = wav_lens.cpu().numpy()
         kv_cache = "int8" if cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
-        self.last_timings = {"t3_s": t_t3 - t_start, "s3gen_s": time.perf_counter() - t_t3,
-                             "t3_steps": res.steps, "token_bucket": tbucket,
-                             "kv_cache": kv_cache, "alignment": alignment,
-                             "flow_steps": n_steps}
         self.last_speech_tokens = clean_rows
-        return [marked[i, : int(wav_lens[i])] for i in range(b)]
+        self.last_timings = {"t3_s": t_t3 - t_start, "t3_steps": res.steps,
+                             "token_bucket": speech.shape[1], "kv_cache": kv_cache,
+                             "alignment": alignment, "flow_steps": n_steps,
+                             "device_chain": device_chain}
+        if defer_collect:
+            self.last_timings["s3gen_s"] = time.perf_counter() - t_t3
+            return handle
+        wavs = self.collect(handle)
+        self.last_timings["s3gen_s"] = time.perf_counter() - t_t3
+        return wavs
+
+    collect = staticmethod(collect)
+
+    def generate_batches_pipelined(self, batches: List[List[str]], **kw) -> List[List[np.ndarray]]:
+        """Several batches, each chunk's readback overlapping the next
+        chunk's dispatch: every chunk runs ``device_chain=True,
+        defer_collect=True`` and chunk c - 1 is collected after chunk c is
+        dispatched. Each batch is split evenly under the pipelined cap,
+        sized for the longest text bucket of any chunk; chunk c is seeded
+        ``seed + c``. Per-row (B, ...) conds are sliced with
+        ``Conditionals.rows`` and must have a row for each text, else
+        ValueError. The other keywords are ``generate_batch``'s."""
+        base_seed = kw.pop("seed", 0)
+        conds = kw.pop("conds", None)
+        if conds is not None and conds.t3.speaker_emb.shape[0] > 1:
+            total = sum(len(t) for t in batches)
+            if conds.t3.speaker_emb.shape[0] != total:
+                raise ValueError(f"per-row conds have {conds.t3.speaker_emb.shape[0]} rows for "
+                                 f"{total} texts")
+        row_lens = [len(self._cap_text_row(self._encode_text(t))) for texts in batches
+                    for t in texts]
+        tb = _bucket(max(row_lens, default=2), TEXT_BUCKETS)
+        cap = self._budget_batch_cap(kw.get("max_new_tokens", 1000), True, tb,
+                                     kw.get("alignment", False))
+        chunks = []  # (batch index, texts, first conds row)
+        off = 0
+        for i, texts in enumerate(batches):
+            step = -(-len(texts) // -(-len(texts) // cap)) if texts else cap
+            chunks.extend((i, texts[j:j + step], off + j) for j in range(0, len(texts), step))
+            off += len(texts)
+        handles, out = [], [[] for _ in batches]
+        for c, (i, texts, o) in enumerate(chunks):
+            ck = conds.rows(o, o + len(texts)) if conds is not None else None
+            handles.append((i, self.generate_batch(texts, ck, seed=base_seed + c,
+                                                   device_chain=True, defer_collect=True, **kw)))
+            if len(handles) > 1:
+                i0, h = handles.pop(0)
+                out[i0].extend(self.collect(h))
+        for i0, h in handles:
+            out[i0].extend(self.collect(h))
+        return out
 
     def _effective_flow_steps(self, flow_steps: Optional[int]) -> int:
         """The call's CFM step count: ``flow_steps``, else the pipeline's
@@ -405,6 +580,25 @@ class ChatterboxTTS:
         if flow_steps < 1:
             raise ValueError(f"flow_steps must be >= 1, got {flow_steps}")
         return int(flow_steps)
+
+    def _budget_batch_cap(self, max_new_tokens: int, pipelined: bool, text_bucket: int = 64,
+                          alignment: bool = False) -> int:
+        """The largest batch one dispatch takes at this token budget and
+        text bucket: the JAX package's formula (tts.py:598-627), T3's
+        KV-cache bytes per text against a byte budget, capped by
+        ``max_device_batch`` (and ``max_pipelined_batch`` when
+        ``pipelined``), with the budgets the card's (``card_batch_limits``).
+        The cache is counted as the one the call uses: one byte a value on
+        the int8 cache, two on the bf16 one, which alignment forces (the
+        JAX package counts one byte there too)."""
+        itemsize = 1 if self._kv_quant_for(max_new_tokens) and not alignment else 2
+        per_row = _cache_row_bytes(self.t3_cfg.llama, max_new_tokens, text_bucket, itemsize)
+        if pipelined:
+            budget = self.pipelined_cache_budget_bytes
+            hard = min(self.max_device_batch, self.max_pipelined_batch)
+        else:
+            budget, hard = self.cache_budget_bytes, self.max_device_batch
+        return max(1, int(min(hard, budget // max(per_row, 1))))
 
     def _kv_quant_for(self, max_new_tokens: int) -> bool:
         """Whether T3 keeps its KV cache int8 at this token budget: the

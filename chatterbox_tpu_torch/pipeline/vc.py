@@ -12,11 +12,17 @@ The CFM Euler step count is the config's, or ``CHATTERBOX_FLOW_STEPS`` at
 construction, or ``flow_steps`` per call (VC is flow-bound, so fewer steps
 are the large speed lever).
 
-Not in this slice: ``defer_collect``/``collect``,
-``generate_batches_pipelined`` and ``with_mesh``.
+``generate_batch(defer_collect=True)`` returns the device handle for
+``collect``; ``generate_batches_pipelined`` converts several batches, one
+thread packing batch c + 1 on the host while batch c computes, and batch
+c - 1 collected after batch c is dispatched. The sources' copies to the
+card (~1.5 MB a batch of 8) run on the caller's stream.
+
+Not in this slice: ``with_mesh``.
 """
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional
 
@@ -31,7 +37,8 @@ from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_fr
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.watermark import SpreadSpectrumWatermarker
 from .audio import load_wav
-from .tts import TOKEN_BUCKETS, _bucket, cfm_noise, native_s3gen, random_s3gen, synthesize
+from .tts import (TOKEN_BUCKETS, _bucket, cfm_noise, collect, native_s3gen, random_s3gen,
+                  synthesize)
 
 _SAMPLES_PER_TOKEN = S3_SR // 25  # 640 at 16 kHz
 
@@ -52,6 +59,7 @@ class ChatterboxVC:
         self.watermarker = SpreadSpectrumWatermarker()
         self._cfm_noise = cfm_noise(self.device)
         # host seconds of the last generate_batch, ending in the int16 copy
+        # (under defer_collect, in S3Gen's dispatch)
         self.last_timings = {}
 
     @classmethod
@@ -121,32 +129,71 @@ class ChatterboxVC:
             batch[i, : len(s)] = np.clip(np.round(s * 32768.0), -32768, 32767).astype(np.int16)
         return batch, n_toks, wav_bucket
 
+    def _upload_sources(self, packed):
+        """Packed sources -> (int16 batch, tokens per row, bucket * 640) on
+        the device, copied on the caller's stream."""
+        batch, n_toks, wav_bucket = packed
+        return (torch.from_numpy(batch).to(self.device), torch.from_numpy(n_toks).to(self.device),
+                wav_bucket)
+
     @torch.inference_mode()
-    def generate_batch(self, audios: List, target_voice_path=None, seed: int = 0, *,
+    def generate_batch(self, audios: List = None, target_voice_path=None, seed: int = 0,
+                       defer_collect: bool = False, _uploaded=None,
                        flow_steps: Optional[int] = None) -> List[np.ndarray]:
         """Sources -> one float32 waveform each (int16 PCM scaled back to
-        [-1, 1]), 2 * 480 samples a source token. ``flow_steps`` sets the
-        CFM Euler step count of this call only; it is keyword-only, as the
-        JAX package's next parameter (``defer_collect``) is not ported."""
+        [-1, 1]), 2 * 480 samples a source token; the JAX package's
+        parameters in its order. ``defer_collect=True`` returns the device
+        handle (int16 wav (B, T), wav lengths (B,)) for ``collect``.
+        ``_uploaded``: sources already on the device from
+        ``_upload_sources`` (the pipelined path). ``flow_steps`` sets the CFM
+        Euler step count of this call only."""
         n_steps = self._effective_flow_steps(flow_steps)
         if target_voice_path is not None:
             self.set_target_voice(target_voice_path)
         if self.ref_dict is None:
             raise ValueError("no target voice: call set_target_voice or pass target_voice_path")
         t_start = time.perf_counter()
-        batch, n_toks, wav_bucket = self._pack_sources(audios)
-        lens = torch.from_numpy(n_toks).to(self.device)
-        wav16 = torch.from_numpy(batch).to(self.device).float() / 32768.0
+        if _uploaded is None:
+            _uploaded = self._upload_sources(self._pack_sources(audios))
+        batch, lens, wav_bucket = _uploaded
+        wav16 = batch.float() / 32768.0
         with full_fp32():
             # pad keys masked: a row's tokens must not depend on its batch-mates
             tokens, _ = s3_tokenize(self.s3gen_params["tokenizer"], self.s3gen_cfg.tokenizer,
                                     wav16, wav_lens=lens * _SAMPLES_PER_TOKEN)
-        wav, wav_lens = synthesize(self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps),
-                                   self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict,
-                                   seed)
-        marked = wav.cpu().numpy().astype(np.float32) / 32767.0
-        wav_lens = wav_lens.cpu().numpy()
+        handle = synthesize(self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps),
+                            self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict, seed)
+        if not defer_collect:
+            handle = self.collect(handle)
         self.last_timings = {"vc_s": time.perf_counter() - t_start,
                              "token_bucket": wav_bucket // _SAMPLES_PER_TOKEN,
                              "flow_steps": n_steps}
-        return [marked[i, : int(wav_lens[i])] for i in range(len(audios))]
+        return handle
+
+    collect = staticmethod(collect)
+
+    def generate_batches_pipelined(self, batches: List[List], target_voice_path=None,
+                                   seed: int = 0,
+                                   flow_steps: Optional[int] = None) -> List[List[np.ndarray]]:
+        """Convert several batches (batch c seeded ``seed + c``), as
+        per-batch ``generate_batch`` calls would, with one thread packing
+        batch c + 1 (reading and padding its sources on the host) while
+        batch c computes, and batch c - 1 collected after batch c is
+        dispatched. The copies to the device run here, on the caller's
+        stream: a batch's ~1.5 MB is not worth a stream of its own."""
+        if target_voice_path is not None:
+            self.set_target_voice(target_voice_path)
+        handles, out = [], []
+        with ThreadPoolExecutor(1, thread_name_prefix="vc-pack") as ex:
+            fut = ex.submit(self._pack_sources, batches[0])
+            for c in range(len(batches)):
+                packed = fut.result()
+                if c + 1 < len(batches):
+                    fut = ex.submit(self._pack_sources, batches[c + 1])
+                handles.append(self.generate_batch(seed=seed + c, defer_collect=True,
+                                                   _uploaded=self._upload_sources(packed),
+                                                   flow_steps=flow_steps))
+                if len(handles) > 1:
+                    out.append(self.collect(handles.pop(0)))
+        out.extend(self.collect(h) for h in handles)
+        return out

@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the last line):
   2. build: compiles every kernel of ``chatterbox_tpu_torch/csrc`` with nvcc;
   3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3, K4 and K5 at the full-width
      shapes of the TTS and VC paths (K1a at path A's cache length, S = 384,
-     and at the default budget's, S = 1152, where K1b, K1c+d and K2b run;
+     and at the default budget's, S = 1152, where K1b, K1c+d and K2b run,
+     K2b also at the prefill's 100 tokens;
      K1a, K1b and K1c+d each called twice on the same inputs, which must
      agree bit for bit; K3 and K5 at T = 1024, 1536 and 2560, paths A, E
      and B, where the two must agree bit for bit on the same q, k, v; K4 at
@@ -45,13 +46,23 @@ Phases (any failure exits non-zero before the last line):
           cache (K1b at the alignment layer, K1a at the others);
        D. path A's call on conditionals from ``prepare_conditionals`` of a
           seeded 10 s synthetic reference WAV (timed first and warm);
+       H. 16 texts at ``max_new_tokens=250`` with ``max_device_batch = 8``:
+          the batch splits into two chunks of 8 through
+          ``generate_batches_pipelined``; each chunk's speech tokens and
+          wavs must equal a direct ``generate_batch(chunk, seed=c,
+          device_chain=True)``'s; the warm split call is timed against the
+          two direct calls, with the peak memory of each;
+       I. one call at the card's one-shot cap for the default 1000 tokens
+          on the int8 cache: it must run without running out of memory
+          (prints the batch, the peak and ``total_memory``);
        F. path A's call after ``apply_tts_precision(tts, weight_quant=True)``:
           int8 T3 weights with fused q/k/v (``bench.py``'s tts_b8_wquant);
        G. path F with ``flow_steps=4`` (tts_b8_turbo): T3's tokens and the
           wav lengths must equal F's, and the flow launches K3 exactly
           4 x 56 times;
-     K1 must launch once a layer a decode step (A: 30 x 249, B: 30 x 999;
-     C: 29 x 249 K1a and 249 K1b);
+     K1 must launch once a layer a decode step (A: 30 x 249, B and I:
+     30 x 999; C: 29 x 249 K1a and 249 K1b; H: 2 x 30 x 249), K2b once at
+     the prefill and once every 8 steps (I: 126);
      after each first call a second, warm call is timed (audio seconds per
      second, per stage) and a third profiled (device time by kernel, the
      busy share), except on path D, whose device work is path A's; no TTS
@@ -62,8 +73,11 @@ Phases (any failure exits non-zero before the last line):
      the fused attention layout (K3 and K4, no K5), then with the UNet's
      ``to_qkv`` split into ``to_q``/``to_k``/``to_v`` (K5 in every
      transformer block at every Euler step, K4, no K3), each a first and a
-     warm call, the unfused one profiled; then the two layouts' flow mels
-     on one batch against each other;
+     warm call, the unfused one profiled; then, fused,
+     ``generate_batches_pipelined`` over two batches of 4 sources, which
+     must equal per-batch ``generate_batch`` calls bit for bit (both timed
+     warm); then the two layouts' flow mels on one batch against each
+     other;
   8. prints the kernel table as one JSON line (K1a-K5 and one row for each
      probe, its variants under it), the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
@@ -73,6 +87,7 @@ fp32 vocoder matches its reference arithmetic; the kernels are compared in
 their working dtype (bf16).
 """
 
+import contextlib
 import itertools
 import json
 import math
@@ -123,6 +138,17 @@ FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
 SELF_ATTN_T = ((1024, 1000), (1536, 1500), (2560, 2500))
 TURBO_STEPS = 4  # path G's per-call flow_steps
 
+# path H's second chunk
+TEXTS_H = [
+    "Peter Piper picked a peck of pickled peppers.",
+    "All that glitters is not gold.",
+    "Fortune favours the bold, or so they claim.",
+    "The early bird catches the worm.",
+    "Many hands make light work, most days.",
+    "Actions speak louder than words.",
+    "Two wrongs do not make a right.",
+    "A watched pot never boils, they say.",
+]
 TEXTS = [
     "The quick brown fox jumps over the lazy dog.",
     "She sells sea shells by the sea shore.",
@@ -457,7 +483,30 @@ def kernel_phase():
         library_ms=None, library_note="no single PyTorch call quantizes per token",
         bound=bound(n_tok * (HEAD_DIM * 2 + HEAD_DIM + 4), 4 * n_tok * HEAD_DIM),
     )
-    del cache8, scales, tails, tail
+    # ... and the prefill's launch: the s0 = 100 prefix tokens of every
+    # (layer, k/v, row, head) at slot 0, bit-exact too; the ~98 MB of bf16
+    # input does not stay in the 50 MB L2 between launches
+    prefix = randn(T3_LAYERS, 2, ROWS, T3_HEADS, s0, HEAD_DIM)
+    a = (cache8.clone(), scales.clone())
+    b = (cache8.clone(), scales.clone())
+    fd.kv_cache_quantize_write(*a, prefix, 0)
+    fd.kv_cache_quantize_write_plain(*b, prefix, 0)
+    check_kernel(f"kv_cache_quantize_write (prefill, n = {s0})", a[0], b[0], exact=True)
+    check_kernel(f"kv_cache_quantize_write (prefill, n = {s0}, scales)", a[1], b[1], exact=True)
+    del a, b
+    n_pre = prefix.numel() // HEAD_DIM
+    pre_bound = bound(n_pre * (HEAD_DIM * 2 + HEAD_DIM + 4), 4 * n_pre * HEAD_DIM)
+    pre_ms = timed(lambda: fd.kv_cache_quantize_write(cache8, scales, prefix, 0), 20)
+    pre_plain_ms = timed(lambda: fd.kv_cache_quantize_write_plain(cache8, scales, prefix, 0), 5)
+    rows["kv_cache_quantize_write"]["extra"] = {
+        "n": TAIL_W, "ms_prefill": pre_ms, "plain_ms_prefill": pre_plain_ms,
+        "bound_ms_prefill": pre_bound[0], "n_prefill": s0}
+    k2b = rows["kv_cache_quantize_write"]
+    print(f"kernel kv_cache_quantize_write: n = {TAIL_W}: {k2b['ms']:.5f} ms, "
+          f"{k2b['bound'][0] / k2b['ms']:.1%} of its {k2b['bound'][0]:.5f} ms bound; prefill "
+          f"n = {s0}: {pre_ms:.5f} ms, {pre_bound[0] / pre_ms:.1%} of its {pre_bound[0]:.5f} ms "
+          f"bound (plain {pre_plain_ms:.5f} ms)", flush=True)
+    del cache8, scales, tails, tail, prefix
 
     # ---- K3 and K5: the UNet's self-attention, 16 CFG rows x 8 heads of 64,
     # from the packed to_qkv output (K3) and on (B, H, T, D) q, k, v (K5, the
@@ -1191,18 +1240,24 @@ def run_path(tts, conds, card, name, profile, exact=None):
 
     # a second, warm call on the same inputs: the throughput of the port
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.time()
     wavs = call()
     torch.cuda.synchronize()
     wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(
         f"path {name}: {N_TEXTS} texts, {json.dumps(kw)}: warm wall {wall:.3f} s, audio "
         f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, t3_s "
         f"{tts.last_timings['t3_s']:.3f}, s3gen_s {tts.last_timings['s3gen_s']:.3f}, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
+        f"{peak / 2**30:.2f} GiB on {card}",
         flush=True,
     )
+    # the call's own memory a text: what the batch caps are sized from
+    # (pipeline/tts.py _ROW_PEAK_BYTES, paths A and B)
+    print(f"path {name}: peak over the {held} bytes held before the call: {peak - held} bytes, "
+          f"{(peak - held) // N_TEXTS} a text", flush=True)
     print(f"path {name}: warm stages " + json.dumps(tts.last_timings), flush=True)
     if profile:
         profile_call(call, wall)
@@ -1240,6 +1295,328 @@ def prepared_conditionals(tts, ref_path, card):
     return conds
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to deterministic algorithms inside the block. Its
+    transposed convolutions (HiFT's upsampling, the iSTFT's overlap-add) may
+    otherwise sum in another order from call to call, so two calls on the
+    same tokens need not give bit-identical wavs (without it, a run found
+    path H's tokens equal and its wavs not)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+class TokenSpy:
+    """Records the compacted tokens each ``device_chain`` call hands S3Gen
+    (``pipeline/tts._compact_tokens``'s outputs, read back after the call)."""
+
+    def __init__(self):
+        from chatterbox_tpu_torch.pipeline import tts as tts_mod
+
+        self.mod, self.real, self.calls = tts_mod, tts_mod._compact_tokens, []
+
+    def __enter__(self):
+        def spy(tokens, lengths):
+            out = self.real(tokens, lengths)
+            self.calls.append(out)
+            return out
+
+        self.mod._compact_tokens = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._compact_tokens = self.real
+
+    def rows(self):
+        """Each call's tokens: one array of valid tokens a row."""
+        return [[r[:n] for r, n in zip(speech.cpu().numpy(), lens.cpu().numpy())]
+                for speech, lens in self.calls]
+
+
+def split_path(tts, conds, card):
+    """Path H: 2 * N_TEXTS texts at MAX_NEW tokens through ``generate_batch``
+    with ``max_device_batch = N_TEXTS``: the batch splits into two chunks of
+    N_TEXTS through ``generate_batches_pipelined`` (chunk c seeded c). A
+    first call with the launch counters set to 0 just before it and read
+    just after; a warm call timed, with its peak memory; then the two chunks
+    as direct ``generate_batch(chunk, seed=c, device_chain=True)`` calls,
+    timed together, whose tokens and wavs each chunk of the split call must
+    equal, with cuDNN's algorithms deterministic for the whole path. Returns
+    the first call's counts."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch.ops import flash_decode as fd
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    texts = TEXTS + TEXTS_H
+    spaces = len(fd._workspaces)
+    kw = {"max_new_tokens": MAX_NEW}
+    saved = tts.max_device_batch
+    tts.max_device_batch = N_TEXTS
+    try:
+        with deterministic_cudnn():
+            reset_launch_counts()
+            with TokenSpy() as spy:
+                t0 = time.time()
+                wavs = tts.generate_batch(texts, conds=conds, seed=0, **kw)
+                torch.cuda.synchronize()
+                first = time.time() - t0
+            counts = launch_counts()
+            split_tokens = spy.rows()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.time()
+            tts.generate_batch(texts, conds=conds, seed=0, **kw)
+            torch.cuda.synchronize()
+            warm = time.time() - t0
+            peak_split = torch.cuda.max_memory_allocated() - held
+
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            with TokenSpy() as spy:
+                t0 = time.time()
+                direct = [tts.generate_batch(texts[c * N_TEXTS:(c + 1) * N_TEXTS], conds=conds,
+                                             seed=c, device_chain=True, **kw) for c in range(2)]
+                torch.cuda.synchronize()
+                sequential = time.time() - t0
+            peak_direct = torch.cuda.max_memory_allocated() - held
+            direct_tokens = spy.rows()
+    finally:
+        tts.max_device_batch = saved
+    check_wavs("H", wavs, 2 * N_TEXTS)
+    # K1's workspaces belong to the caches: none may outlive its chunk
+    print(f"path H: K1 workspaces alive before the split calls: {spaces}, after: "
+          f"{len(fd._workspaces)}", flush=True)
+    if len(fd._workspaces) != spaces:
+        fail("path H: a KV cache's K1 workspace outlived its chunk")
+    check_launches("H", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
+                   {_K1A: 2 * T3_LAYERS * (MAX_NEW - 1)})
+    if len(split_tokens) != 2:
+        fail(f"path H: {len(split_tokens)} chunks, not 2")
+    for c in range(2):
+        same = all(len(a) == len(b) and (a == b).all()
+                   for a, b in zip(split_tokens[c], direct_tokens[c]))
+        wav_same = all(np.array_equal(a, b) for a, b in
+                       zip(wavs[c * N_TEXTS:(c + 1) * N_TEXTS], direct[c]))
+        print(f"path H: chunk {c}: speech tokens equal to the direct call's: {same}; wavs "
+              f"bit-identical: {wav_same}", flush=True)
+        if not (same and wav_same):
+            fail(f"path H: chunk {c} of the split call differs from the direct call")
+    audio_s = sum(len(w) for w in wavs) / tts.sr
+    print(f"path H: {2 * N_TEXTS} texts, {json.dumps(kw)}, max_device_batch {N_TEXTS}: first call "
+          f"{first:.3f} s; warm split call {warm:.3f} s against {sequential:.3f} s for the two "
+          f"chunks as sequential calls (overlap {sequential - warm:.3f} s); audio {audio_s:.3f} s, "
+          f"audio_sec_per_s_per_chip {audio_s / warm:.4f}; peak over the memory held before: "
+          f"split {peak_split / 2**30:.2f} GiB, sequential {peak_direct / 2**30:.2f} GiB on {card}",
+          flush=True)
+    print("path H: kernel launches " + json.dumps(counts), flush=True)
+    return counts
+
+
+def cap_path(tts, conds, card):
+    """Path I: one ``generate_batch`` at the card's one-shot cap for the
+    default budget (MAX_NEW_DEFAULT tokens, the int8 cache), TEXTS repeated
+    to that batch, with the launch counters set to 0 just before it and read
+    just after, with the caching allocator held to the share of the card
+    the caps are sized for (``_USABLE_SHARE``, through
+    ``set_per_process_memory_fraction``: left unbounded it reserves what
+    the card has free). It must run without running out of memory within
+    that share; prints the batch, the peaks and the card's total memory. Then the kernels of the
+    path at its batch (``cap_kernel_checks``). Returns the counts and those
+    checks."""
+    import torch
+
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.pipeline.tts import _USABLE_SHARE, TEXT_BUCKETS, _bucket
+
+    tb = _bucket(max(len(tts._encode_text(t)) for t in TEXTS), TEXT_BUCKETS)
+    b = tts._budget_batch_cap(MAX_NEW_DEFAULT, False, tb)
+    texts = [TEXTS[i % N_TEXTS] for i in range(b)]
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    held_reserved = torch.cuda.memory_reserved()
+    reset_launch_counts()
+    torch.cuda.set_per_process_memory_fraction(_USABLE_SHARE)
+    try:
+        t0 = time.time()
+        wavs = tts.generate_batch(texts, conds=conds, seed=0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    check_wavs("I", wavs, b)
+    if tts.last_timings["kv_cache"] != "int8":
+        fail(f"path I: T3 ran a {tts.last_timings['kv_cache']} KV cache, not int8")
+    steps = MAX_NEW_DEFAULT - 1
+    check_launches("I", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
+                   {_K1C: T3_LAYERS * steps, _K2B: 1 + MAX_NEW_DEFAULT // TAIL_W})
+    audio_s = sum(len(w) for w in wavs) / tts.sr
+    print(f"path I: the one-shot cap at {MAX_NEW_DEFAULT} tokens (text bucket {tb}): batch {b} "
+          f"(max_device_batch {tts.max_device_batch}); wall {wall:.3f} s for {audio_s:.3f} s of "
+          f"audio, audio_sec_per_s_per_chip {audio_s / wall:.4f} (t3_s "
+          f"{tts.last_timings['t3_s']:.3f}, s3gen_s {tts.last_timings['s3gen_s']:.3f}); peak "
+          f"allocated {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before, "
+          f"{(peak - held) // b} bytes a text), peak reserved {peak_reserved / 2**30:.2f} GiB "
+          f"({held_reserved / 2**30:.2f} GiB before, {(peak_reserved - held_reserved) // b} "
+          f"bytes a text; {(peak_reserved - held_reserved) / (peak - held):.4f} reserved for "
+          f"each byte allocated) of total_memory {total / 2**30:.2f} GiB on {card}", flush=True)
+    print("path I: kernel launches " + json.dumps(counts), flush=True)
+    if peak_reserved > total * _USABLE_SHARE:
+        fail(f"path I: the allocator reserved {peak_reserved} bytes at the peak, over the "
+             f"{_USABLE_SHARE} of total_memory ({total * _USABLE_SHARE:.0f} bytes) the caps are "
+             f"sized for")
+    del wavs
+    torch.cuda.empty_cache()
+    return counts, cap_kernel_checks(b)
+
+
+def cap_kernel_checks(b):
+    """The kernels of path I at its batch of ``b`` texts (2b CFG rows), each
+    against its plain version within the kernel phase's limits: K2b at the
+    prefill's n and at n = 8 into the whole 30-layer int8 cache (~11.6 GB
+    at 82 texts, byte offsets past 2^32), K2 into the tail, K1c+d at the
+    first and the last layer, K3 at 2b rows and K4 at b rows at path B's
+    T = 2560, with a key length of its own a row. The plain versions of K3
+    and K4 run on groups of rows, each row's output depending only on its
+    own inputs. Returns {kernel: (max |err|, tol, share, rows)}."""
+    import torch
+
+    from chatterbox_tpu_torch.ops import flash_attention as fa
+    from chatterbox_tpu_torch.ops import flash_decode as fd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    rows_t3 = 2 * b
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def exact_slots(name, got, want, pos, n):
+        """The written slots [pos, pos + n) compared, then the whole tensors
+        (nothing else written)."""
+        err, tol, share = check_kernel(name, got[:, :, :, :, pos:pos + n],
+                                       want[:, :, :, :, pos:pos + n], exact=True)
+        if not torch.equal(got, want):
+            fail(f"{name}: the kernel wrote outside slots [{pos}, {pos + n})")
+        return err, tol, share
+
+    def worst(*checks):
+        return (max(c[0] for c in checks), checks[0][1], max(c[2] for c in checks), rows_t3)
+
+    # ---- K2b: the prefill's n = s0 at slot 0, then n = 8 at a merge slot
+    s0 = N_COND + TEXT_BUCKET + N_BOS
+    s_1000 = -(-(s0 + MAX_NEW_DEFAULT) // 128) * 128
+    shape = (T3_LAYERS, 2, rows_t3, T3_HEADS, s_1000)
+    cache8 = torch.randint(-127, 128, shape + (HEAD_DIM,), generator=g, device=dev,
+                           dtype=torch.int8)
+    scales = torch.rand(shape, generator=g, device=dev) * 0.02 + 1e-3
+    print(f"cap shapes: {b} texts, {rows_t3} CFG rows: int8 cache {cache8.numel()} bytes",
+          flush=True)
+    b8, bsc = cache8.clone(), scales.clone()
+    checks = []
+    merge = s0 + MAX_NEW_DEFAULT - 2 * TAIL_W - s0 % TAIL_W  # a merge slot late in the decode
+    for pos, n in ((0, s0), (merge, TAIL_W)):
+        src = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, n, HEAD_DIM)
+        fd.kv_cache_quantize_write(cache8, scales, src, pos)
+        fd.kv_cache_quantize_write_plain(b8, bsc, src, pos)
+        name = f"kv_cache_quantize_write ({rows_t3} rows, n = {n})"
+        checks.append(exact_slots(name, cache8, b8, pos, n))
+        checks.append(exact_slots(name + " scales", scales[..., None], bsc[..., None], pos, n))
+        del src
+    out[_K2B] = worst(*checks)
+    del b8, bsc
+    torch.cuda.empty_cache()
+
+    # ---- K2: the per-step append into the bf16 tail (L, 2, B, H, 8, D)
+    tail = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, TAIL_W, HEAD_DIM)
+    new_kv = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, HEAD_DIM)
+    t_plain = tail.clone()
+    fd.kv_cache_append(tail, new_kv, 5)
+    fd.kv_cache_append_plain(t_plain, new_kv, 5)
+    out[_K2] = worst(exact_slots(f"kv_cache_append ({rows_t3} rows)", tail, t_plain, 5, 1))
+    del t_plain, new_kv
+
+    # ---- K1c+d: late in the decode (a tail of 6), first and last layer
+    text_lens = torch.randint(20, TEXT_BUCKET, (b,), generator=g, device=dev)
+    row_prefix = (N_COND + text_lens).repeat(2).to(torch.int32).contiguous()
+    gap_end = N_COND + TEXT_BUCKET
+    cur = merge + TAIL_W + 6
+    q, kn, vn = (randn(rows_t3, T3_HEADS, HEAD_DIM) for _ in range(3))
+    checks = []
+    for layer in (0, T3_LAYERS - 1):
+        args = (cache8, scales, tail, merge + TAIL_W, layer, cur, row_prefix, gap_end, q, kn, vn)
+        checks.append(check_kernel(
+            f"flash_decode_layer_attention_int8 ({rows_t3} rows, layer {layer}, cur_len {cur})",
+            fd.flash_decode_layer_attention_int8(*args),
+            fd.flash_decode_layer_attention_int8_plain(*args)))
+    out[_K1C] = worst(*checks)
+    del cache8, scales, tail, q, kn, vn
+    torch.cuda.empty_cache()
+
+    # ---- K3 (2b rows) and K4 (b rows) at T = 2560, a key length a row
+    t_pad, t_valid = SELF_ATTN_T[-1]
+    hd = FLOW_HEADS * HEAD_DIM
+
+    def key_bias(n_rows):
+        lens = t_valid - 64 * (torch.arange(n_rows, device=dev) % 7)
+        return torch.where(torch.arange(t_pad, device=dev)[None] < lens[:, None], 0.0,
+                           -1.0e10).float().contiguous()
+
+    qkv = randn(rows_t3, t_pad, 3 * hd)
+    bias = key_bias(rows_t3)
+    got = fa.flash_self_attention_packed(qkv, bias, FLOW_HEADS)
+    torch.cuda.synchronize()
+    checks = []
+    for r in range(0, rows_t3, ROWS):
+        x = qkv[r:r + ROWS]
+        x_abs_v = torch.cat([x[..., :2 * hd], x[..., 2 * hd:].abs()], dim=-1)
+        checks.append(check_kernel(
+            f"flash_self_attention_packed ({rows_t3} rows, T = {t_pad}; rows {r}-"
+            f"{min(r + ROWS, rows_t3) - 1})", got[r:r + ROWS],
+            fa.flash_self_attention_packed_plain(x, bias[r:r + ROWS], FLOW_HEADS),
+            fa.flash_self_attention_packed_plain(x_abs_v, bias[r:r + ROWS], FLOW_HEADS)))
+        del x_abs_v
+    out[_K3] = worst(*checks)
+    del qkv, got
+    torch.cuda.empty_cache()
+
+    cd = CONF_C
+    scale = 1.0 / math.sqrt(cd // CONF_HEADS)
+    q_u, k, v = (randn(b, t_pad, cd, scale=0.5) for _ in range(3))
+    q_hat = randn(b, t_pad, CONF_HEADS * cd, scale=0.5)
+    s_hat = randn(1, t_pad, cd, scale=0.7)
+    bias = key_bias(b)
+    got = fa.flash_relpos_attention(q_u, q_hat, k, s_hat, v, bias, CONF_HEADS, scale)
+    torch.cuda.synchronize()
+    checks = []
+    for r in range(0, b, N_TEXTS):
+        sl = slice(r, r + N_TEXTS)
+        checks.append(check_kernel(
+            f"flash_relpos_attention ({b} rows, T = {t_pad}; rows {r}-{min(r + N_TEXTS, b) - 1})",
+            got[sl], fa.flash_relpos_attention_plain(q_u[sl], q_hat[sl], k[sl], s_hat, v[sl],
+                                                     bias[sl], CONF_HEADS, scale),
+            fa.flash_relpos_attention_plain(q_u[sl], q_hat[sl], k[sl], s_hat, v[sl].abs(),
+                                            bias[sl], CONF_HEADS, scale)))
+    out[_K4] = worst(*checks)[:3] + (b,)
+    del q_u, k, v, q_hat, s_hat, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_path(card, ref_path):
     import torch
 
@@ -1257,6 +1634,13 @@ def main_path(card, ref_path):
     for name in PATHS:
         t0 = time.time()
         if name == WQUANT_PATHS[0]:
+            # paths H and I on the bf16 weights, before F converts them
+            counts["H"] = split_path(tts, conds, card)
+            print(f"path H: {time.time() - t0:.1f} s", flush=True)
+            t0 = time.time()
+            counts["I"], cap_checks = cap_path(tts, conds, card)
+            print(f"path I: {time.time() - t0:.1f} s", flush=True)
+            t0 = time.time()
             apply_tts_precision(tts, weight_quant=True)
             layers = tts.t3_params["llama"]["layers"]
             if not ("w8" in layers["qkv"] and layers["qkv"]["w8"].dtype == torch.int8
@@ -1284,7 +1668,7 @@ def main_path(card, ref_path):
           f"{lens[f] == lens[g]}", flush=True)
     if not (same and lens[f] == lens[g]):
         fail(f"path {g}: flow_steps={TURBO_STEPS} changed T3's tokens or the wav lengths")
-    return counts
+    return counts, cap_checks
 
 
 def vc_path(card, ref_path, src_paths, src_lens):
@@ -1347,6 +1731,8 @@ def vc_path(card, ref_path, src_paths, src_lens):
         if layout == "unfused":
             profile_call(lambda: vc.generate_batch(src_paths), wall)
 
+    counts["pipelined"] = vc_pipelined(fused, src_paths, card)
+
     # the flow alone, both layouts on one batch: the VC call's own tokens
     batch, n_toks, _ = ChatterboxVC._pack_sources(src_paths)
     dev = fused.device
@@ -1368,6 +1754,47 @@ def vc_path(card, ref_path, src_paths, src_lens):
           f"(T = {mels[0].shape[1]}) rel_l2_err={rel:.3e} tol=5.0e-02", flush=True)
     if not (np.isfinite(rel) and rel <= 5e-2):
         fail(f"path E: the two layouts' flow mels part by {rel} (relative L2), over 5e-2")
+    return counts
+
+
+def vc_pipelined(vc, src_paths, card):
+    """VC's ``generate_batches_pipelined`` over two batches of half the
+    sources (batch c seeded c; the next batch packed on a thread of its
+    own while one computes), with the launch counters set to
+    0 just before the first call and read just after; its wavs must equal
+    per-batch ``generate_batch`` calls bit for bit, with cuDNN's algorithms
+    deterministic. Then both timed warm. Returns the first call's counts."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    half = N_SOURCES // 2
+    batches = [src_paths[:half], src_paths[half:]]
+    with deterministic_cudnn():
+        reset_launch_counts()
+        piped = vc.generate_batches_pipelined(batches)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        t0 = time.time()
+        direct = [vc.generate_batch(srcs, seed=c) for c, srcs in enumerate(batches)]
+        torch.cuda.synchronize()
+        sequential = time.time() - t0
+        t0 = time.time()
+        vc.generate_batches_pipelined(batches)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+    check_launches("E (pipelined)", counts, (_K3, _K4), (_K5,) + _T3)
+    for c in range(2):
+        check_wavs("E (pipelined)", piped[c], half)
+        if not all(np.array_equal(a, b) for a, b in zip(piped[c], direct[c])):
+            fail(f"path E: generate_batches_pipelined's batch {c} differs from generate_batch's")
+    audio_s = sum(len(w) for ws in piped for w in ws) / vc.sr
+    print(f"path E (pipelined): 2 batches of {half} sources equal to per-batch calls bit for "
+          f"bit; warm wall {warm:.3f} s against {sequential:.3f} s for the per-batch calls, "
+          f"audio {audio_s:.3f} s, audio_sec_per_s_per_chip {audio_s / warm:.4f} on {card}",
+          flush=True)
+    print("path E (pipelined): kernel launches " + json.dumps(counts), flush=True)
     return counts
 
 
@@ -1423,22 +1850,29 @@ def main():
         reference_phase()
         conditioning_reference(ref_path)
         t3 = time.time()
-        counts = main_path(card, ref_path)
+        counts, cap_checks = main_path(card, ref_path)
         t4 = time.time()
         vc_counts = vc_path(card, ref_path, src_paths, src_lens)
         t5 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
           f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s",
           flush=True)
-    counts["E"] = {k: vc_counts["fused"][k] + vc_counts["unfused"][k] for k in vc_counts["fused"]}
+    counts["E"] = {k: sum(c[k] for c in vc_counts.values()) for k in vc_counts["fused"]}
     counts["probes"] = probe_counts
+    # path I's kernels at its batch: their errors count in the row's
+    for key, (err, tol, share, n_rows) in cap_checks.items():
+        r = rows[key]
+        r["err"], r["share"] = max(r["err"], err), max(r["share"], share)
+        r.setdefault("extra", {}).update({"cap_rows": n_rows, "max_abs_err_cap_rows": err,
+                                          "err_share_of_tol_cap_rows": share})
     # each P2/P3 variant's launches in the probe phase
     variant_launches = {k: v["launches"] for k, v in probes["P2/P3"]["variants"].items()}
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
     # under the two sets of names that readers of this line expect;
-    # "launches" sums the first calls of paths A-G (E: both layouts) and the
-    # probe phase; a probe's row counts its probe's launches in that phase
+    # "launches" sums the first calls of paths A-I (E: both layouts and the
+    # pipelined call) and the probe phase; a probe's row counts its probe's
+    # launches in that phase
     table = []
     for key, r in rows.items():
         src, replaces = KERNEL_INFO[key]

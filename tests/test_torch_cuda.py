@@ -287,14 +287,35 @@ def test_flash_decode_on_two_streams_at_once(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,pos", [(8, 296), (101, 0)])
-def test_kv_cache_quantize_write_matches_plain(cuda, dtype, n, pos):
+@pytest.mark.parametrize("rows,n,pos", [((4, 2, 16, 16), 8, 296), ((4, 2, 16, 16), 101, 0),
+                                        ((3, 2, 5, 3), 1, 301), ((3, 2, 5, 3), 8, 13),
+                                        ((3, 2, 5, 3), 100, 5)])
+def test_kv_cache_quantize_write_matches_plain(cuda, dtype, rows, n, pos):
     """K2b, bit for bit: the 8-token merge and a prefill of 101 tokens,
-    with an all-zero (padding) token."""
-    src = _randn(cuda, 4, 2, 16, 16, n, 64, seed=28, scale=3.0, dtype=dtype)
+    with an all-zero (padding) token; and n = 1, 8 and 100 over 90 rows (a
+    token count that is no multiple of a warp's 16) at slots that start off
+    a multiple of 8."""
+    src = _randn(cuda, *rows, n, 64, seed=28, scale=3.0, dtype=dtype)
     src[:, :, :, :, n // 2] = 0
-    cache8 = torch.zeros((4, 2, 16, 16, 512, 64), dtype=torch.int8, device=cuda)
-    scales = torch.ones((4, 2, 16, 16, 512), device=cuda)
+    cache8 = torch.zeros(rows + (512, 64), dtype=torch.int8, device=cuda)
+    scales = torch.ones(rows + (512,), device=cuda)
+    a = (cache8.clone(), scales.clone())
+    fd.kv_cache_quantize_write(*a, src, pos)
+    b = fd.kv_cache_quantize_write_plain(cache8, scales, src, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,pos", [(8, 600), (100, 0)])
+def test_kv_cache_quantize_write_full_width(cuda, dtype, n, pos):
+    """K2b, bit for bit, at the main path's width (30 layers, 16 CFG rows,
+    16 heads, S = 1152): a decode merge of the full 8-token tail, and the
+    prefill of a 100-token prefix."""
+    src = _randn(cuda, 30, 2, 16, 16, n, 64, seed=29, scale=2.0, dtype=dtype)
+    cache8 = torch.zeros((30, 2, 16, 16, 1152, 64), dtype=torch.int8, device=cuda)
+    scales = torch.ones((30, 2, 16, 16, 1152), device=cuda)
     a = (cache8.clone(), scales.clone())
     fd.kv_cache_quantize_write(*a, src, pos)
     b = fd.kv_cache_quantize_write_plain(cache8, scales, src, pos)
@@ -488,6 +509,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
             fd.flash_decode_layer_attention(cache, 0, 10, rp, 10, *qkv)
         with pytest.raises(ValueError):
             fd.flash_decode_layer_attention_int8(cache8, scales, tail, 8, 0, 10, rp, 10, *qkv)
+    # K2b reads src in 16-byte vectors: src at an offset of one element is
+    # refused, and so is a head dim other than 64
+    src = _randn(cuda, 1 * 2 * 2 * 2 * 8 * 64 + 1, seed=16)[1:].view(1, 2, 2, 2, 8, 64)
+    assert src.is_contiguous() and src.data_ptr() % 16 != 0
+    with pytest.raises(ValueError):
+        fd.kv_cache_quantize_write(cache8, scales, src, 16)
+    cache8_32 = torch.zeros((1, 2, 2, 2, 128, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        fd.kv_cache_quantize_write(cache8_32, scales, _randn(cuda, 1, 2, 2, 2, 8, 32, seed=17), 16)
 
 
 @pytest.mark.cuda

@@ -286,12 +286,10 @@ def _params(fn):
                                         ("ChatterboxVC", "generate"),
                                         ("ChatterboxVC", "generate_batch")])
 def test_public_methods_take_positional_arguments_in_jax_order(cls, method):
-    """The pipelines' public methods take their positional parameters in the
-    JAX package's order, up to the first JAX parameter the port lacks
-    (TTS ``generate_batch``: ``device_chain``; VC: ``defer_collect``); the
-    JAX parameters after it that the port has are keyword-only in the port,
-    and every default the port gives is the JAX one (VC's ``audios`` has
-    none: JAX's None stands for its unported ``_uploaded``). So
+    """The pipelines' public methods take the JAX package's whole parameter
+    list in its order, every default the JAX one; ``generate_batch`` (TTS
+    and VC) takes exactly that list, with no keyword-only remainder, and
+    TTS ``generate`` adds only a keyword-only ``conds``. So
     ``generate("Hi", 1.3)`` is a repetition penalty on both sides."""
     import importlib
 
@@ -305,18 +303,15 @@ def test_public_methods_take_positional_arguments_in_jax_order(cls, method):
     positional = ("POSITIONAL_ONLY", "POSITIONAL_OR_KEYWORD")
     want_pos = [n for n, p in want.items() if p.kind.name in positional]
     got_pos = [n for n, p in got.items() if p.kind.name in positional]
-    missing = [i for i, n in enumerate(want_pos) if n not in got]
-    first_missing = missing[0] if missing else len(want_pos)
-    assert got_pos == want_pos[:first_missing]
-    for n in want_pos[first_missing:]:
-        if n in got:
-            assert got[n].kind.name == "KEYWORD_ONLY", n
-    for n, p in got.items():
-        if n in want and p.default is not p.empty:
-            assert p.default == want[n].default, n
+    assert got_pos == want_pos
+    for n, p in want.items():
+        assert got[n].default == p.default, n
+    extra = [n for n in got if n not in want]
+    assert extra == (["conds"] if (cls, method) == ("ChatterboxTTS", "generate") else [])
+    for n in extra:
+        assert got[n].kind.name == "KEYWORD_ONLY", n
     if method == "generate" and cls == "ChatterboxTTS":
         import inspect
 
         sig = inspect.signature(ChatterboxTTS.generate)
         assert sig.bind(None, "Hi", 1.3).arguments["repetition_penalty"] == 1.3
-        assert not missing  # every JAX parameter of generate is the port's
