@@ -1,4 +1,5 @@
-"""HiFT-GAN vocoder: NSF sine source + conv trunk + iSTFT head, in fp32.
+"""HiFT-GAN vocoder: NSF sine source + conv trunk + iSTFT head, in fp32
+(the trunk optionally bf16).
 
 Port of ``chatterbox_tpu/models/s3gen/hifigan.py`` (reference hifigan.py
 HiFTGenerator with upsample 8*5*3 and iSTFT n_fft 16 / hop 4, and
@@ -6,6 +7,8 @@ f0_predictor.py ConvRNNF0Predictor). The random inputs (sine phases, source
 noise) are injectable; by default they come from a ``torch.Generator``.
 ``n_valid`` masks each conv's pad-region output so right-padded rows vocode
 as their exact-length runs would (see the JAX package's hift_decode).
+``f0_cum_init`` carries the sines' phase from one vocoded chunk to the
+next, for streaming.
 """
 
 from dataclasses import dataclass
@@ -73,14 +76,20 @@ def f0_predict(p, mel, n_valid=None):
     return torch.abs(linear(p["classifier"], x)[..., 0])
 
 
-def sine_source(cfg: HiFTConfig, f0_up, phase_noise, additive_noise):
+def sine_source(cfg: HiFTConfig, f0_up, phase_noise, additive_noise, f0_cum_init=None):
     """SineGen: f0_up (B, L) at the output rate; phase_noise (B, H+1) initial
     phases (index 0 forced to 0); additive_noise (B, H+1, L) standard normal.
-    Returns the per-harmonic sine+noise source (B, L, H+1)."""
+    ``f0_cum_init`` (B,) is the f0 integral before this segment, in cycles
+    (sum f0 / sr): harmonic k then continues at phase 2 pi k f0_cum_init, so
+    that a waveform vocoded in chunks keeps its sines continuous (streaming;
+    hifigan.py:166-200). Returns the per-harmonic sine+noise source
+    (B, L, H+1)."""
     h = cfg.nb_harmonics + 1
     dev = f0_up.device
-    mult = (torch.arange(1, h + 1, dtype=torch.float32, device=dev) / cfg.sampling_rate)[None, :, None]
-    cum = torch.cumsum(f0_up[:, None, :] * mult, dim=-1)
+    k = torch.arange(1, h + 1, dtype=torch.float32, device=dev)[None, :, None]
+    cum = torch.cumsum(f0_up[:, None, :] * (k / cfg.sampling_rate), dim=-1)
+    if f0_cum_init is not None:
+        cum = cum + torch.remainder(f0_cum_init.float(), 1.0)[:, None, None] * k
     theta = 2.0 * np.pi * torch.remainder(cum, 1.0)
     phase = phase_noise.clone()
     phase[:, 0] = 0.0
@@ -103,8 +112,13 @@ def _resblock(p, x, kernel, dilations, mask=None):
     return x
 
 
-def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None):
-    """(B, T, 80) mel + (B, T*480) merged source -> (B, T*480) waveform."""
+def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None, compute_dtype=None):
+    """(B, T, 80) mel + (B, T*480) merged source -> (B, T*480) waveform.
+
+    ``compute_dtype=torch.bfloat16`` runs the conv trunk (conv_pre, the
+    upsamples, the source convs and every resblock) in bf16 and keeps the
+    phase-sensitive stages fp32: the source STFT before it, and conv_post,
+    exp/sin and the iSTFT after it (hifigan.py:231-300)."""
     win = dsp.hann_window(cfg.istft_n_fft)
     s_re, s_im = dsp.stft(source, cfg.istft_n_fft, cfg.istft_hop_len, win)
     s_stft = torch.cat([s_re, s_im], dim=-1)  # (B, T*120+1, 18)
@@ -124,13 +138,24 @@ def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None):
                 _len_mask(n_valid * int(m) + extra, t_mel * int(m) + extra, mel.dtype))
         mel = mel * masks["mel"]
         s_stft = s_stft * masks["stft"]
+    # the trunk's masks in its dtype (a fp32 mask would promote a bf16 trunk)
+    stage_masks = None
+    if compute_dtype is not None:
+        from ...runtime.precision import cast_floating
+
+        p = {**p, **{k: cast_floating(p[k], compute_dtype)
+                     for k in ("conv_pre", "ups", "source_downs", "source_resblocks",
+                               "resblocks")}}
+        mel, s_stft = mel.to(compute_dtype), s_stft.to(compute_dtype)
+    if masks is not None:
+        stage_masks = [m.to(mel.dtype) for m in masks["stages"]]
 
     x = conv1d(p["conv_pre"], mel, padding=3)
     if masks is not None:
-        x = x * masks["mel"]
+        x = x * masks["mel"].to(x.dtype)
     num_kernels = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
-        sm = None if masks is None else masks["stages"][i]
+        sm = None if masks is None else stage_masks[i]
         x = conv_transpose1d(p["ups"][i], leaky_relu(x, cfg.lrelu_slope), stride=u,
                              padding=(k - u) // 2)
         if i == len(cfg.upsample_rates) - 1:
@@ -166,11 +191,16 @@ def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None):
 
 
 def hift_generate(p, cfg: HiFTConfig, mel, phase_noise=None, additive_noise=None,
-                  generator=None, n_valid=None):
-    """(B, T, 80) fp32 mel -> ((B, T*480) wav, (B, T*480) source).
+                  generator=None, n_valid=None, f0_cum_init=None, return_f0=False,
+                  compute_dtype=None):
+    """(B, T, 80) fp32 mel -> ((B, T*480) wav, (B, T*480) source), and the
+    (B, T) f0 in Hz as a third value with ``return_f0``.
 
     ``phase_noise`` (B, H+1) and ``additive_noise`` (B, H+1, T*480) are
-    drawn from ``generator`` when not given."""
+    drawn from ``generator`` when not given. ``f0_cum_init`` (B,) continues
+    the sines of an earlier segment (``sine_source``); ``compute_dtype``
+    runs the conv trunk in that dtype (``hift_decode``): the f0 predictor
+    and the sine source stay fp32."""
     b, t, _ = mel.shape
     f0 = f0_predict(p["f0_predictor"], mel, n_valid=n_valid)
     ups = cfg.upsample_total
@@ -180,8 +210,9 @@ def hift_generate(p, cfg: HiFTConfig, mel, phase_noise=None, additive_noise=None
         u = torch.rand((b, h), generator=generator, device=mel.device)
         phase_noise = u * (2.0 * np.pi) - np.pi
         additive_noise = torch.randn((b, h, t * ups), generator=generator, device=mel.device)
-    src_h = sine_source(cfg, f0_up, phase_noise, additive_noise)
+    src_h = sine_source(cfg, f0_up, phase_noise, additive_noise, f0_cum_init)
     source = torch.tanh(linear(p["m_source_linear"], src_h))[..., 0]
     if n_valid is not None:
         source = source * _len_mask(n_valid * ups, source.shape[1], source.dtype)[..., 0]
-    return hift_decode(p, cfg, mel, source, n_valid=n_valid), source
+    wav = hift_decode(p, cfg, mel, source, n_valid=n_valid, compute_dtype=compute_dtype)
+    return (wav, source, f0) if return_f0 else (wav, source)

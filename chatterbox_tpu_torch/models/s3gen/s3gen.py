@@ -86,11 +86,12 @@ def trim_fade(n: int, device) -> torch.Tensor:
 
 
 def s3gen_wav(p, cfg: S3GenConfig, speech_tokens, token_lens, ref: RefDict, noise_mel,
-              phase_noise=None, additive_noise=None, generator=None):
+              phase_noise=None, additive_noise=None, generator=None, hift_dtype=None):
     """Tokens -> (wav (B, T_wav), wav_lens (B,), source).
 
     noise_mel (B, >= 2*(P+T), 80) is the CFM noise; the vocoder noise is
-    ``phase_noise``/``additive_noise`` or drawn from ``generator``."""
+    ``phase_noise``/``additive_noise`` or drawn from ``generator``;
+    ``hift_dtype`` is the vocoder trunk's (``hift_decode``'s compute_dtype)."""
     mel, _ = flow_inference(
         p["flow"], cfg.flow, speech_tokens, token_lens, ref.prompt_token,
         ref.prompt_token_len, ref.prompt_feat, ref.embedding, noise_mel,
@@ -98,7 +99,7 @@ def s3gen_wav(p, cfg: S3GenConfig, speech_tokens, token_lens, ref: RefDict, nois
     gen_mel = mel[:, ref.prompt_feat.shape[1]:]
     wav, source = hift_generate(
         p["hift"], cfg.hift, gen_mel, phase_noise=phase_noise, additive_noise=additive_noise,
-        generator=generator, n_valid=(2 * token_lens).to(torch.int32),
+        generator=generator, n_valid=(2 * token_lens).to(torch.int32), compute_dtype=hift_dtype,
     )
     n = cfg.trim_n
     wav = torch.cat([wav[:, : 2 * n] * trim_fade(n, wav.device)[None], wav[:, 2 * n:]], dim=1)

@@ -2,18 +2,21 @@
 guidance and a fixed-size KV-cache decode loop.
 
 Port of ``chatterbox_tpu/models/t3/t3.py`` (conditioning prefix, prefill
-assembly, ``t3_generate``). The JAX package's ``lax.while_loop`` becomes a
+assembly, the resumable decode carry, ``t3_generate``). The JAX package's ``lax.while_loop`` becomes a
 Python loop over decode steps; the per-row done-masks, EOS padding, CFG rows
 and the double BOS are kept, so the tokens are the same for the same random
 draws. The loop's early exit (every row done) is checked on the host every
 few steps: tokens after a row's EOS are forced to EOS, so the extra steps do
-not change the result. ``cache_quant`` takes the int8 KV cache and
+not change the result. The loop exists once, in ``t3_generate_resume``:
+``t3_generate_start`` runs the prefill into a ``GenCarry``, which later
+calls advance in chunks (streaming, preemptible batches), and
+``t3_generate`` is the two over the whole budget. ``cache_quant`` takes the int8 KV cache and
 ``alignment`` the hallucination watchdog (``alignment.py``), as in the JAX
 package.
 """
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -120,39 +123,51 @@ def _lengths(tokens, stop_token: int):
     return torch.where(is_eos.any(dim=1), first, tokens.shape[1]).to(torch.int32)
 
 
-def t3_generate(
-    p,
-    cfg: T3Config,
-    text_tokens,
-    text_lens,
-    speaker_emb,
-    prompt_tokens,
-    emotion_adv,
-    sampling: SamplingConfig = SamplingConfig(),
-    max_new_tokens: int = 1000,
-    uniforms: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
-    alignment: bool = False,
-    cache_quant: bool = False,
-) -> GenResult:
-    """Batched CFG speech-token generation.
+@dataclass
+class GenCarry:
+    """The decode loop's state between steps: the resumable handle of
+    chunked and streaming generation (``t3_generate_resume``), as the JAX
+    package's ``GenCarry`` (t3.py:208-222). Everything lives on the device
+    except the step index and the shapes. K1's workspace belongs to the
+    cache tensor (``ops/flash_decode._workspaces``) and lives as long as the
+    carry holds it."""
 
-    text_tokens (B, T) carry the SOT/EOT framing, right-padded; text_lens
-    (B,). The random draw of step i is ``uniforms[i]`` ((max_new, B) in
-    [0, 1)) when given, else ``torch.rand`` from ``generator``; greedy
-    decoding draws nothing. ``cache_quant`` keeps the KV cache int8 with an
-    exact tail (see ``llama.py``); ``alignment`` runs the watchdog on layer
-    ``cfg.alignment_layer``'s text attention of the previous step, after the
-    ``min_new_tokens`` floor and before the logits processors, and forces
-    ``cache_quant`` off (t3.py:244-279, 365-367). Returns EOS-padded tokens,
-    their lengths and the step count of the JAX loop (it stops once every
-    row is done)."""
+    cache: Any  # (L, 2, 2B, H, S, D) working dtype, or a QuantCache with its tail
+    tokens: torch.Tensor  # (B, max_new) int32, EOS-padded
+    seen: torch.Tensor  # (B, vocab) bool
+    done: torch.Tensor  # (B,) bool
+    logits: torch.Tensor  # (2B, vocab): the last step's (the prefill's at i = 0)
+    row_prefix: torch.Tensor  # (2B,) int32: [cond; text] slots a row
+    base_pos: torch.Tensor  # (2B,) int64: compacted rope position of step 0
+    i: int  # decode steps taken; the next token's index
+    s0: int  # prefill length: step i writes cache slot s0 + i
+    gap_end: int  # first slot after the text bucket
+    generator: Optional[torch.Generator] = None  # the draws, when no uniforms
+    uniforms: Optional[torch.Tensor] = None  # (max_new, B) in [0, 1): step i's draw
+    align: Any = None  # the watchdog's AlignState, when alignment is on
+    attn: Optional[torch.Tensor] = None  # (B, T_text) the last step's text attention
+
+
+def _carry_result(cy: GenCarry, stop: int) -> GenResult:
+    """Tokens and lengths so far, with the JAX loop's step count: every
+    step up to the first where all rows are done (that loop stops there; the
+    port's checks it every ``DONE_CHECK_EVERY`` steps)."""
+    lengths = _lengths(cy.tokens, stop)
+    steps = cy.i
+    if bool(cy.done.all()):
+        steps = min(steps, int(lengths.max()) + 1)
+    return GenResult(cy.tokens, lengths, steps)
+
+
+def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
+           sampling: SamplingConfig, max_new_tokens: int, uniforms, generator, alignment: bool,
+           cache_quant: bool) -> GenCarry:
+    """The prefill and the carry at step 0 (``t3_generate_start`` and
+    ``t3_generate``; only the latter may ask for the watchdog)."""
     b, tmax = text_tokens.shape
     dev = text_tokens.device
-    cache_quant = cache_quant and not alignment
     cfg_on = sampling.cfg_weight > 0
     n_bos = 2 if cfg_on else 1
-    stop = cfg.stop_speech_token
     pdt = p["speech_emb"]["w"].dtype
     text_lens = text_lens.to(dev)
 
@@ -174,59 +189,141 @@ def t3_generate(
     base_pos = (cfg.n_cond + text_lens + n_bos).long()  # compacted rope position
     if cfg_on:
         row_prefix, base_pos = row_prefix.repeat(2), base_pos.repeat(2)
-    row_prefix = row_prefix.contiguous()
-    gap_end = cfg.n_cond + tmax
 
-    vocab = cfg.speech_tokens_dict_size
-    tokens = torch.full((b, max_new_tokens), stop, dtype=torch.int32, device=dev)
-    seen = torch.zeros((b, vocab), dtype=torch.bool, device=dev)
+    seen = torch.zeros((b, cfg.speech_tokens_dict_size), dtype=torch.bool, device=dev)
     seen[:, cfg.start_speech_token] = True
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    rows_b = torch.arange(b, device=dev)
-    layers = [layer_params(p["llama"], i) for i in range(cfg.llama.num_hidden_layers)]
-    eos_col = torch.arange(vocab, device=dev)[None] == stop
-    text_slice = (cfg.n_cond, cfg.n_cond + tmax)
-    align_layer = cfg.alignment_layer if alignment else None
+    carry = GenCarry(
+        cache=cache,
+        tokens=torch.full((b, max_new_tokens), cfg.stop_speech_token, dtype=torch.int32,
+                          device=dev),
+        seen=seen, done=torch.zeros((b,), dtype=torch.bool, device=dev), logits=logits,
+        row_prefix=row_prefix.contiguous(), base_pos=base_pos, i=0, s0=s0,
+        gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms,
+    )
     if alignment:
-        align = init_align_state(b, tmax, dev)
-        attn = torch.zeros((b, tmax), dtype=torch.float32, device=dev)  # before the first step
+        carry.align = init_align_state(b, tmax, dev)
+        carry.attn = torch.zeros((b, tmax), dtype=torch.float32, device=dev)  # before step 0
+    return carry
 
-    for i in range(max_new_tokens):
-        lg = logits.float()  # sampling chain in fp32
+
+def t3_generate_start(
+    p,
+    cfg: T3Config,
+    text_tokens,
+    text_lens,
+    speaker_emb,
+    prompt_tokens,
+    emotion_adv,
+    sampling: SamplingConfig = SamplingConfig(),
+    max_new_tokens: int = 1000,
+    cache_quant: bool = False,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> GenCarry:
+    """The prefill only: the resumable carry at step 0, for
+    ``t3_generate_resume`` (t3.py:463-481). The draws come from ``uniforms``
+    or ``generator`` as in ``t3_generate``; the watchdog is not available
+    here, as in the JAX package."""
+    return _start(p, cfg, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
+                  sampling, max_new_tokens, uniforms, generator, False, cache_quant)
+
+
+def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
+                       sampling: SamplingConfig = SamplingConfig(), n_steps: int = 50):
+    """Run the carry to step ``min(i + n_steps, max_new)``, or until every
+    row is done (t3.py:484-512). The carry holds the cache, the draws and the
+    absolute step, so a run in chunks gives the tokens of one run: the int8
+    cache's tail is merged at the same slots whatever the chunking. Updates
+    ``carry`` in place and returns (carry, GenResult so far); the result's
+    tokens are the carry's own tensor, which a later resume writes on."""
+    cy = carry
+    b, max_new = cy.tokens.shape
+    dev = cy.tokens.device
+    cfg_on = sampling.cfg_weight > 0
+    stop = cfg.stop_speech_token
+    text_lens = text_lens.to(dev)
+    tmax = cy.gap_end - cfg.n_cond
+    layers = [layer_params(p["llama"], i) for i in range(cfg.llama.num_hidden_layers)]
+    eos_col = torch.arange(cfg.speech_tokens_dict_size, device=dev)[None] == stop
+    rows_b = torch.arange(b, device=dev)
+    alignment = cy.align is not None
+    align_layer = cfg.alignment_layer if alignment else None
+    text_slice = (cfg.n_cond, cfg.n_cond + tmax)
+    i_end = min(cy.i + n_steps, max_new)
+
+    while cy.i < i_end:
+        i = cy.i
+        lg = cy.logits.float()  # sampling chain in fp32
         lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if cfg_on else lg
         if i < sampling.min_new_tokens:
             lg = torch.where(eos_col, torch.finfo(torch.float32).min, lg)
         if alignment:
-            align, lg = alignment_step(align, attn, text_lens, i, lg, stop)
-        lg = process_logits(lg, seen, sampling)
+            cy.align, lg = alignment_step(cy.align, cy.attn, text_lens, i, lg, stop)
+        lg = process_logits(lg, cy.seen, sampling)
         if sampling.greedy:
             tok = torch.argmax(lg, dim=-1).to(torch.int32)
         else:
-            if uniforms is not None:
-                u = uniforms[i].to(device=dev, dtype=torch.float32)
+            if cy.uniforms is not None:
+                u = cy.uniforms[i].to(device=dev, dtype=torch.float32)
             else:
-                u = torch.rand((b,), generator=generator, device=dev)
+                u = torch.rand((b,), generator=cy.generator, device=dev)
             tok = sample_from_logits(lg, u)
-        tok = torch.where(done, stop, tok)
-        tokens[:, i] = tok
-        seen[rows_b, tok.long()] = True
-        done = done | (tok == stop)
-        if i == max_new_tokens - 1:
+        tok = torch.where(cy.done, stop, tok)
+        cy.tokens[:, i] = tok
+        cy.seen[rows_b, tok.long()] = True
+        cy.done = cy.done | (tok == stop)
+        cy.i = i + 1
+        if cy.i == max_new:
             break  # the last token's logits are never read
-        if (i + 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+        # every DONE_CHECK_EVERY absolute steps, and at the chunk's end
+        if (cy.i % DONE_CHECK_EVERY == 0 or cy.i == i_end) and bool(cy.done.all()):
             break
 
         emb = embedding(p["speech_emb"], tok.long())[:, None] + p["speech_pos_emb"]["w"][i + 1]
         if cfg_on:
             emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
         h, attn_2b = llama_decode_step(
-            p["llama"], cfg.llama, emb, cache, s0 + i, (base_pos + i)[:, None],
-            row_prefix, gap_end, layers=layers, align_layer=align_layer, text_slice=text_slice,
+            p["llama"], cfg.llama, emb, cy.cache, cy.s0 + i, (cy.base_pos + i)[:, None],
+            cy.row_prefix, cy.gap_end, layers=layers, align_layer=align_layer,
+            text_slice=text_slice,
         )
-        logits = linear(p["speech_head"], h[:, 0])
+        cy.logits = linear(p["speech_head"], h[:, 0])
         if alignment:
-            attn = attn_2b[:b]  # the conditional rows
+            cy.attn = attn_2b[:b]  # the conditional rows
+    return cy, _carry_result(cy, stop)
 
-    lengths = _lengths(tokens, stop)
-    steps = min(int(lengths.max()) + 1, max_new_tokens)
-    return GenResult(tokens, lengths, steps)
+
+def t3_generate(
+    p,
+    cfg: T3Config,
+    text_tokens,
+    text_lens,
+    speaker_emb,
+    prompt_tokens,
+    emotion_adv,
+    sampling: SamplingConfig = SamplingConfig(),
+    max_new_tokens: int = 1000,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    alignment: bool = False,
+    cache_quant: bool = False,
+) -> GenResult:
+    """Batched CFG speech-token generation: the prefill
+    (``t3_generate_start``) and one ``t3_generate_resume`` over the whole
+    budget.
+
+    text_tokens (B, T) carry the SOT/EOT framing, right-padded; text_lens
+    (B,). The random draw of step i is ``uniforms[i]`` ((max_new, B) in
+    [0, 1)) when given, else ``torch.rand`` from ``generator``; greedy
+    decoding draws nothing. ``cache_quant`` keeps the KV cache int8 with an
+    exact tail (see ``llama.py``); ``alignment`` runs the watchdog on layer
+    ``cfg.alignment_layer``'s text attention of the previous step, after the
+    ``min_new_tokens`` floor and before the logits processors, and forces
+    ``cache_quant`` off (t3.py:244-279, 365-367). Returns EOS-padded tokens,
+    their lengths and the step count of the JAX loop (it stops once every
+    row is done)."""
+    carry = _start(p, cfg, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
+                   sampling, max_new_tokens, uniforms, generator, alignment,
+                   cache_quant and not alignment)
+    _, res = t3_generate_resume(p, cfg, carry, text_lens, sampling, max_new_tokens)
+    return res

@@ -32,12 +32,17 @@ package does. ``device_chain=True`` compacts the tokens on the device and
 dispatches S3Gen without reading them back; ``defer_collect=True`` returns
 the device handle for ``collect``.
 
-Not in this slice: streaming and serving.
+``generate_batch_preemptible`` runs the same work in bounded pieces on the
+resumable T3 carry, for the serving layer's admission control
+(``serve/batcher.py``); ``pipeline/streaming.py`` streams on that carry.
+``CHATTERBOX_HIFT_BF16=1`` runs the vocoder's conv trunk in bf16.
 """
 
+import contextlib
 import os
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Optional
 
@@ -55,7 +60,7 @@ from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_fr
                                   s3gen_wav, with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.t3.llama import canonicalize_llama_params
-from ..models.t3.t3 import T3Config, t3_generate
+from ..models.t3.t3 import T3Config, t3_generate, t3_generate_resume, t3_generate_start
 from ..models.tokenizer import EnTokenizer
 from ..models.voice_encoder import VoiceEncoderConfig, frame_step, num_wins, ve_embed_from_mels
 from ..models.watermark import SpreadSpectrumWatermarker
@@ -196,6 +201,23 @@ def card_batch_limits(device, llama_cfg, resident_bytes: int):
     return hard, hard, budget, budget
 
 
+def clean_token_rows(tokens: np.ndarray, lengths: np.ndarray) -> List[np.ndarray]:
+    """Host token compaction (reference tts.py:256-262): each row's tokens
+    below its length and below SPEECH_VOCAB_SIZE."""
+    return [row[: n][row[: n] < SPEECH_VOCAB_SIZE] for row, n in zip(tokens, lengths)]
+
+
+def pad_speech(clean_rows: List[np.ndarray]):
+    """Clean token rows -> (int32 (B, token bucket) zero-padded, int32 (B,)
+    lengths), the bucket from TOKEN_BUCKETS."""
+    n_clean = np.array([len(r) for r in clean_rows], np.int32)
+    speech = np.zeros((len(clean_rows), _bucket(max(int(n_clean.max()), 2), TOKEN_BUCKETS)),
+                      np.int32)
+    for i, r in enumerate(clean_rows):
+        speech[i, : len(r)] = r
+    return speech, n_clean
+
+
 def collect(handle) -> List[np.ndarray]:
     """A deferred generate_batch result (int16 wav (B, T), lengths (B,)) on
     the device -> one float32 waveform a row on the host (TTS and VC)."""
@@ -211,19 +233,36 @@ def _tile(x, b):
 
 
 def synthesize(s3gen_params, s3gen_cfg, noise, watermarker, speech, speech_lens, ref: RefDict,
-               seed: int):
+               seed: int, hift_dtype=None):
     """Speech tokens -> S3Gen (flow + HiFT + trim-fade) -> watermark ->
     (int16 wav (B, T), wav_lens (B,)). The CFM noise is the first 2*(P + T)
-    frames of ``noise``; the vocoder draws from a generator seeded seed + 1."""
+    frames of ``noise``; the vocoder draws from a generator seeded seed + 1
+    and runs its trunk in ``hift_dtype`` (None: fp32)."""
     b = speech.shape[0]
     ref = RefDict(*(_tile(x, b) for x in ref))
     total = 2 * (ref.prompt_token.shape[1] + speech.shape[1])
     wav, wav_lens, _ = s3gen_wav(
         s3gen_params, s3gen_cfg, speech, speech_lens, ref, noise[:, :total].expand(b, total, 80),
         generator=torch.Generator(device=speech.device).manual_seed(seed + 1),
+        hift_dtype=hift_dtype,
     )
     y = watermarker.apply(wav)
     return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16), wav_lens
+
+
+@dataclass
+class CallInputs:
+    """What a call prepares before T3 runs (``ChatterboxTTS.prepare_call``)."""
+
+    conds: Conditionals  # on the device, at the call's exaggeration
+    text_tokens: np.ndarray  # int32 (B, text bucket), SOT/EOT framed
+    text_lens: np.ndarray  # int32 (B,)
+    t3_cond: T3CondData  # broadcast to B rows
+    ref: RefDict  # S3Gen's reference, broadcast to B rows
+    cache_quant: bool  # T3's KV cache int8
+    s3gen_cfg: S3GenConfig  # with the call's CFM step count
+    noise: torch.Tensor  # the CFM noise buffer (1, 15000, 80)
+    hift_dtype: Optional[torch.dtype]  # the vocoder trunk's (None: fp32)
 
 
 class ChatterboxTTS:
@@ -242,6 +281,10 @@ class ChatterboxTTS:
         if kv_quant is None:
             kv_quant = {"1": True, "0": False}.get(os.environ.get("CHATTERBOX_KV_QUANT", "auto"))
         self.kv_quant = kv_quant
+        # the vocoder's conv trunk in bf16 (its f0 predictor, sine source,
+        # source STFT and iSTFT head stay fp32): CHATTERBOX_HIFT_BF16=1;
+        # off by default, as in the JAX package (tts.py:127-133)
+        self.hift_bf16 = os.environ.get("CHATTERBOX_HIFT_BF16", "0") == "1"
         self.t3_params = t3_params
         self.s3gen_params = s3gen_params
         self.ve_params = ve_params
@@ -451,19 +494,12 @@ class ChatterboxTTS:
         (``models/t3/alignment.py``) on a working-dtype KV cache.
         ``flow_steps`` sets the CFM Euler step count of this call only (the
         quality tier; fewer steps are faster); a value below 1 raises."""
-        n_steps = self._effective_flow_steps(flow_steps)
         t_start = time.perf_counter()
-        conds = conds or self.conds
-        if conds is None:
-            raise ValueError("no voice conditionals: pass conds or set self.conds")
-        conds = conds.to(self.device)
-        if bool((conds.t3.emotion_adv != exaggeration).any()):
-            conds = conds.with_exaggeration(exaggeration)
-
+        inp = self.prepare_call(texts, conds, exaggeration, max_new_tokens, flow_steps,
+                                alignment)
+        conds = inp.conds
         b = len(texts)
-        tok_rows = [self._cap_text_row(self._encode_text(t)) for t in texts]
-        lens = np.array([len(r) for r in tok_rows], np.int32)
-        tmax = _bucket(int(lens.max()), TEXT_BUCKETS)
+        tmax = inp.text_tokens.shape[1]
         if b > self._budget_batch_cap(max_new_tokens, False, tmax, alignment):
             if defer_collect:
                 raise ValueError(f"defer_collect takes a batch under the one-shot cap; {b} texts "
@@ -478,22 +514,18 @@ class ChatterboxTTS:
                 seed=seed, max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
                 greedy=greedy, flow_steps=flow_steps, alignment=alignment)
             return [w for chunk in rows for w in chunk]
-        text_tokens = np.zeros((b, tmax), np.int32)
-        for i, r in enumerate(tok_rows):
-            text_tokens[i, : len(r)] = r
         sampling = SamplingConfig(
             temperature=temperature, top_p=top_p, min_p=min_p,
             repetition_penalty=repetition_penalty, cfg_weight=cfg_weight,
             min_new_tokens=min_new_tokens, greedy=greedy,
         )
-        t3c = T3CondData(*(_tile(x, b) for x in conds.t3))
-        cache_quant = self._kv_quant_for(max_new_tokens) and not alignment
+        t3c = inp.t3_cond
         res = t3_generate(
-            self.t3_params, self.t3_cfg, torch.from_numpy(text_tokens).to(self.device),
-            torch.from_numpy(lens).to(self.device), t3c.speaker_emb, t3c.prompt_tokens,
+            self.t3_params, self.t3_cfg, torch.from_numpy(inp.text_tokens).to(self.device),
+            torch.from_numpy(inp.text_lens).to(self.device), t3c.speaker_emb, t3c.prompt_tokens,
             t3c.emotion_adv, sampling, max_new_tokens,
             generator=torch.Generator(device=self.device).manual_seed(seed),
-            alignment=alignment, cache_quant=cache_quant,
+            alignment=alignment, cache_quant=inp.cache_quant,
         )
         t_t3 = time.perf_counter()
 
@@ -501,28 +533,21 @@ class ChatterboxTTS:
             speech, clean_lens = _compact_tokens(res.tokens, res.lengths)
             clean_rows = None
         else:
-            # host: drop invalid tokens per row (reference tts.py:256-262)
-            tokens, tok_lens = res.tokens.cpu().numpy(), res.lengths.cpu().numpy()
-            clean_rows = []
-            for i in range(b):
-                row = tokens[i, : tok_lens[i]]
-                clean_rows.append(row[row < SPEECH_VOCAB_SIZE])
-            n_clean = np.array([len(r) for r in clean_rows], np.int32)
-            speech = np.zeros((b, _bucket(max(int(n_clean.max()), 2), TOKEN_BUCKETS)), np.int32)
-            for i, r in enumerate(clean_rows):
-                speech[i, : len(r)] = r
+            clean_rows = clean_token_rows(res.tokens.cpu().numpy(), res.lengths.cpu().numpy())
+            speech, n_clean = pad_speech(clean_rows)
             speech = torch.from_numpy(speech).to(self.device)
             clean_lens = torch.from_numpy(n_clean).to(self.device)
 
         handle = synthesize(
-            self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps), self._cfm_noise,
-            self.watermarker, speech, clean_lens, conds.gen, seed,
+            self.s3gen_params, inp.s3gen_cfg, inp.noise, self.watermarker, speech, clean_lens,
+            inp.ref, seed, inp.hift_dtype,
         )
-        kv_cache = "int8" if cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
+        kv_cache = "int8" if inp.cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
         self.last_speech_tokens = clean_rows
         self.last_timings = {"t3_s": t_t3 - t_start, "t3_steps": res.steps,
                              "token_bucket": speech.shape[1], "kv_cache": kv_cache,
-                             "alignment": alignment, "flow_steps": n_steps,
+                             "alignment": alignment,
+                             "flow_steps": inp.s3gen_cfg.flow.n_timesteps,
                              "device_chain": device_chain}
         if defer_collect:
             self.last_timings["s3gen_s"] = time.perf_counter() - t_t3
@@ -572,6 +597,126 @@ class ChatterboxTTS:
             out[i0].extend(self.collect(h))
         return out
 
+    @torch.inference_mode()
+    def generate_batch_preemptible(
+        self,
+        texts: List[str],
+        conds: Optional[Conditionals] = None,
+        lock=None,
+        t3_chunk_tokens: int = 50,
+        s3gen_max_rows: Optional[int] = None,
+        repetition_penalty: float = 1.2,
+        min_p: float = 0.05,
+        top_p: float = 1.0,
+        exaggeration: float = 0.5,
+        cfg_weight: float = 0.5,
+        temperature: float = 0.8,
+        seed: int = 0,
+        max_new_tokens: int = 1000,
+        min_new_tokens: int = 0,
+        flow_steps: Optional[int] = None,
+        alignment: bool = False,
+    ) -> List[np.ndarray]:
+        """``generate_batch`` in bounded pieces, releasing ``lock`` between
+        them (tts.py:692-827): T3 runs as ``t3_chunk_tokens``-step chunks of
+        the resumable carry (the tokens of one run), and S3Gen in groups of
+        at most ``s3gen_max_rows`` rows (None: all), each piece under the
+        lock. The serving layer's admission control runs bulk batches so
+        while streams are live, so that a stream's tick waits for one piece
+        and not for a whole batch.
+
+        A batch above the one-shot cap (``_budget_batch_cap``) is split
+        evenly, chunk j seeded ``seed + j``. ``alignment=True`` runs the
+        whole-batch ``generate_batch`` under the lock, as the JAX package
+        does. With the same seed the tokens and wavs equal
+        ``generate_batch``'s."""
+        lock = lock if lock is not None else contextlib.nullcontext()
+        if alignment:
+            with lock:
+                return self.generate_batch(
+                    texts, conds=conds, repetition_penalty=repetition_penalty, min_p=min_p,
+                    top_p=top_p, exaggeration=exaggeration, cfg_weight=cfg_weight,
+                    temperature=temperature, seed=seed, max_new_tokens=max_new_tokens,
+                    min_new_tokens=min_new_tokens, flow_steps=flow_steps, alignment=True)
+        inp = self.prepare_call(texts, conds, exaggeration, max_new_tokens, flow_steps)
+        conds = inp.conds
+        b = len(texts)
+        cap = self._budget_batch_cap(max_new_tokens, False, inp.text_tokens.shape[1])
+        if b > cap:
+            step = -(-b // -(-b // cap))
+            out = []
+            for j, i0 in enumerate(range(0, b, step)):
+                sub = texts[i0:i0 + step]
+                out.extend(self.generate_batch_preemptible(
+                    sub, conds.rows(i0, i0 + len(sub)), lock, t3_chunk_tokens, s3gen_max_rows,
+                    repetition_penalty, min_p, top_p, exaggeration, cfg_weight, temperature,
+                    seed + j, max_new_tokens, min_new_tokens, flow_steps))
+            return out
+        sampling = SamplingConfig(
+            temperature=temperature, top_p=top_p, min_p=min_p,
+            repetition_penalty=repetition_penalty, cfg_weight=cfg_weight,
+            min_new_tokens=min_new_tokens,
+        )
+        t3c = inp.t3_cond
+        lens_d = torch.from_numpy(inp.text_lens).to(self.device)
+        with lock:
+            carry = t3_generate_start(
+                self.t3_params, self.t3_cfg, torch.from_numpy(inp.text_tokens).to(self.device),
+                lens_d, t3c.speaker_emb, t3c.prompt_tokens, t3c.emotion_adv, sampling,
+                max_new_tokens, cache_quant=inp.cache_quant,
+                generator=torch.Generator(device=self.device).manual_seed(seed))
+        while True:
+            with lock:
+                carry, res = t3_generate_resume(self.t3_params, self.t3_cfg, carry, lens_d,
+                                                sampling, t3_chunk_tokens)
+                finished = bool(carry.done.all())  # waits for the chunk
+            if finished or res.steps >= max_new_tokens:
+                break
+        clean_rows = clean_token_rows(res.tokens.cpu().numpy(), res.lengths.cpu().numpy())
+        del carry  # the KV cache and K1's workspace go before S3Gen
+        speech, clean_lens = pad_speech(clean_rows)
+
+        rows_cap = s3gen_max_rows or b
+        handles = []
+        for i0 in range(0, b, rows_cap):
+            i1 = min(b, i0 + rows_cap)
+            with lock:
+                handles.append(synthesize(
+                    self.s3gen_params, inp.s3gen_cfg, inp.noise, self.watermarker,
+                    torch.from_numpy(speech[i0:i1]).to(self.device),
+                    torch.from_numpy(clean_lens[i0:i1]).to(self.device),
+                    RefDict(*(x[i0:i1] for x in inp.ref)), seed, inp.hift_dtype))
+        self.last_speech_tokens = clean_rows
+        # the readbacks do not occupy the device: no lock
+        return [w for h in handles for w in self.collect(h)]
+
+    def prepare_call(self, texts: List[str], conds: Optional[Conditionals], exaggeration: float,
+                     max_new_tokens: int, flow_steps: Optional[int] = None,
+                     alignment: bool = False) -> CallInputs:
+        """The inputs of one call over ``texts``, as ``generate_batch``,
+        ``generate_batch_preemptible`` and ``pipeline/streaming.py`` use
+        them: ``conds`` (else the pipeline's; neither: ValueError) on the
+        device at ``exaggeration``, the framed text ids, the conditioning
+        broadcast to the batch, the cache policy (alignment forces the
+        working-dtype cache), the S3Gen config at ``flow_steps`` (below 1:
+        ValueError), the CFM noise buffer and the vocoder's dtype."""
+        s3gen_cfg = with_flow_steps(self.s3gen_cfg, self._effective_flow_steps(flow_steps))
+        conds = conds or self.conds
+        if conds is None:
+            raise ValueError("no voice conditionals: pass conds or set self.conds")
+        conds = conds.to(self.device)
+        if bool((conds.t3.emotion_adv != exaggeration).any()):
+            conds = conds.with_exaggeration(exaggeration)
+        b = len(texts)
+        text_tokens, lens = self._text_batch(texts)
+        return CallInputs(
+            conds=conds, text_tokens=text_tokens, text_lens=lens,
+            t3_cond=T3CondData(*(_tile(x, b) for x in conds.t3)),
+            ref=RefDict(*(_tile(x, b) for x in conds.gen)),
+            cache_quant=self._kv_quant_for(max_new_tokens) and not alignment,
+            s3gen_cfg=s3gen_cfg, noise=self._cfm_noise,
+            hift_dtype=torch.bfloat16 if self.hift_bf16 else None)
+
     def _effective_flow_steps(self, flow_steps: Optional[int]) -> int:
         """The call's CFM step count: ``flow_steps``, else the pipeline's
         (tts.py:914-921). A value below 1 raises ValueError."""
@@ -609,6 +754,16 @@ class ChatterboxTTS:
         return max_new_tokens >= 500
 
     # ------------------------------------------------------------- internals
+    def _text_batch(self, texts: List[str]):
+        """Texts -> (int32 (B, text bucket) ids with SOT/EOT framing,
+        right-padded; int32 (B,) lengths)."""
+        rows = [self._cap_text_row(self._encode_text(t)) for t in texts]
+        lens = np.array([len(r) for r in rows], np.int32)
+        text_tokens = np.zeros((len(rows), _bucket(int(lens.max()), TEXT_BUCKETS)), np.int32)
+        for i, r in enumerate(rows):
+            text_tokens[i, : len(r)] = r
+        return text_tokens, lens
+
     def _encode_text(self, text: str) -> np.ndarray:
         text = punc_norm(text)
         if self.tokenizer is not None:

@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the last line):
   3. kernels: runs K1a, K1b, K1c+d, K2, K2b, K3, K4 and K5 at the full-width
      shapes of the TTS and VC paths (K1a at path A's cache length, S = 384,
      and at the default budget's, S = 1152, where K1b, K1c+d and K2b run,
-     K2b also at the prefill's 100 tokens;
+     K2b also at the prefill's 100 tokens; K3 and K4 also at a streaming
+     tick's lengths (``tick_kernel_checks``: K3 at T = 640 and 768 on 8
+     rows, K4 at T = 384, 640 and 768 on 4);
      K1a, K1b and K1c+d each called twice on the same inputs, which must
      agree bit for bit; K3 and K5 at T = 1024, 1536 and 2560, paths A, E
      and B, where the two must agree bit for bit on the same q, k, v; K4 at
@@ -60,9 +62,26 @@ Phases (any failure exits non-zero before the last line):
        G. path F with ``flow_steps=4`` (tts_b8_turbo): T3's tokens and the
           wav lengths must equal F's, and the flow launches K3 exactly
           4 x 56 times;
+       J. ``stream_generate_batch`` of four texts at the default
+          ``StreamConfig`` (1000 tokens, the int8 cache), a first call
+          counted and checked (whole finite chunks; tokens equal to a
+          one-shot ``t3_generate``; K1c+d, K2b, K3 and K4 per step and per
+          tick), a second timed (time to first audio, ms a tick, T3's ms a
+          step, ``stream_aggregate_audio_sec_per_s_n4``), then one stream
+          with the flow window over its whole history against
+          ``generate_batch`` (SNR bound ``STREAM_SNR_DB``);
+       K. ``generate_batch_preemptible`` of the 8 texts at 250 tokens in
+          T3 chunks of 25 against ``generate_batch``: tokens and wavs bit
+          for bit, both timed warm in turns;
+       L. the stdlib server over this model on 127.0.0.1: /health, a voice
+          upload and an emotion profile, 4 concurrent /generate (must
+          coalesce), a seeded /generate (equal to a direct call), 2
+          concurrent streams with a bulk /generate (must go preemptibly),
+          and a stream with alignment (400);
      K1 must launch once a layer a decode step (A: 30 x 249, B and I:
-     30 x 999; C: 29 x 249 K1a and 249 K1b; H: 2 x 30 x 249), K2b once at
-     the prefill and once every 8 steps (I: 126);
+     30 x 999; C: 29 x 249 K1a and 249 K1b; H: 2 x 30 x 249; J: 30 x 999
+     K1c+d; K: 30 x 249), K2b once at the prefill and once every 8 steps
+     (I: 126);
      after each first call a second, warm call is timed (audio seconds per
      second, per stage) and a third profiled (device time by kernel, the
      busy share), except on path D, whose device work is path A's; no TTS
@@ -1617,7 +1636,674 @@ def cap_kernel_checks(b):
     return out
 
 
-def main_path(card, ref_path):
+# ---------------------------------------------------------------------------
+# streaming and serving (paths J, K, L)
+# ---------------------------------------------------------------------------
+
+# path J: bench.py's four stream texts (the JAX package's stream cell),
+# copied here: the port imports nothing of bench.py
+STREAM_TEXTS = [
+    "The quick brown fox jumps over the lazy dog near the river bank today.",
+    "A second speaker reads an entirely different sentence about mountains.",
+    "Stream three narrates the weather forecast for the coming weekend now.",
+    "Speaker four describes a recipe for fresh bread with honey and butter.",
+]
+N_STREAMS = len(STREAM_TEXTS)
+# the flow's (padded T, valid frames) in a streaming tick with the 250-token
+# prompt: the first tick's 25-token window (2 (250 + 25) = 550 mel frames),
+# and a steady tick's 100 tokens (700); K3 runs there on 2 x 4 CFG rows and
+# K4's 50 Hz layers on 4 rows. K4's token-rate layers see 275-350 tokens,
+# padded to 384.
+TICK_T = ((640, 550), (768, 700))
+TICK_T_TOKEN = ((384, 275), (384, 350))
+# path J's exact-window call: one stream whose flow window holds its whole
+# history, against generate_batch on the same seed, the vocoder's noise
+# zeroed on both. The whole wav is held to an SNR of STREAM_SNR_DB, the
+# bound of the JAX package's own window-divergence test on its tiny random
+# model: even with the whole history in the window, a tick's flow sees no
+# token after its chunk (the conformer's lookahead and the encoder's and
+# the UNet's attention are not causal), so the early chunks differ. The
+# last chunk, whose window holds every token, differs only by the
+# vocoder's chunking (24 frames of context) and the watermark a chunk: it
+# is held to STREAM_LAST_SNR_DB. The random vocoder's output sits near 2
+# int16 steps rms, where rounding alone caps the SNR near 18 dB, so this
+# comparison scales the spectra's magnitude by STREAM_EXACT_GAIN (conv_post's
+# log-magnitude bias), the same on both sides; random weights say nothing
+# of how audible the differences are
+STREAM_EXACT_TOKENS = 100
+STREAM_SNR_DB = 10.0
+STREAM_LAST_SNR_DB = 30.0
+STREAM_EXACT_GAIN = 100.0
+# (gain, flow_ctx_tokens) of path J's window sweep: the gains the check's
+# was chosen among, and a 25-token window that the last-chunk bound must fail
+STREAM_SWEEP = ((1.0, STREAM_EXACT_TOKENS), (STREAM_EXACT_GAIN, STREAM_EXACT_TOKENS),
+                (1000.0, STREAM_EXACT_TOKENS), (STREAM_EXACT_GAIN, 25))
+# path K: generate_batch_preemptible's T3 chunk
+PREEMPT_CHUNK = 25
+
+
+def tick_kernel_checks():
+    """K3 and K4 at the lengths of a streaming tick (``TICK_T``,
+    ``TICK_T_TOKEN``): each against its plain version within the kernel
+    phase's limits, and timed (kernel, plain, and SDPA as the yardstick; K3
+    on rotating input sets past the L2, as in the kernel phase). Path J is
+    the first path that gives the kernels lengths this short. Returns
+    {kernel: [one dict a length]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from chatterbox_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def key_bias(n_rows, t_pad, t_valid):
+        return torch.where(torch.arange(t_pad, device=dev)[None] < t_valid, 0.0, -1.0e10) \
+            .expand(n_rows, t_pad).contiguous().float()
+
+    out = {_K3: [], _K4: []}
+    rows_unet, hd = 2 * N_STREAMS, FLOW_HEADS * HEAD_DIM
+    for t_pad, t_valid in TICK_T:
+        set_bytes = 3 * rows_unet * FLOW_HEADS * t_pad * HEAD_DIM * 2
+        n_sets = max(2, -(-200 * 2**20 // set_bytes))
+        bias = key_bias(rows_unet, t_pad, t_valid)
+        bias4 = bias[:, None, None, :].to(bf)
+        packed = [randn(rows_unet, t_pad, 3 * hd) for _ in range(n_sets)]
+
+        def split(x, i):
+            return x[..., i * hd:(i + 1) * hd].unflatten(-1, (FLOW_HEADS, HEAD_DIM)).transpose(1, 2)
+
+        qkv = packed[0]
+        want = fa.flash_self_attention_packed_plain(qkv, bias, FLOW_HEADS)
+        name = f"flash_self_attention_packed (streaming tick, {rows_unet} rows, T = {t_pad})"
+        abs_v = torch.cat([qkv[..., :2 * hd], qkv[..., 2 * hd:].abs()], dim=-1)
+        err, tol, share = check_kernel(name, fa.flash_self_attention_packed(qkv, bias, FLOW_HEADS),
+                                       want, fa.flash_self_attention_packed_plain(
+                                           abs_v, bias, FLOW_HEADS))
+        lib_sets = [tuple(split(x, i) for i in range(3)) for x in packed]
+        lib_err = library_err(name, F.scaled_dot_product_attention(
+            *lib_sets[0], attn_mask=bias4).transpose(1, 2).flatten(2), want)
+        out[_K3].append(dict(
+            T=t_pad, valid=t_valid, rows=rows_unet, err=err, tol=tol, share=share,
+            library_err=lib_err,
+            ms=timed(rotating(lambda i: fa.flash_self_attention_packed(
+                packed[i], bias, FLOW_HEADS), n_sets), 50),
+            plain_ms=timed(rotating(lambda i: fa.flash_self_attention_packed_plain(
+                packed[i], bias, FLOW_HEADS), n_sets), 10),
+            library_ms=timed(rotating(lambda i: F.scaled_dot_product_attention(
+                *lib_sets[i], attn_mask=bias4), n_sets), 50),
+            bound=bound(set_bytes * 4 // 3 + bias.numel() * 4,
+                        4 * rows_unet * FLOW_HEADS * t_pad * t_pad * HEAD_DIM)))
+        del packed, lib_sets, qkv, abs_v, want
+
+    cd = CONF_C
+    dk = cd // CONF_HEADS
+    scale = 1.0 / math.sqrt(dk)
+    for t_pad, t_valid in TICK_T_TOKEN + TICK_T:
+        q_u, k, v = (randn(N_STREAMS, t_pad, cd, scale=0.5) for _ in range(3))
+        q_hat = randn(N_STREAMS, t_pad, CONF_HEADS * cd, scale=0.5)
+        s_hat = randn(1, t_pad, cd, scale=0.7)
+        bias = key_bias(N_STREAMS, t_pad, t_valid)
+        kargs = (q_u, q_hat, k, s_hat, v, bias, CONF_HEADS, scale)
+        want = fa.flash_relpos_attention_plain(*kargs)
+        name = f"flash_relpos_attention (streaming tick, {N_STREAMS} rows, T = {t_pad}, " \
+               f"{t_valid} valid)"
+        err, tol, share = check_kernel(name, fa.flash_relpos_attention(*kargs), want,
+                                       fa.flash_relpos_attention_plain(
+                                           q_u, q_hat, k, s_hat, v.abs(), bias, CONF_HEADS, scale))
+
+        def heads(x, n):
+            return x.unflatten(-1, (CONF_HEADS, n)).transpose(1, 2)
+
+        q_cat = torch.cat([heads(q_u, dk), heads(q_hat, cd)], dim=-1)
+        k_cat = torch.cat([heads(k, dk), s_hat[:, None].expand(N_STREAMS, CONF_HEADS, t_pad, cd)],
+                          dim=-1)
+        v_h, bias4 = heads(v, dk), bias[:, None, None, :].to(bf)
+
+        def k4_library():
+            return F.scaled_dot_product_attention(q_cat, k_cat, v_h, attn_mask=bias4, scale=scale)
+
+        out[_K4].append(dict(
+            T=t_pad, valid=t_valid, rows=N_STREAMS, err=err, tol=tol, share=share,
+            library_err=library_err(name, k4_library().transpose(1, 2).flatten(2), want),
+            ms=timed(lambda: fa.flash_relpos_attention(*kargs), 50),
+            plain_ms=timed(lambda: fa.flash_relpos_attention_plain(*kargs), 10),
+            library_ms=timed(k4_library, 50),
+            bound=bound((4 * q_u.numel() + q_hat.numel() + s_hat.numel()) * 2 + bias.numel() * 4,
+                        2 * N_STREAMS * CONF_HEADS * t_pad * t_pad * (2 * dk + cd))))
+        del q_u, k, v, q_hat, s_hat, q_cat, k_cat, v_h, want
+    torch.cuda.empty_cache()
+    for key, runs in out.items():
+        for r in runs:
+            print(f"kernel {key} at the streaming tick's T = {r['T']} ({r['valid']} valid, "
+                  f"{r['rows']} rows): {r['ms']:.5f} ms, bound {r['bound'][0]:.5f} ms "
+                  f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.1%} of the bound; plain "
+                  f"{r['plain_ms']:.5f} ms; library {r['library_ms']:.5f} ms", flush=True)
+    return out
+
+
+def merge_tick_checks(rows, checks):
+    """The streaming tick's K3/K4 runs into their kernel rows: the errors
+    count in the row's, the times stand beside the row's own."""
+    for key, runs in checks.items():
+        r = rows[key]
+        r["err"] = max([r["err"]] + [x["err"] for x in runs])
+        r["share"] = max([r["share"]] + [x["share"] for x in runs])
+        r["library_err"] = max([r["library_err"]] + [x["library_err"] for x in runs])
+        extra = r.setdefault("extra", {})
+        for x in runs:
+            tag = f"tick_t{x['T']}_valid{x['valid']}"
+            extra.update({f"ms_{tag}": x["ms"], f"plain_ms_{tag}": x["plain_ms"],
+                          f"library_ms_{tag}": x["library_ms"], f"bound_ms_{tag}": x["bound"][0],
+                          f"max_abs_err_{tag}": x["err"], f"err_share_of_tol_{tag}": x["share"],
+                          f"rows_{tag}": x["rows"]})
+
+
+class CallSpy:
+    """Wraps ``module.name`` for the block: each call's arguments and wall
+    seconds (with a synchronise after it) are kept in ``calls``."""
+
+    def __init__(self, module, name, record=None):
+        self.module, self.name, self.record = module, name, record
+        self.real, self.calls = getattr(module, name), []
+
+    def __enter__(self):
+        import torch
+
+        def spy(*args, **kw):
+            t0 = time.time()
+            out = self.real(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((self.record(args, kw, out) if self.record else None,
+                               time.time() - t0))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+class ZeroNoise:
+    """``module.hift_generate`` with the vocoder's phase and additive noise
+    zeroed for the block, as the CPU parity tests run it: the stream and
+    ``generate_batch`` draw their noise differently."""
+
+    def __init__(self, module):
+        self.module, self.real = module, module.hift_generate
+
+    def __enter__(self):
+        import torch
+
+        def run(p, cfg, mel, **kw):
+            b, t_mel, _ = mel.shape
+            h = cfg.nb_harmonics + 1
+            kw.pop("generator", None)
+            kw["phase_noise"] = torch.zeros((b, h), device=mel.device)
+            kw["additive_noise"] = torch.zeros((b, h, t_mel * cfg.upsample_total),
+                                               device=mel.device)
+            return self.real(p, cfg, mel, **kw)
+
+        self.module.hift_generate = run
+        return self
+
+    def __exit__(self, *exc):
+        self.module.hift_generate = self.real
+
+
+def _snr_db(got, want):
+    import numpy as np
+
+    d = got.astype(np.float64) - want.astype(np.float64)
+    return 10 * np.log10(float(np.mean(want.astype(np.float64) ** 2)) /
+                         max(float(np.mean(d ** 2)), 1e-30))
+
+
+def stream_run(tts, conds, texts, stream, **kw):
+    """One ``stream_generate_batch`` call: (every stream's chunks, each
+    stream's time to first audio, each tick's seconds, wall seconds)."""
+    from chatterbox_tpu_torch.pipeline.streaming import stream_generate_batch
+
+    chunks = [[] for _ in texts]
+    ttfa, ticks = [None] * len(texts), []
+    t0 = time.time()
+    last = t0
+    for tick in stream_generate_batch(tts, texts, conds=conds, stream=stream, **kw):
+        now = time.time()
+        ticks.append(now - last)
+        last = now
+        for i, c in enumerate(tick):
+            if c is not None and len(c):
+                chunks[i].append(c)
+                if ttfa[i] is None:
+                    ttfa[i] = now - t0
+    return chunks, ttfa, ticks, time.time() - t0
+
+
+def stream_path(tts, conds, card):
+    """Path J: ``stream_generate_batch`` of the four stream texts at the
+    default ``StreamConfig`` (1000 tokens, the int8 cache, chunks of 25
+    after a first of 10, a 75-token flow window), ``min_new_tokens=999``.
+    A first call with the launch counters set to 0 just before it and read
+    just after: every chunk finite and whole tokens long; each stream's
+    tokens equal to a one-shot ``t3_generate`` with the same inputs and
+    seed; K1c+d 30 times a decode step, K2b at the prefill and every 8
+    slots, K3 and K4 in every tick at the lengths the kernel phase checked.
+    A second call timed: time to first audio per stream, ms a tick, T3's ms
+    a step and ``stream_aggregate_audio_sec_per_s_n4``. Then the
+    exact-window call (one stream, ``STREAM_EXACT_TOKENS`` tokens, the
+    window over the whole history) against ``generate_batch`` on the same
+    seed, both with the vocoder's noise zeroed (the stream draws its own)
+    and its magnitude gained by ``STREAM_EXACT_GAIN``: the whole wav and
+    the last chunk held to ``STREAM_SNR_DB`` and ``STREAM_LAST_SNR_DB``
+    (``stream_window_sweep``, which also reads the other gains and a cut
+    window). Returns the first call's counts."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch.models.s3gen import conformer, unet
+    from chatterbox_tpu_torch.models.t3.t3 import t3_generate
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.pipeline import streaming
+    from chatterbox_tpu_torch.pipeline.tts import TEXT_BUCKETS, _bucket
+
+    st = streaming.StreamConfig()
+    kw = dict(seed=0, min_new_tokens=st.max_new_tokens - 1)
+
+    def shape2(args, kw_, out):
+        return tuple(args[0].shape[:2])
+
+    reset_launch_counts()
+    with CallSpy(streaming, "t3_generate_start", lambda a, k, o: (a, k)) as start_spy, \
+            CallSpy(streaming, "t3_generate_resume",
+                    lambda a, k, o: (o[1].tokens.clone(), o[1].steps)) as resume_spy, \
+            CallSpy(streaming._ChunkSynthesizer, "_synth") as synth_spy, \
+            CallSpy(unet, "flash_self_attention_packed", shape2) as k3_spy, \
+            CallSpy(conformer, "flash_relpos_attention", shape2) as k4_spy:
+        chunks, ttfa, ticks, wall = stream_run(tts, conds, STREAM_TEXTS, st, **kw)
+    counts = launch_counts()
+    n_synth = len(synth_spy.calls)
+    for i, cs in enumerate(chunks):
+        if not cs:
+            fail(f"path J: stream {i} gave no audio")
+        for c in cs:
+            if c.ndim != 1 or len(c) == 0 or len(c) % 960 or not np.isfinite(c).all():
+                fail(f"path J: stream {i}: a chunk of shape {c.shape} is empty, not whole "
+                     f"tokens (960 samples) or not finite")
+    # the streams' tokens against one t3_generate on the same inputs and seed
+    (args, start_kw), _ = start_spy.calls[0]
+    stream_tokens, steps = resume_spy.calls[-1][0]
+    one_shot = t3_generate(*args, cache_quant=start_kw["cache_quant"],
+                           generator=torch.Generator(device=tts.device).manual_seed(kw["seed"]))
+    same = torch.equal(stream_tokens, one_shot.tokens)
+    print(f"path J: {N_STREAMS} streams' tokens ({tuple(stream_tokens.shape)}, {steps} steps, "
+          f"{len(resume_spy.calls)} T3 chunks) equal to a one-shot t3_generate's on the same "
+          f"inputs and seed: {same}", flush=True)
+    if not same:
+        fail("path J: the streamed tokens differ from a one-shot t3_generate's")
+    # launches: K1c+d once a layer a decode step, K2b at the prefill and at
+    # every slot that closes a group of TAIL_W; K3/K4 in every tick
+    tb = _bucket(max(len(tts._encode_text(t)) for t in STREAM_TEXTS), TEXT_BUCKETS)
+    s0 = N_COND + tb + N_BOS
+    decode_steps = st.max_new_tokens - 1
+    merges = sum(1 for w in range(s0, s0 + decode_steps) if (w + 1) % TAIL_W == 0)
+    unet_cfg = tts.s3gen_cfg.flow.estimator
+    enc = tts.s3gen_cfg.flow.encoder
+    k3_per_tick = unet_cfg.n_blocks * (2 + unet_cfg.num_mid_blocks) * tts.s3gen_cfg.flow.n_timesteps
+    k4_per_tick = enc.num_blocks + enc.num_up_blocks
+    check_launches("J", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
+                   {_K1C: T3_LAYERS * decode_steps, _K2B: 1 + merges,
+                    _K3: k3_per_tick * n_synth, _K4: k4_per_tick * n_synth})
+    k3_t = sorted({s for s, _ in k3_spy.calls})
+    k4_t = sorted({s for s, _ in k4_spy.calls})
+    print(f"path J: {len(ticks)} ticks, {n_synth} with synthesis; (rows, T) of K3: {k3_t}, of "
+          f"K4: {k4_t}; kernel launches " + json.dumps(counts), flush=True)
+    checked3 = {(2 * N_STREAMS, t) for t, _ in TICK_T}
+    checked4 = {(N_STREAMS, t) for t, _ in TICK_T_TOKEN + TICK_T}
+    if not (set(k3_t) <= checked3 and set(k4_t) <= checked4):
+        fail(f"path J: K3/K4 ran at (rows, T) {k3_t} / {k4_t}, beyond the streaming tick's "
+             f"lengths the kernel phase checked ({sorted(checked3)} / {sorted(checked4)})")
+
+    # a second call, timed: the streams as a user gets them
+    with CallSpy(streaming, "t3_generate_resume", lambda a, k, o: o[1].steps) as resume_spy:
+        chunks, ttfa, ticks, wall = stream_run(tts, conds, STREAM_TEXTS, st, **kw)
+    audio = [sum(len(c) for c in cs) / tts.sr for cs in chunks]
+    t3_s = sum(s for _, s in resume_spy.calls)
+    t3_steps = resume_spy.calls[-1][0]
+    print(f"path J: stream_aggregate_audio_sec_per_s_n{N_STREAMS} {sum(audio) / wall:.4f} "
+          f"({sum(audio):.3f} s of audio in {wall:.3f} s); time to first audio per stream "
+          f"{json.dumps([round(x, 4) for x in ttfa])} s; {len(ticks)} ticks, "
+          f"{1e3 * wall / len(ticks):.2f} ms a tick (first {1e3 * ticks[0]:.2f}, median "
+          f"{1e3 * float(np.median(ticks)):.2f}); T3 {t3_s:.3f} s for {t3_steps} steps, "
+          f"{1e3 * t3_s / t3_steps:.3f} ms a step; synthesis {wall - t3_s:.3f} s, "
+          f"{1e3 * (wall - t3_s) / len(ticks):.2f} ms a tick; per-stream audio "
+          f"{json.dumps([round(a, 3) for a in audio])} s on {card}", flush=True)
+
+    # the exact-window stream against generate_batch, zero vocoder noise
+    snr, per_chunk = stream_window_sweep(tts, conds)
+    if not (snr > STREAM_SNR_DB and per_chunk[-1] > STREAM_LAST_SNR_DB):
+        fail(f"path J: the exact-window stream is {snr:.2f} dB from generate_batch's wav (its "
+             f"last chunk {per_chunk[-1]:.2f} dB), not above {STREAM_SNR_DB} dB "
+             f"({STREAM_LAST_SNR_DB} dB)")
+    return counts
+
+
+def stream_window_sweep(tts, conds):
+    """Path J's exact-window stream (``STREAM_EXACT_TOKENS`` tokens) against
+    ``generate_batch`` on the same seed, both with the vocoder's noise
+    zeroed, at each of ``STREAM_SWEEP``'s (magnitude gain, flow_ctx_tokens):
+    the gains the check's ``STREAM_EXACT_GAIN`` was chosen among, and a cut
+    window, whose last chunk must stay under ``STREAM_LAST_SNR_DB`` (else
+    that bound does not tell a cut window from a whole one). Prints each
+    reading; returns (whole-wav SNR, per-chunk SNRs) at ``STREAM_EXACT_GAIN``
+    with the whole history in the window."""
+    import numpy as np
+
+    from chatterbox_tpu_torch.models.s3gen import s3gen as s3gen_mod
+    from chatterbox_tpu_torch.pipeline import streaming
+
+    text = STREAM_TEXTS[0]
+    ekw = dict(seed=3, min_new_tokens=STREAM_EXACT_TOKENS - 1)
+    hift = tts.s3gen_params["hift"]
+    post = hift["conv_post"]
+    n_freq = tts.s3gen_cfg.hift.istft_n_fft // 2 + 1
+    readings, wants = {}, {}
+    try:
+        for gain, ctx in STREAM_SWEEP:
+            bias = post["b"].clone()
+            bias[:n_freq] += math.log(gain)
+            hift["conv_post"] = {**post, "b": bias}
+            ex = streaming.StreamConfig(max_new_tokens=STREAM_EXACT_TOKENS, flow_ctx_tokens=ctx)
+            with ZeroNoise(streaming), ZeroNoise(s3gen_mod):
+                streamed, _, _, _ = stream_run(tts, conds, [text], ex, **ekw)
+                if gain not in wants:
+                    wants[gain] = tts.generate_batch([text], conds=conds,
+                                                     max_new_tokens=STREAM_EXACT_TOKENS, **ekw)[0]
+            want = wants[gain]
+            got = np.concatenate(streamed[0])
+            if len(got) != len(want):
+                fail(f"path J: the stream at flow_ctx_tokens {ctx} gave {len(got)} samples, "
+                     f"generate_batch {len(want)}")
+            ends = np.cumsum([0] + [len(c) for c in streamed[0]])
+            per_chunk = [_snr_db(got[a:b], want[a:b]) for a, b in zip(ends[:-1], ends[1:])]
+            readings[gain, ctx] = (_snr_db(got, want), per_chunk)
+            print(f"path J: window stream ({STREAM_EXACT_TOKENS} tokens, flow_ctx_tokens {ctx}, "
+                  f"{len(streamed[0])} chunks, {len(got)} samples, peak {np.abs(got).max():.4f}) "
+                  f"against generate_batch (peak {np.abs(want).max():.4f}, rms "
+                  f"{np.sqrt(np.mean(want.astype(np.float64) ** 2)):.5f}), vocoder noise zeroed "
+                  f"on both, magnitude gain {gain:g}: SNR {readings[gain, ctx][0]:.2f} dB; per "
+                  f"chunk {json.dumps([round(x, 2) for x in per_chunk])} dB", flush=True)
+    finally:
+        hift["conv_post"] = post
+    cut = min(ctx for _, ctx in STREAM_SWEEP)
+    cut_last = readings[STREAM_EXACT_GAIN, cut][1][-1]
+    print(f"path J: exact-window check at gain {STREAM_EXACT_GAIN:g}: the last chunk "
+          f"{readings[STREAM_EXACT_GAIN, STREAM_EXACT_TOKENS][1][-1]:.2f} dB with the whole "
+          f"history, {cut_last:.2f} dB at flow_ctx_tokens {cut} (bound {STREAM_LAST_SNR_DB} dB); "
+          f"the whole wav's bound {STREAM_SNR_DB} dB", flush=True)
+    if cut_last > STREAM_LAST_SNR_DB:
+        fail(f"path J: a {cut}-token window's last chunk is {cut_last:.2f} dB from "
+             f"generate_batch's, above the {STREAM_LAST_SNR_DB} dB bound meant to fail it")
+    return readings[STREAM_EXACT_GAIN, STREAM_EXACT_TOKENS]
+
+
+def preemptible_path(tts, conds, card):
+    """Path K: ``generate_batch_preemptible`` of the 8 texts at MAX_NEW
+    tokens, T3 in chunks of ``PREEMPT_CHUNK`` and S3Gen in one group,
+    against ``generate_batch`` on the same seed: speech tokens and wavs
+    equal bit for bit, cuDNN deterministic. The calls run in turns
+    (one-shot, preemptible, preemptible, one-shot); the first preemptible
+    one with the launch counters set to 0 just before it and read just
+    after. Returns its counts."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    kw = dict(conds=conds, seed=0, max_new_tokens=MAX_NEW)
+    walls, outs = {"one-shot": [], "preemptible": []}, {}
+
+    def call(name, count=False):
+        if count:
+            reset_launch_counts()
+        t0 = time.time()
+        if name == "one-shot":
+            wavs = tts.generate_batch(TEXTS, **kw)
+        else:
+            wavs = tts.generate_batch_preemptible(TEXTS, t3_chunk_tokens=PREEMPT_CHUNK,
+                                                  s3gen_max_rows=None, **kw)
+        torch.cuda.synchronize()
+        walls[name].append(time.time() - t0)
+        outs.setdefault(name, (wavs, [r.copy() for r in tts.last_speech_tokens]))
+        return launch_counts() if count else None
+
+    with deterministic_cudnn():
+        call("one-shot")
+        counts = call("preemptible", count=True)
+        call("preemptible")
+        call("one-shot")
+    (w1, t1), (w2, t2) = outs["one-shot"], outs["preemptible"]
+    check_wavs("K", w2, N_TEXTS)
+    same_tok = all(len(a) == len(b) and (a == b).all() for a, b in zip(t1, t2))
+    same_wav = all(np.array_equal(a, b) for a, b in zip(w1, w2))
+    print(f"path K: generate_batch_preemptible (t3_chunk_tokens {PREEMPT_CHUNK}, one S3Gen "
+          f"group): speech tokens equal to generate_batch's: {same_tok}; wavs bit-identical: "
+          f"{same_wav}", flush=True)
+    if not (same_tok and same_wav):
+        fail("path K: generate_batch_preemptible differs from generate_batch on the same seed")
+    check_launches("K", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
+                   {_K1A: T3_LAYERS * (MAX_NEW - 1)})
+    audio_s = sum(len(w) for w in w1) / tts.sr
+    print(f"path K: {N_TEXTS} texts at {MAX_NEW} tokens, warm walls in turns: one-shot "
+          f"{walls['one-shot'][0]:.3f} / {walls['one-shot'][1]:.3f} s, preemptible "
+          f"{walls['preemptible'][0]:.3f} / {walls['preemptible'][1]:.3f} s (the first "
+          f"preemptible call counted launches); audio {audio_s:.3f} s, audio_sec_per_s "
+          f"one-shot {2 * audio_s / sum(walls['one-shot']):.4f}, preemptible "
+          f"{2 * audio_s / sum(walls['preemptible']):.4f} on {card}", flush=True)
+    print("path K: kernel launches " + json.dumps(counts), flush=True)
+    return counts
+
+
+def _http(port, path, method="GET", body=None, ctype="application/json"):
+    """(status, parsed JSON or bytes, seconds) of one request to the smoke
+    run's own server on localhost."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if isinstance(body, dict) else body
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", ctype)
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            raw, status = resp.read(), resp.status
+            is_json = "json" in resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        raw, status, is_json = e.read(), e.code, True
+    return status, (json.loads(raw) if is_json and raw else raw), time.time() - t0
+
+
+def _http_stream(port, body, on_first_audio=None):
+    """A /generate/stream request read chunk by chunk: (status, int16 PCM,
+    seconds to the first audio, seconds in all); ``on_first_audio()`` is
+    called when the first audio arrives."""
+    import http.client
+
+    import numpy as np
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.time()
+    conn.request("POST", "/generate/stream", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data, first = b"", None
+    while True:
+        part = resp.read1(1 << 16)
+        if not part:
+            break
+        if first is None:
+            first = time.time() - t0
+            if on_first_audio is not None:
+                on_first_audio()
+        data += part
+    conn.close()
+    return resp.status, np.frombuffer(data, "<i2"), first, time.time() - t0
+
+
+def server_path(tts, conds, card, ref_path, work_dir):
+    """Path L: the stdlib server (``run_server(background=True)``) on
+    127.0.0.1 and an ephemeral port, over this full-width model on the card,
+    driven over HTTP: /health (device cuda); a voice upload (path D's
+    reference WAV) and an emotion profile over it; 4 concurrent /generate at
+    MAX_NEW tokens, which must coalesce (fewer than 4 batches); a seeded
+    /generate of the profile, equal to a direct ``generate_batch`` on its
+    conditionals and seed; 2 concurrent /generate/stream while a bulk
+    /generate runs, which must go preemptibly; /generate/stream with
+    ``alignment`` answering 400. cuDNN deterministic throughout. Prints each
+    request's latency and each stream's time to first audio. Returns the
+    launch counts of the whole path."""
+    import base64
+    import io
+    import threading
+    import wave
+
+    import numpy as np
+
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.serve.config import ServerConfig
+    from chatterbox_tpu_torch.serve.server import run_server
+
+    cfg = ServerConfig(host="127.0.0.1", port=0, device="cuda",
+                       voice_storage_path=os.path.join(work_dir, "voices"),
+                       config_storage_path=os.path.join(work_dir, "configs"),
+                       cache_path=os.path.join(work_dir, "cache"),
+                       output_path=os.path.join(work_dir, "outputs"))
+    saved_conds, tts.conds = tts.conds, conds  # the server's default voice
+    reset_launch_counts()
+    httpd = run_server(cfg, tts=tts, background=True)
+    service, port = httpd.service, httpd.server_address[1]
+    lat = {}
+    try:
+        with deterministic_cudnn():
+            status, health, lat["health"] = _http(port, "/health")
+            if status != 200 or health["device"] != "cuda" or not health["model_loaded"]:
+                fail(f"path L: /health answered {status}: {health}")
+            with open(ref_path, "rb") as f:
+                status, up, lat["voice upload"] = _http(
+                    port, "/voices/upload?filename=reference.wav", "POST", f.read(),
+                    "audio/wav")
+            status2, prof, lat["emotion create"] = _http(
+                port, "/emotions", "POST", {"id": "narrator", "exaggeration": 0.5,
+                                            "voice_samples": ["reference.wav"]})
+            if status != 200 or status2 != 200:
+                fail(f"path L: voice upload / emotion profile answered {status} / {status2}")
+
+            # 4 concurrent /generate: one or more coalesced batches
+            b0 = dict(service.batcher.stats)
+            res = [None] * 4
+
+            def gen(i):
+                res[i] = _http(port, "/generate", "POST",
+                               {"text": TEXTS[i], "max_new_tokens": MAX_NEW})
+
+            threads = [threading.Thread(target=gen, args=(i,)) for i in range(4)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            batches = service.batcher.stats["batches"] - b0["batches"]
+            for i, (status, j, sec) in enumerate(res):
+                lat[f"concurrent generate {i}"] = sec
+                if status != 200 or not j["success"] or j["duration_seconds"] <= 0:
+                    fail(f"path L: concurrent /generate {i} answered {status}")
+            print(f"path L: 4 concurrent /generate at {MAX_NEW} tokens ran as {batches} "
+                  f"batches (largest {service.batcher.stats['max_batch_seen']})", flush=True)
+            if not 1 <= batches < 4:
+                fail(f"path L: 4 concurrent /generate ran as {batches} batches, not coalesced")
+
+            # a seeded /generate of the profile against a direct call
+            body = {"text": TEXTS[4], "emotion": "narrator", "seed": 17,
+                    "max_new_tokens": MAX_NEW}
+            status, j, lat["seeded generate (cold profile)"] = _http(port, "/generate", "POST",
+                                                                     body)
+            if status != 200:
+                fail(f"path L: seeded /generate answered {status}: {j}")
+            with wave.open(io.BytesIO(base64.b64decode(j["audio_base64"]))) as w:
+                got = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+            direct = tts.generate_batch([TEXTS[4]], conds=service.voices.get_conditionals(
+                "narrator"), seed=17, max_new_tokens=MAX_NEW, exaggeration=0.5)[0]
+            want = (np.clip(direct, -1, 1) * 32767).astype(np.int16)
+            same = np.array_equal(got, want)
+            print(f"path L: seeded /generate ({len(got)} samples) equal to a direct "
+                  f"generate_batch on the profile's conditionals: {same}", flush=True)
+            if not same:
+                fail("path L: the seeded /generate differs from the direct call")
+
+            # 2 concurrent streams, and a bulk /generate while they run
+            # (the bulk request goes once a stream has sounded: the streams'
+            # group is then live, which is what admission control reads)
+            streams, sounding = [None, None], threading.Event()
+
+            def stream(i):
+                streams[i] = _http_stream(port, {"text": STREAM_TEXTS[i],
+                                                 "max_new_tokens": MAX_NEW}, sounding.set)
+
+            p0 = service.batcher.stats["preempted_batches"]
+            threads = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+            for th in threads:
+                th.start()
+            if not sounding.wait(timeout=300):
+                fail("path L: no stream gave audio within 300 s")
+            status, j, lat["bulk generate during streams"] = _http(
+                port, "/generate", "POST", {"text": TEXTS[5], "max_new_tokens": MAX_NEW})
+            for th in threads:
+                th.join()
+            preempted = service.batcher.stats["preempted_batches"] - p0
+            if status != 200:
+                fail(f"path L: the bulk /generate during the streams answered {status}")
+            for i, (s_status, pcm, first, sec) in enumerate(streams):
+                lat[f"stream {i}"] = sec
+                print(f"path L: stream {i}: {s_status}, {len(pcm)} samples "
+                      f"({len(pcm) / tts.sr:.3f} s of audio), time to first audio "
+                      f"{first if first is None else round(first, 4)} s, {sec:.3f} s in all",
+                      flush=True)
+                if s_status != 200 or len(pcm) == 0 or len(pcm) % 960:
+                    fail(f"path L: stream {i} answered {s_status} with {len(pcm)} samples")
+            print(f"path L: bulk /generate while 2 streams ran: {preempted} preemptible "
+                  f"batches; stream batcher {json.dumps(service.stream_batcher.stats)}",
+                  flush=True)
+            if preempted < 1:
+                fail("path L: the bulk /generate during the streams did not run preemptibly")
+
+            status, j, lat["stream with alignment"] = _http(
+                port, "/generate/stream", "POST",
+                {"text": TEXTS[6], "alignment": True, "max_new_tokens": MAX_NEW})
+            print(f"path L: /generate/stream with alignment=true answered {status}: {j}",
+                  flush=True)
+            if status != 400:
+                fail(f"path L: /generate/stream with alignment answered {status}, not 400")
+            status, health, _ = _http(port, "/health")
+            print("path L: /health after: " + json.dumps(health), flush=True)
+    finally:
+        httpd.shutdown()
+        service.batcher.shutdown()
+        service.stream_batcher.shutdown()
+        tts.conds = saved_conds
+    counts = launch_counts()
+    check_launches("L", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5))
+    print("path L: request latencies (s) " + json.dumps({k: round(v, 4) for k, v in lat.items()})
+          + f" on {card}", flush=True)
+    print("path L: kernel launches " + json.dumps(counts), flush=True)
+    return counts
+
+
+def main_path(card, ref_path, work_dir):
     import torch
 
     from chatterbox_tpu_torch import ChatterboxTTS
@@ -1640,6 +2326,13 @@ def main_path(card, ref_path):
             t0 = time.time()
             counts["I"], cap_checks = cap_path(tts, conds, card)
             print(f"path I: {time.time() - t0:.1f} s", flush=True)
+            # paths J, K and L on the bf16 weights too
+            for path, run in (("J", lambda: stream_path(tts, conds, card)),
+                              ("K", lambda: preemptible_path(tts, conds, card)),
+                              ("L", lambda: server_path(tts, conds, card, ref_path, work_dir))):
+                t0 = time.time()
+                counts[path] = run()
+                print(f"path {path}: {time.time() - t0:.1f} s", flush=True)
             t0 = time.time()
             apply_tts_precision(tts, weight_quant=True)
             layers = tts.t3_params["llama"]["layers"]
@@ -1843,6 +2536,7 @@ def main():
         ref_path, src_paths, src_lens = write_audio(audio_dir)
         t0 = time.time()
         rows = kernel_phase()
+        merge_tick_checks(rows, tick_kernel_checks())
         rows.update(probe_kernel_phase())
         t1 = time.time()
         probes, probe_counts = probe_phase(card)
@@ -1850,7 +2544,7 @@ def main():
         reference_phase()
         conditioning_reference(ref_path)
         t3 = time.time()
-        counts, cap_checks = main_path(card, ref_path)
+        counts, cap_checks = main_path(card, ref_path, audio_dir)
         t4 = time.time()
         vc_counts = vc_path(card, ref_path, src_paths, src_lens)
         t5 = time.time()

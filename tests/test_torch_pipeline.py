@@ -283,6 +283,7 @@ def _params(fn):
 
 @pytest.mark.parametrize("cls,method", [("ChatterboxTTS", "generate"),
                                         ("ChatterboxTTS", "generate_batch"),
+                                        ("ChatterboxTTS", "generate_batch_preemptible"),
                                         ("ChatterboxVC", "generate"),
                                         ("ChatterboxVC", "generate_batch")])
 def test_public_methods_take_positional_arguments_in_jax_order(cls, method):

@@ -228,10 +228,17 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax():
+    """No module of the port (serve/ and pipeline/streaming.py included) and
+    no line of chip_smoke.py imports JAX, the JAX package, bench.py, or
+    pydantic and fastapi, which the card's machine does not have."""
     bad = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+chatterbox_tpu\b(?!_torch)"
-                     r"|from\s+chatterbox_tpu\b(?!_torch)|import\s+chatterbox_tpu\.|from\s+chatterbox_tpu\.)",
+                     r"|from\s+chatterbox_tpu\b(?!_torch)|import\s+chatterbox_tpu\.|from\s+chatterbox_tpu\."
+                     r"|(import|from)\s+(pydantic|fastapi|bench)\b)",
                      re.M)
-    hits = [f"{p}: {m.group(0).strip()}" for p in _port_sources()
+    sources = _port_sources()
+    assert REPO / "chatterbox_tpu_torch" / "pipeline" / "streaming.py" in sources
+    assert REPO / "chatterbox_tpu_torch" / "serve" / "server.py" in sources
+    hits = [f"{p}: {m.group(0).strip()}" for p in sources
             for m in bad.finditer(p.read_text())]
     assert not hits, hits
 
@@ -277,8 +284,16 @@ vc = ChatterboxVC(tts.s3gen_params, "cpu", s3)
 v = vc.generate(synthetic_voice(1, 0.5, 16000), target_voice_path=None if vc.set_target_voice(
     synthetic_voice(2, 0.8, 24000)) is None else None)
 assert v.shape == (1, 13 * 960), v.shape
+import chatterbox_tpu_torch.serve.server
+from chatterbox_tpu_torch.pipeline.streaming import StreamConfig, stream_generate
+chunks = list(stream_generate(tts, "Two ticks.", conds=conds, min_new_tokens=7,
+                              stream=StreamConfig(chunk_tokens=4, first_chunk_tokens=0,
+                                                  max_new_tokens=8)))
+assert len(chunks) == 2 and all(0 < len(c) <= 4 * 960 and len(c) % 960 == 0
+                                for c in chunks), [len(c) for c in chunks]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-             or m == "chatterbox_tpu" or m.startswith("chatterbox_tpu."))
+             or m == "chatterbox_tpu" or m.startswith("chatterbox_tpu.")
+             or m.split(".")[0] in ("pydantic", "fastapi", "bench"))
 assert not bad, bad
 print("OK")
 """
@@ -289,10 +304,13 @@ print("OK")
 
 
 @pytest.mark.parametrize("entry", ["from_random", "from_native", "vc_from_random",
-                                   "vc_from_native"])
-def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monkeypatch):
+                                   "vc_from_native", "tts_service"])
+def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monkeypatch,
+                                                        tmp_path):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
     from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
+    from chatterbox_tpu_torch.serve.config import ServerConfig
+    from chatterbox_tpu_torch.serve.service import TTSService
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -302,8 +320,13 @@ def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monke
             ChatterboxTTS.from_native(native_dir)
         elif entry == "vc_from_random":
             ChatterboxVC.from_random(seed=0, s3gen_cfg=P_S3GEN)
-        else:
+        elif entry == "vc_from_native":
             ChatterboxVC.from_native(native_dir)
+        else:  # the server's "auto" device is the card, never the CPU
+            TTSService(ServerConfig(device="auto", voice_storage_path=str(tmp_path / "v"),
+                                    config_storage_path=str(tmp_path / "c"),
+                                    cache_path=str(tmp_path / "k"),
+                                    output_path=str(tmp_path / "o")))
 
 
 def test_vc_runs_where_asked(native_dir):
