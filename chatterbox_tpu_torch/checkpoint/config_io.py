@@ -1,6 +1,6 @@
-"""Typed-config reading for native checkpoints (the ``config.json`` that the
-JAX package's ``save_native`` writes next to the params). Keys a port config
-does not have are ignored."""
+"""Typed configs of native checkpoints: the ``config.json`` that
+``save_native`` (either package's) writes next to the params, and reads.
+Keys a port config does not have are ignored."""
 
 import dataclasses
 import json
@@ -27,8 +27,24 @@ def config_from_dict(cls, data):
     return cls(**kwargs)
 
 
+def _to_dict(cfg):
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: _to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return list(cfg)
+    return cfg
+
+
 def _tuplify(v):
     return tuple(_tuplify(x) if isinstance(x, list) else x for x in v)
+
+
+def save_configs(path, t3_cfg, s3gen_cfg, ve_cfg):
+    """Write the three configs as the JAX package's ``save_configs`` does
+    (checkpoint/config_io.py:45-53), so its ``load_configs`` reads them."""
+    payload = {"t3": _to_dict(t3_cfg), "s3gen": _to_dict(s3gen_cfg), "ve": _to_dict(ve_cfg)}
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
 
 
 def load_configs(path):

@@ -2,12 +2,14 @@
 
 The port's own copy of the JAX package's reader: an 8-byte LE header length,
 a JSON header mapping names to {dtype, shape, data_offsets}, then raw
-little-endian tensor bytes. BF16 payloads are returned as uint16 arrays
-flagged in the second return value; ``weights.py`` views them as
+little-endian tensor bytes, memory-mapped when read. BF16 payloads are
+returned as uint16 arrays flagged in the second return value, and written
+from uint16 arrays named in ``bf16``; ``weights.py`` views them as
 ``torch.bfloat16`` without a float round trip.
 """
 
 import json
+import os
 import struct
 
 import numpy as np
@@ -41,11 +43,16 @@ _TO_ST_DTYPE = {
 def load_safetensors(path):
     """Read a .safetensors file -> (dict[name, np.ndarray], set of BF16 names).
 
-    BF16 tensors come back as their uint16 bit patterns."""
+    The arrays are read-only views of the memory-mapped file (a checkpoint
+    of gigabytes is paged in as its tensors are read). BF16 tensors come
+    back as their uint16 bit patterns."""
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len).decode("utf-8"))
-        data = f.read()
+    start = 8 + header_len
+    # np.memmap cannot map an empty region (a file of empty tensors only)
+    data = (np.memmap(path, dtype=np.uint8, mode="r", offset=start)
+            if os.path.getsize(path) > start else b"")
     out, bf16 = {}, set()
     for name, meta in header.items():
         if name == "__metadata__":
@@ -58,27 +65,33 @@ def load_safetensors(path):
     return out, bf16
 
 
-def save_safetensors(tensors, path, metadata=None):
-    """Write dict[name, np.ndarray] to a .safetensors file."""
+def save_safetensors(tensors, path, metadata=None, bf16=()):
+    """Write dict[name, np.ndarray] to a .safetensors file; the uint16
+    arrays named in ``bf16`` are bfloat16 bit patterns, tagged BF16. Each
+    tensor is written from its own buffer, not gathered into one."""
     header = {}
     if metadata:
         header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
     offset = 0
-    blobs = []
+    arrays = []
     for name, arr in tensors.items():
         arr = np.ascontiguousarray(arr)
-        if arr.dtype not in _TO_ST_DTYPE:
-            arr = arr.astype(np.float32)
-        header[name] = {
-            "dtype": _TO_ST_DTYPE[arr.dtype],
-            "shape": list(arr.shape),
-            "data_offsets": [offset, offset + arr.nbytes],
-        }
+        if name in bf16:
+            if arr.dtype != np.uint16:
+                raise ValueError(f"{name}: a BF16 tensor is written from its uint16 bits, "
+                                 f"not {arr.dtype}")
+            dtype = "BF16"
+        else:
+            if arr.dtype not in _TO_ST_DTYPE:
+                arr = arr.astype(np.float32)
+            dtype = _TO_ST_DTYPE[arr.dtype]
+        header[name] = {"dtype": dtype, "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + arr.nbytes]}
         offset += arr.nbytes
-        blobs.append(arr.tobytes())
+        arrays.append(arr)
     hjson = json.dumps(header).encode("utf-8")
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(hjson)))
         f.write(hjson)
-        for b in blobs:
-            f.write(b)
+        for arr in arrays:
+            f.write(arr.data)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint import torch_convert as tc
 from ...core.layers import conv1d, layer_norm, leaky_relu, linear
 from ...ops.flash_attention import flash_relpos_attention
 
@@ -131,3 +132,41 @@ def upsample_conformer_encoder(p, x, cfg: ConformerConfig = ConformerConfig(), k
     for lp in p["up_encoders"]:
         y = conformer_layer(lp, y, cfg, up_mask)
     return layer_norm(p["after_norm"], y, 1e-5)
+
+
+def convert_upsample_conformer(sd, cfg: ConformerConfig = ConformerConfig(), prefix=""):
+    """Reference ``UpsampleConformerEncoder`` state dict -> the JAX package's
+    tree (numpy), as ``chatterbox_tpu/models/s3gen/conformer.py``'s."""
+    def layer(lp):
+        a = f"{lp}.self_attn."
+        return {
+            "norm_mha": tc.layer_norm(sd, f"{lp}.norm_mha"),
+            "norm_ff": tc.layer_norm(sd, f"{lp}.norm_ff"),
+            "attn": {
+                "q": tc.linear(sd, a + "linear_q"),
+                "k": tc.linear(sd, a + "linear_k"),
+                "v": tc.linear(sd, a + "linear_v"),
+                "out": tc.linear(sd, a + "linear_out"),
+                "pos": tc.linear(sd, a + "linear_pos"),
+                "pos_bias_u": tc.as_numpy(sd[a + "pos_bias_u"]),
+                "pos_bias_v": tc.as_numpy(sd[a + "pos_bias_v"]),
+            },
+            "ff_w1": tc.linear(sd, f"{lp}.feed_forward.w_1"),
+            "ff_w2": tc.linear(sd, f"{lp}.feed_forward.w_2"),
+        }
+
+    def embed(ep):
+        return {"linear": tc.linear(sd, f"{ep}.out.0"), "ln": tc.layer_norm(sd, f"{ep}.out.1")}
+
+    return {
+        "embed": embed(prefix + "embed"),
+        "pre_lookahead": {
+            "conv1": tc.conv1d(sd, prefix + "pre_lookahead_layer.conv1"),
+            "conv2": tc.conv1d(sd, prefix + "pre_lookahead_layer.conv2"),
+        },
+        "encoders": [layer(f"{prefix}encoders.{i}") for i in range(cfg.num_blocks)],
+        "up_layer": {"conv": tc.conv1d(sd, prefix + "up_layer.conv")},
+        "up_embed": embed(prefix + "up_embed"),
+        "up_encoders": [layer(f"{prefix}up_encoders.{i}") for i in range(cfg.num_up_blocks)],
+        "after_norm": tc.layer_norm(sd, prefix + "after_norm"),
+    }

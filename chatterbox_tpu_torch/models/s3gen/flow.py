@@ -13,9 +13,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
-from .conformer import ConformerConfig, upsample_conformer_encoder
-from .unet import UNetConfig, unet_forward
+from .conformer import ConformerConfig, convert_upsample_conformer, upsample_conformer_encoder
+from .unet import UNetConfig, convert_unet, unet_forward
 
 
 @dataclass(frozen=True)
@@ -107,3 +108,15 @@ def flow_inference(p, cfg: FlowConfig, token, token_len, prompt_token, prompt_to
     else:
         mel = solve_euler(p, cfg, noise[:, :t_mel], h, spks, conds, mask=mel_mask)
     return mel.float(), mel_mask
+
+
+def convert_flow(sd, cfg: FlowConfig = FlowConfig(), prefix="flow."):
+    """Reference flow state dict -> the JAX package's tree (numpy), as
+    ``chatterbox_tpu/models/s3gen/flow.py::convert_flow``."""
+    return {
+        "input_embedding": tc.embedding(sd, prefix + "input_embedding"),
+        "spk_embed_affine": tc.linear(sd, prefix + "spk_embed_affine_layer"),
+        "encoder": convert_upsample_conformer(sd, cfg.encoder, prefix + "encoder."),
+        "encoder_proj": tc.linear(sd, prefix + "encoder_proj"),
+        "estimator": convert_unet(sd, cfg.estimator, prefix + "decoder.estimator."),
+    }

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint import torch_convert as tc
 from ...core import dsp
 from ...core.layers import conv1d, conv_transpose1d, leaky_relu, linear, snake_fast
 
@@ -216,3 +217,40 @@ def hift_generate(p, cfg: HiFTConfig, mel, phase_noise=None, additive_noise=None
         source = source * _len_mask(n_valid * ups, source.shape[1], source.dtype)[..., 0]
     wav = hift_decode(p, cfg, mel, source, n_valid=n_valid, compute_dtype=compute_dtype)
     return (wav, source, f0) if return_f0 else (wav, source)
+
+
+def convert_hift(sd, cfg: HiFTConfig = HiFTConfig(), prefix: str = ""):
+    """Reference ``HiFTGenerator`` state dict -> the JAX package's tree
+    (numpy), as ``chatterbox_tpu/models/s3gen/hifigan.py::convert_hift``:
+    the weight-normed convs (``conv_pre``, ``ups``, the resblocks' convs,
+    ``conv_post``, the f0 predictor's) folded; ``prefix`` is ``mel2wav.``
+    inside the s3gen checkpoint."""
+    def res(rp, n):
+        return {
+            "convs1": [tc.conv1d(sd, f"{rp}.convs1.{i}", weight_norm=True) for i in range(n)],
+            "convs2": [tc.conv1d(sd, f"{rp}.convs2.{i}", weight_norm=True) for i in range(n)],
+            "alphas1": [{"alpha": tc.as_numpy(sd[f"{rp}.activations1.{i}.alpha"])}
+                        for i in range(n)],
+            "alphas2": [{"alpha": tc.as_numpy(sd[f"{rp}.activations2.{i}.alpha"])}
+                        for i in range(n)],
+        }
+
+    n_up = len(cfg.upsample_rates)
+    p = {
+        "conv_pre": tc.conv1d(sd, prefix + "conv_pre", weight_norm=True),
+        "ups": [tc.conv_transpose1d(sd, f"{prefix}ups.{i}", weight_norm=True)
+                for i in range(n_up)],
+        "source_downs": [tc.conv1d(sd, f"{prefix}source_downs.{i}") for i in range(n_up)],
+        "source_resblocks": [res(f"{prefix}source_resblocks.{i}",
+                                 len(cfg.source_resblock_dilation_sizes[i])) for i in range(n_up)],
+        "resblocks": [res(f"{prefix}resblocks.{i}", len(cfg.resblock_dilation_sizes[i % 3]))
+                      for i in range(len(cfg.resblock_kernel_sizes) * n_up)],
+        "conv_post": tc.conv1d(sd, prefix + "conv_post", weight_norm=True),
+        "m_source_linear": tc.linear(sd, prefix + "m_source.l_linear"),
+    }
+    p["f0_predictor"] = {
+        "convs": [tc.conv1d(sd, f"{prefix}f0_predictor.condnet.{2 * i}", weight_norm=True)
+                  for i in range(5)],
+        "classifier": tc.linear(sd, prefix + "f0_predictor.classifier"),
+    }
+    return p

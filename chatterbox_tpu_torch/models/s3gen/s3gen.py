@@ -17,10 +17,10 @@ import torch
 from ...constants import S3_SR, S3GEN_SR
 from ...core.dsp import s3gen_mel_spectrogram
 from ...core.resample import resample
-from ..s3tokenizer import S3TokenizerConfig, s3_tokenize
-from .flow import FlowConfig, flow_inference
-from .hifigan import HiFTConfig, hift_generate
-from .xvector import CAMPPlusConfig, campplus_embed_wav
+from ..s3tokenizer import S3TokenizerConfig, convert_s3tokenizer, s3_tokenize, s3tok_config_from_sd
+from .flow import FlowConfig, convert_flow, flow_inference
+from .hifigan import HiFTConfig, convert_hift, hift_generate
+from .xvector import CAMPPlusConfig, campplus_embed_wav, convert_campplus
 
 
 @dataclass(frozen=True)
@@ -54,6 +54,33 @@ def with_flow_steps(cfg: S3GenConfig, steps: int) -> S3GenConfig:
     if steps == cfg.flow.n_timesteps:
         return cfg
     return replace(cfg, flow=replace(cfg.flow, n_timesteps=steps))
+
+
+def infer_s3gen_config(sd, cfg: S3GenConfig = None) -> S3GenConfig:
+    """``cfg`` (default: S3GenConfig()) with the tokenizer's architecture read
+    from the checkpoint's ``tokenizer.*`` shapes when it has them
+    (``s3tok_config_from_sd``), as the JAX package's ``infer_s3gen_config``."""
+    cfg = cfg or S3GenConfig()
+    if any(k.startswith("tokenizer.") for k in sd):
+        cfg = replace(cfg, tokenizer=s3tok_config_from_sd(sd, "tokenizer."))
+    return cfg
+
+
+def convert_s3gen(sd, cfg: S3GenConfig = S3GenConfig()):
+    """The reference ``s3gen.safetensors`` state dict -> the JAX package's
+    S3Gen tree (numpy): the flow, HiFT (``mel2wav.``), CAMPPlus
+    (``speaker_encoder.``) and the S3 tokenizer (``tokenizer.``), which is
+    None for a checkpoint without it, as in the JAX package."""
+    p = {
+        "flow": convert_flow(sd, cfg.flow, prefix="flow."),
+        "hift": convert_hift(sd, cfg.hift, prefix="mel2wav."),
+        "campplus": convert_campplus(sd, cfg.campplus, prefix="speaker_encoder."),
+    }
+    try:
+        p["tokenizer"] = convert_s3tokenizer(sd, cfg.tokenizer, prefix="tokenizer.")
+    except KeyError:
+        p["tokenizer"] = None
+    return p
 
 
 class RefDict(NamedTuple):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint import torch_convert as tc
 from ...core.layers import causal_conv1d, conv1d, layer_norm, linear, merge_heads, mish, split_heads
 from ...ops.flash_attention import flash_self_attention, flash_self_attention_packed
 
@@ -118,3 +119,49 @@ def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None):
     h = causal_conv1d(p["up_conv"], h * mask_c)
     h = _causal_block(p["final_block"], h, mask_c)
     return conv1d(p["final_proj"], h * mask_c) * mask_c
+
+
+def convert_unet(sd, cfg: UNetConfig = UNetConfig(), prefix=""):
+    """Reference ``ConditionalDecoder`` state dict -> the JAX package's tree
+    (numpy), as ``chatterbox_tpu/models/s3gen/unet.py::convert_unet``: each
+    attention's ``to_q``/``to_k``/``to_v`` fused into one ``to_qkv``, so
+    ``_attn`` takes K3 wherever its width is a multiple of 128."""
+    def resnet(rp):
+        return {
+            "block1": {"conv": tc.conv1d(sd, f"{rp}.block1.block.0"),
+                       "ln": tc.layer_norm(sd, f"{rp}.block1.block.2")},
+            "block2": {"conv": tc.conv1d(sd, f"{rp}.block2.block.0"),
+                       "ln": tc.layer_norm(sd, f"{rp}.block2.block.2")},
+            "mlp": tc.linear(sd, f"{rp}.mlp.1"),
+            "res_conv": tc.conv1d(sd, f"{rp}.res_conv"),
+        }
+
+    def tf(bp):
+        qkv = [tc.linear(sd, f"{bp}.attn1.to_{n}")["w"] for n in "qkv"]
+        return {
+            "norm1": tc.layer_norm(sd, f"{bp}.norm1"),
+            "norm3": tc.layer_norm(sd, f"{bp}.norm3"),
+            "attn": {"to_qkv": {"w": np.concatenate(qkv, axis=1)},
+                     "to_out": tc.linear(sd, f"{bp}.attn1.to_out.0")},
+            "ff_in": tc.linear(sd, f"{bp}.ff.net.0.proj"),
+            "ff_out": tc.linear(sd, f"{bp}.ff.net.2"),
+        }
+
+    return {
+        "time_mlp1": tc.linear(sd, prefix + "time_mlp.linear_1"),
+        "time_mlp2": tc.linear(sd, prefix + "time_mlp.linear_2"),
+        "down_resnet": resnet(prefix + "down_blocks.0.0"),
+        "down_tf": [tf(f"{prefix}down_blocks.0.1.{i}") for i in range(cfg.n_blocks)],
+        "down_conv": tc.conv1d(sd, prefix + "down_blocks.0.2"),
+        "mid": [
+            {"resnet": resnet(f"{prefix}mid_blocks.{m}.0"),
+             "tf": [tf(f"{prefix}mid_blocks.{m}.1.{i}") for i in range(cfg.n_blocks)]}
+            for m in range(cfg.num_mid_blocks)
+        ],
+        "up_resnet": resnet(prefix + "up_blocks.0.0"),
+        "up_tf": [tf(f"{prefix}up_blocks.0.1.{i}") for i in range(cfg.n_blocks)],
+        "up_conv": tc.conv1d(sd, prefix + "up_blocks.0.2"),
+        "final_block": {"conv": tc.conv1d(sd, prefix + "final_block.block.0"),
+                        "ln": tc.layer_norm(sd, prefix + "final_block.block.2")},
+        "final_proj": tc.conv1d(sd, prefix + "final_proj"),
+    }

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint import torch_convert as tc
 from ...core.fbank import kaldi_fbank
 from ...core.layers import batch_norm, conv1d, conv2d
 
@@ -107,3 +108,50 @@ def campplus_embed_wav(p, cfg: CAMPPlusConfig, wav16):
     time, forward (xvector.py:45-58, 425-428)."""
     feats = kaldi_fbank(wav16, num_mel_bins=cfg.feat_dim)
     return campplus_forward(p, cfg, feats - feats.mean(dim=1, keepdim=True))
+
+
+def convert_campplus(sd, cfg: CAMPPlusConfig = CAMPPlusConfig(), prefix="speaker_encoder."):
+    """Reference ``CAMPPlus`` state dict -> the JAX package's tree (numpy), as
+    ``chatterbox_tpu/models/s3gen/xvector.py::convert_campplus``: the FCM
+    head's conv2d (KH, KW, Cin, Cout), the batch norms' statistics."""
+    def res_block(rp, stride):
+        p = {"conv1": tc.conv2d(sd, f"{rp}.conv1"), "bn1": tc.batch_norm(sd, f"{rp}.bn1"),
+             "conv2": tc.conv2d(sd, f"{rp}.conv2"), "bn2": tc.batch_norm(sd, f"{rp}.bn2")}
+        if stride != 1:  # the head's channels stay m_channels: only the stride asks
+            p["shortcut_conv"] = tc.conv2d(sd, f"{rp}.shortcut.0")
+            p["shortcut_bn"] = tc.batch_norm(sd, f"{rp}.shortcut.1")
+        return p
+
+    head, x = prefix + "head.", prefix + "xvector."
+    p = {
+        "head": {
+            "conv1": tc.conv2d(sd, head + "conv1"),
+            "bn1": tc.batch_norm(sd, head + "bn1"),
+            "layer1": [res_block(head + "layer1.0", 2), res_block(head + "layer1.1", 1)],
+            "layer2": [res_block(head + "layer2.0", 2), res_block(head + "layer2.1", 1)],
+            "conv2": tc.conv2d(sd, head + "conv2"),
+            "bn2": tc.batch_norm(sd, head + "bn2"),
+        },
+        "tdnn": {"conv": tc.conv1d(sd, x + "tdnn.linear"),
+                 "nl": tc.batch_norm(sd, x + "tdnn.nonlinear.batchnorm")},
+        "blocks": [],
+    }
+    for bi, n_layers in enumerate(cfg.block_layers, start=1):
+        layers = []
+        for i in range(n_layers):
+            lp = f"{x}block{bi}.tdnnd{i + 1}."
+            layers.append({
+                "nl1": tc.batch_norm(sd, lp + "nonlinear1.batchnorm"),
+                "lin1": tc.conv1d(sd, lp + "linear1"),
+                "nl2": tc.batch_norm(sd, lp + "nonlinear2.batchnorm"),
+                "cam": {"local": tc.conv1d(sd, lp + "cam_layer.linear_local"),
+                        "lin1": tc.conv1d(sd, lp + "cam_layer.linear1"),
+                        "lin2": tc.conv1d(sd, lp + "cam_layer.linear2")},
+            })
+        p["blocks"].append({"layers": layers,
+                            "transit_nl": tc.batch_norm(sd, f"{x}transit{bi}.nonlinear.batchnorm"),
+                            "transit": tc.conv1d(sd, f"{x}transit{bi}.linear")})
+    p["out_nl"] = tc.batch_norm(sd, x + "out_nonlinear.batchnorm")
+    p["dense"] = {"conv": tc.conv1d(sd, x + "dense.linear"),
+                  "bn": tc.batch_norm(sd, x + "dense.nonlinear.batchnorm")}
+    return p

@@ -4,8 +4,9 @@ Port of ``chatterbox_tpu/models/s3tokenizer.py`` (the S3TokenizerV2
 encoder): two stride-2 convs with GELU (100 -> 25 frames a second), Whisper
 sinusoids, pre-norm attention blocks with an FSMN memory branch on the
 values, then FSQ: project to 8 dims, round each tanh to 3 levels, pack in
-radix 3. The port takes the JAX package's parameter tree through
-``weights.py``; it has no converter of its own.
+radix 3. ``convert_s3tokenizer`` reads the upstream checkpoint into the
+JAX package's tree (``weights.py`` makes the port's layouts), with the
+architecture read from the tensor shapes (``s3tok_config_from_sd``).
 
 Two things decide every token:
   - with ``mel_lens``, pad keys are masked and pad tokens zeroed; without
@@ -14,12 +15,14 @@ Two things decide every token:
     package. On the card run it with TF32 off (``device.full_fp32``).
 """
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..checkpoint import torch_convert as tc
 from ..constants import EOS, S3_TOKEN_RATE, SOS, SPEECH_VOCAB_SIZE
 from ..core.dsp import s3tok_log_mel_spectrogram
 from ..core.layers import conv1d, layer_norm, linear, merge_heads, sdpa, split_heads
@@ -131,3 +134,96 @@ def drop_invalid_tokens(tokens: np.ndarray) -> np.ndarray:
     e = int(np.argmax(tokens == EOS)) if (tokens == EOS).any() else len(tokens)
     out = tokens[s:e]
     return out[out < SPEECH_VOCAB_SIZE]
+
+
+# checkpoint buffers recomputed here (the sinusoids) or of the mel frontend
+# (the reference S3Tokenizer registers them, s3tokenizer.py:38-52)
+_IGNORED_SUFFIXES = ("_mel_filters", "window", "positional_embedding")
+
+
+def _fsq_key(sd, prefix):
+    return next((k for k in sd if k.startswith(prefix) and k.endswith("project_down.weight")),
+                None)
+
+
+def s3tok_config_from_sd(sd, prefix: str) -> S3TokenizerConfig:
+    """The architecture of the tokenizer under ``prefix`` from the
+    checkpoint's tensor shapes, as the JAX package's
+    ``s3tok_config_from_sd``: n_mels and n_state from conv1, n_layer by
+    counting blocks, the FSMN kernel and the FSQ width from their weights,
+    n_audio_ctx from the positional buffer when shipped. The head count,
+    which shapes cannot tell, is n_state // 64."""
+    n_state, n_mels, _ = tuple(sd[prefix + "encoder.conv1.weight"].shape)
+    block = re.compile(re.escape(prefix) + r"encoder\.blocks\.(\d+)\.")
+    layer_ids = {int(m.group(1)) for k in sd if (m := block.match(k))}
+    if not layer_ids or layer_ids != set(range(max(layer_ids) + 1)):
+        raise KeyError(f"non-contiguous/empty encoder.blocks indices: {sorted(layer_ids)}")
+    fsq_key = _fsq_key(sd, prefix)
+    if fsq_key is None:
+        raise KeyError(f"no '*project_down.weight' (FSQ) key under prefix {prefix!r}")
+    pos_key = prefix + "encoder.positional_embedding"
+    return S3TokenizerConfig(
+        n_mels=n_mels,
+        n_audio_ctx=tuple(sd[pos_key].shape)[0] if pos_key in sd else S3TokenizerConfig.n_audio_ctx,
+        n_state=n_state,
+        n_head=max(n_state // 64, 1),
+        n_layer=max(layer_ids) + 1,
+        fsq_dim=tuple(sd[fsq_key].shape)[0],
+        fsmn_kernel=tuple(sd[prefix + "encoder.blocks.0.attn.fsmn_block.weight"].shape)[-1],
+    )
+
+
+def convert_s3tokenizer(sd, cfg: S3TokenizerConfig, prefix: str):
+    """The upstream S3TokenizerV2 checkpoint's subtree under ``prefix`` ->
+    the JAX package's tree (numpy), as its ``convert_s3tokenizer`` with an
+    explicit config: a missing key raises KeyError naming it, a key under
+    the prefix left unread raises ValueError, and a shipped positional
+    buffer must equal the sinusoids."""
+    consumed = set()
+    sub = tc.TrackingDict(sd, consumed)
+    fsq_key = _fsq_key(sd, prefix) or prefix + "quantizer.project_down.weight"
+    fsq_prefix = fsq_key[: -len(".weight")]
+
+    def blk(i):
+        b = f"{prefix}encoder.blocks.{i}."
+        return {
+            "attn_ln": tc.layer_norm(sub, b + "attn_ln"),
+            "q": tc.linear(sub, b + "attn.query"),
+            "k": tc.linear(sub, b + "attn.key"),
+            "v": tc.linear(sub, b + "attn.value"),
+            "fsmn": tc.conv1d(sub, b + "attn.fsmn_block"),
+            "attn_out": tc.linear(sub, b + "attn.out"),
+            "mlp_ln": tc.layer_norm(sub, b + "mlp_ln"),
+            "mlp1": tc.linear(sub, b + "mlp.0"),
+            "mlp2": tc.linear(sub, b + "mlp.2"),
+        }
+
+    params = {
+        "conv1": tc.conv1d(sub, prefix + "encoder.conv1"),
+        "conv2": tc.conv1d(sub, prefix + "encoder.conv2"),
+        "blocks": [blk(i) for i in range(cfg.n_layer)],
+        "ln_post": tc.layer_norm(sub, prefix + "encoder.ln_post"),
+        "fsq_proj": tc.linear(sub, fsq_prefix),
+    }
+    c = cfg.n_state
+    checks = {
+        "conv1.w": (params["conv1"]["w"].shape, (3, cfg.n_mels, c)),
+        "fsq_proj.w": (params["fsq_proj"]["w"].shape, (c, cfg.fsq_dim)),
+        "blocks.0.fsmn.w": (params["blocks"][0]["fsmn"]["w"].shape, (cfg.fsmn_kernel, 1, c)),
+    }
+    for name, (got, want) in checks.items():
+        if tuple(got) != want:
+            raise ValueError(f"s3tokenizer {name}: shape {tuple(got)} != expected {want}")
+    unconsumed = [k for k in sd if k.startswith(prefix) and k not in consumed
+                  and not k.endswith(_IGNORED_SUFFIXES)]
+    if unconsumed:
+        raise ValueError(f"convert_s3tokenizer: {len(unconsumed)} checkpoint keys under "
+                         f"{prefix!r} were NOT consumed (layout drift?): "
+                         f"{sorted(unconsumed)[:20]}")
+    pos_key = prefix + "encoder.positional_embedding"
+    if pos_key in sd:
+        shipped = tc.as_numpy(sd[pos_key])
+        if not np.allclose(shipped, _sinusoids(*shipped.shape), atol=1e-4):
+            raise ValueError("s3tokenizer positional_embedding in checkpoint differs from "
+                             "recomputed sinusoids -- encoder variant mismatch")
+    return params

@@ -7,6 +7,7 @@ t3/modules/cond_enc.py:64-97 and t3/modules/perceiver.py:55-212).
 
 import torch
 
+from ...checkpoint import torch_convert as tc
 from ...core.layers import layer_norm, linear, merge_heads, sdpa, split_heads
 
 
@@ -35,3 +36,23 @@ def cond_embeds(p, speaker_emb, prompt_speech_emb, emotion_adv):
     prompt = perceiver(p["perceiver"], prompt_speech_emb)
     emo = linear(p["emotion_adv_fc"], emotion_adv[:, None, None])
     return torch.cat([spkr, prompt, emo], dim=1)
+
+
+def convert_cond_enc(sd, prefix="cond_enc."):
+    """Reference ``T3CondEnc`` state dict -> the JAX package's tree (numpy),
+    as ``chatterbox_tpu/models/t3/cond_enc.py::convert_cond_enc``."""
+    attn = prefix + "perceiver.attn."
+    return {
+        "spkr_enc": tc.linear(sd, prefix + "spkr_enc"),
+        "emotion_adv_fc": tc.linear(sd, prefix + "emotion_adv_fc"),
+        "perceiver": {
+            "query": tc.as_numpy(sd[prefix + "perceiver.pre_attention_query"]),
+            "attn": {
+                "norm": tc.layer_norm(sd, attn + "norm"),
+                "to_q": tc.linear(sd, attn + "to_q"),
+                "to_k": tc.linear(sd, attn + "to_k"),
+                "to_v": tc.linear(sd, attn + "to_v"),
+                "proj_out": tc.linear(sd, attn + "proj_out"),
+            },
+        },
+    }

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...checkpoint.torch_convert import as_numpy
 from ...core.layers import merge_heads, rms_norm, sdpa, split_heads
 from ...ops.flash_decode import (
     TAIL_W,
@@ -350,3 +351,28 @@ def kv_cache_write(cache, new_kv, write_pos: int):
     kv_cache_append(cache.tail, new_kv, write_pos - merge_base)
     if (write_pos + 1) % TAIL_W == 0:
         kv_cache_quantize_write(cache.values, cache.scales, cache.tail, merge_base)
+
+
+def convert_llama(sd, cfg: LlamaConfig, prefix="tfmr."):
+    """HF ``LlamaModel`` state dict -> the JAX package's stacked tree (numpy,
+    (L, Cin, Cout) weights; ``gate_up`` the gate and up projections side by
+    side), as ``chatterbox_tpu/models/t3/llama.py::convert_llama``."""
+    def stack(fmt, transpose=True):
+        ws = [as_numpy(sd[fmt.format(i=i)]) for i in range(cfg.num_hidden_layers)]
+        return np.stack([w.T if transpose else w for w in ws])
+
+    layer = prefix + "layers.{i}."
+    return {
+        "layers": {
+            "input_ln": {"scale": stack(layer + "input_layernorm.weight", False)},
+            "q": {"w": stack(layer + "self_attn.q_proj.weight")},
+            "k": {"w": stack(layer + "self_attn.k_proj.weight")},
+            "v": {"w": stack(layer + "self_attn.v_proj.weight")},
+            "o": {"w": stack(layer + "self_attn.o_proj.weight")},
+            "post_ln": {"scale": stack(layer + "post_attention_layernorm.weight", False)},
+            "gate_up": {"w": np.concatenate([stack(layer + "mlp.gate_proj.weight"),
+                                             stack(layer + "mlp.up_proj.weight")], axis=-1)},
+            "down": {"w": stack(layer + "mlp.down_proj.weight")},
+        },
+        "final_ln": {"scale": as_numpy(sd[prefix + "norm.weight"])},
+    }

@@ -20,11 +20,13 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
 from .alignment import alignment_step, init_align_state
-from .cond_enc import cond_embeds
-from .llama import LLAMA_520M, LlamaConfig, layer_params, llama_decode_step, llama_prefill
+from .cond_enc import cond_embeds, convert_cond_enc
+from .llama import (LLAMA_520M, LlamaConfig, convert_llama, layer_params, llama_decode_step,
+                    llama_prefill)
 
 # the decode loop reads "every row done" on the host once per this many steps
 # (each read waits for the card)
@@ -55,6 +57,21 @@ class T3Config:
     @property
     def dim(self) -> int:
         return self.llama.hidden_size
+
+
+def convert_t3(sd, cfg: T3Config = T3Config()):
+    """The reference ``t3_cfg.safetensors`` state dict -> the JAX package's
+    T3 tree (numpy), as ``chatterbox_tpu/models/t3/t3.py::convert_t3``."""
+    return {
+        "llama": convert_llama(sd, cfg.llama, prefix="tfmr."),
+        "cond_enc": convert_cond_enc(sd, "cond_enc."),
+        "text_emb": tc.embedding(sd, "text_emb"),
+        "speech_emb": tc.embedding(sd, "speech_emb"),
+        "text_pos_emb": tc.embedding(sd, "text_pos_emb.emb"),
+        "speech_pos_emb": tc.embedding(sd, "speech_pos_emb.emb"),
+        "text_head": tc.linear(sd, "text_head"),
+        "speech_head": tc.linear(sd, "speech_head"),
+    }
 
 
 def t3_cond_prefix(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv):

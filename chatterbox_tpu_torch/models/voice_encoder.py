@@ -11,6 +11,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..checkpoint import torch_convert as tc
 from ..core.layers import linear, lstm
 
 
@@ -72,3 +73,10 @@ def ve_embed_from_mels(p, cfg: VoiceEncoderConfig, mels, n_valid_windows=None):
         wmask = (torch.arange(n, device=mels.device)[None] < nv[:, None])[..., None]
         raw = (embeds * wmask).sum(dim=1) / nv[:, None].clamp(min=1).to(embeds.dtype)
     return raw / torch.linalg.norm(raw, dim=1, keepdim=True)
+
+
+def convert_voice_encoder(sd, cfg: VoiceEncoderConfig = VoiceEncoderConfig(), prefix=""):
+    """Reference ``ve.safetensors`` state dict -> the JAX package's tree
+    (numpy); the LSTM leaves stay in the JAX layout, as ``lstm`` takes them."""
+    return {"lstm": tc.lstm(sd, prefix + "lstm", cfg.num_layers),
+            "proj": tc.linear(sd, prefix + "proj")}

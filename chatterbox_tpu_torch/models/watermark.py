@@ -1,20 +1,33 @@
-"""Spread-spectrum audio watermark (the JAX package's default engine).
+"""Audio watermarks: the spread-spectrum engine and the neural Perth one.
 
-Port of ``SpreadSpectrumWatermarker`` from
-``chatterbox_tpu/models/watermark.py``: a deterministic, weightless
-multiplicative pattern on the STFT magnitudes of the 2-9 kHz band, one
-orthonormal pseudo-noise row per payload bit. The neural Perth engine is not
-part of this port.
+Port of ``chatterbox_tpu/models/watermark.py``. Both engines take a (B, T)
+batch on its device (``apply``, which the pipelines call inside
+``synthesize``) and numpy audio (``apply_watermark``, ``get_watermark``):
+  - ``SpreadSpectrumWatermarker``: a deterministic, weightless
+    multiplicative pattern on the STFT magnitudes of the 2-9 kHz band, one
+    orthonormal pseudo-noise row per payload bit;
+  - ``PerthNetImplicit``: a checkpointed network's tanh-bounded ripple on
+    the STFT log-magnitudes, phase kept, and a decoder conv stack whose
+    global-mean logit detects it. Its topology is rebuilt from the
+    checkpoint (``convert_perth``).
+``PerthImplicitWatermarker`` picks the engine as the JAX package's factory
+does: a Perth checkpoint given, else ``$CHATTERBOX_PERTH_CKPT``, else
+``perth.pth`` in this package's directory, else spread-spectrum.
 """
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..checkpoint.torch_convert import as_numpy
 from ..core import dsp
+from ..core.layers import conv1d
+from ..device import full_fp32
 
 
 @dataclass(frozen=True)
@@ -89,3 +102,161 @@ class SpreadSpectrumWatermarker:
     def get_watermark(self, wav, sample_rate: int = 24000) -> float:
         """1.0 when at least 75% of the all-ones payload's bits decode."""
         return 1.0 if float(np.mean(self.get_payload(wav, sample_rate))) >= 0.75 else 0.0
+
+
+def convert_perth(sd):
+    """A torch Perth state dict -> (params, meta), as the JAX package's
+    ``convert_perth``: the ``model``/``state_dict``/``network`` containers
+    and a ``module.`` prefix unwrapped, then the ``encoder.*`` and
+    ``decoder.*`` conv/linear stacks in the natural order of their indices,
+    in the JAX package's layouts (numpy float32; ``kind`` "conv" or
+    "linear"). Keys left unread raise ValueError; ``meta["unconsumed"]``
+    is kept, empty, as the JAX package returns it."""
+    import re
+
+    for wrap in ("model", "state_dict", "network"):
+        if wrap in sd and not hasattr(sd[wrap], "shape"):
+            sd = sd[wrap]
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    consumed = set()
+
+    def build_stack(group):
+        weight_keys = [k for k in sd if k.startswith(group + ".") and k.endswith("weight")
+                       and getattr(sd[k], "ndim", len(getattr(sd[k], "shape", ()))) >= 2]
+        layers = []
+        for wk in sorted(weight_keys, key=lambda k: [int(x) for x in re.findall(r"\d+", k)]):
+            w = as_numpy(sd[wk])
+            consumed.add(wk)
+            if w.ndim == 3:  # Conv1d (Cout, Cin, W) -> (W, Cin, Cout)
+                p, kind = {"w": np.transpose(w, (2, 1, 0)).astype(np.float32)}, "conv"
+            elif w.ndim == 2:  # Linear (Cout, Cin) -> (Cin, Cout)
+                p, kind = {"w": w.T.astype(np.float32)}, "linear"
+            else:
+                raise ValueError(f"unsupported weight rank for {wk}: {w.shape}")
+            bk = wk[: -len("weight")] + "bias"
+            if bk in sd:
+                p["b"] = as_numpy(sd[bk]).astype(np.float32)
+                consumed.add(bk)
+            layers.append({"kind": kind, **p})
+        if not layers:
+            raise KeyError(f"no '{group}.*weight' conv/linear keys in checkpoint")
+        return layers
+
+    enc, dec = build_stack("encoder"), build_stack("decoder")
+    unconsumed = sorted(k for k in sd if k not in consumed)
+    if unconsumed:
+        raise ValueError(f"convert_perth: {len(unconsumed)} checkpoint keys NOT consumed "
+                         f"(layout drift?): {unconsumed[:20]}")
+    n_bins = enc[0]["w"].shape[1]
+    meta = {"n_fft": (n_bins - 1) * 2, "n_bins": n_bins, "unconsumed": []}
+    return {"encoder": enc, "decoder": dec}, meta
+
+
+def load_perth_checkpoint(path):
+    """A torch Perth checkpoint file -> (params, meta). Read with
+    ``weights_only=False``, as the JAX package reads it (a published
+    checkpoint may pickle the module itself): load only a trusted file."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return convert_perth(sd)
+
+
+class PerthNetImplicit:
+    """The Perth-implicit neural watermarker (``chatterbox_tpu/models/
+    watermark.py::PerthNetImplicit``): an encoder-predicted, tanh-bounded
+    log-magnitude ripple on the STFT (n_fft from the checkpoint, hop
+    n_fft / 4), phase kept, and presence as the sigmoid of the decoder's
+    global-mean logit. Runs on the device of the audio it is given, in
+    full fp32."""
+
+    def __init__(self, params, meta=None, strength: float = 0.15):
+        self.params = params  # the JAX-layout tree of convert_perth
+        n_bins = params["encoder"][0]["w"].shape[1]
+        self.n_fft = (meta or {}).get("n_fft", (n_bins - 1) * 2)
+        self.hop = self.n_fft // 4
+        self.strength = strength
+        self._device_stacks = {}
+
+    @classmethod
+    def from_checkpoint(cls, path):
+        params, meta = load_perth_checkpoint(path)
+        return cls(params, meta)
+
+    def _stacks(self, device):
+        """(encoder, decoder) layers as tensors in PyTorch layouts on
+        ``device``, made once a device."""
+        if device not in self._device_stacks:
+            def layer(lp):
+                w = torch.from_numpy(np.asarray(lp["w"], np.float32))
+                w = w.permute(2, 1, 0) if lp["kind"] == "conv" else w.T
+                out = {"kind": lp["kind"], "w": w.contiguous().to(device)}
+                if "b" in lp:
+                    out["b"] = torch.from_numpy(np.asarray(lp["b"], np.float32)).to(device)
+                return out
+
+            self._device_stacks[device] = tuple([layer(lp) for lp in self.params[g]]
+                                                for g in ("encoder", "decoder"))
+        return self._device_stacks[device]
+
+    @staticmethod
+    def _stack(layers, x, final_tanh):
+        """x (B, T, F) frames through a stack, leaky_relu 0.2 between
+        layers (tests/torch_perth_ref.py)."""
+        for i, lp in enumerate(layers):
+            if lp["kind"] == "conv":
+                x = conv1d(lp, x, padding=(lp["w"].shape[-1] - 1) // 2)
+            else:
+                x = F.linear(x, lp["w"], lp.get("b"))
+            if i < len(layers) - 1:
+                x = F.leaky_relu(x, 0.2)
+        return torch.tanh(x) if final_tanh else x
+
+    def _logmag(self, x):
+        re_, im = dsp.stft(x, self.n_fft, self.hop, dsp.hann_window(self.n_fft))
+        return re_, im, torch.log(torch.sqrt(re_**2 + im**2) + 1e-6)
+
+    def apply(self, wav):
+        """Watermark (B, T) audio on its device; returns (B, T) float32."""
+        t_len = wav.shape[-1]
+        encoder, _ = self._stacks(wav.device)
+        with full_fp32():
+            x = F.pad(wav.float(), (0, (-t_len) % self.hop))
+            re_, im, logmag = self._logmag(x)
+            scale = torch.exp(self.strength * self._stack(encoder, logmag, final_tanh=True))
+            y = dsp.istft(re_ * scale, im * scale, self.n_fft, self.hop,
+                          dsp.hann_window(self.n_fft))
+        return F.pad(y, (0, max(0, t_len - y.shape[-1])))[:, :t_len]
+
+    def apply_watermark(self, wav, watermark=None, sample_rate: int = 24000):
+        """wav (T,) or (B, T) numpy float32 -> watermarked, same shape."""
+        y = self.apply(torch.from_numpy(np.atleast_2d(np.asarray(wav, np.float32)))).numpy()
+        return y[0] if np.ndim(wav) == 1 else y
+
+    def presence_logit(self, wav):
+        """(B,) presence logits of (T,) or (B, T) numpy audio."""
+        x = torch.from_numpy(np.atleast_2d(np.asarray(wav, np.float32)))
+        _, decoder = self._stacks(x.device)
+        with full_fp32():
+            _, _, logmag = self._logmag(x)
+            out = self._stack(decoder, logmag, final_tanh=False)
+        return out.mean(dim=(1, 2)).numpy()
+
+    def get_watermark(self, wav, sample_rate: int = 24000) -> float:
+        """1.0 when the first row's presence probability is over 0.5."""
+        logit = torch.from_numpy(self.presence_logit(wav)[:1])
+        return float(torch.sigmoid(logit)[0] > 0.5)
+
+
+def PerthImplicitWatermarker(cfg: WatermarkConfig = WatermarkConfig(), checkpoint=None):
+    """The reference's watermarker constructor (tts.py:126): the neural Perth
+    engine from ``checkpoint``, else from ``$CHATTERBOX_PERTH_CKPT``, else
+    from ``perth.pth`` beside this package's modules when it exists; else
+    the weightless spread-spectrum engine."""
+    cand = checkpoint or os.environ.get("CHATTERBOX_PERTH_CKPT")
+    if cand is None:
+        default = Path(__file__).resolve().parent.parent / "perth.pth"
+        cand = str(default) if default.exists() else None
+    if cand is not None:
+        return PerthNetImplicit.from_checkpoint(cand)
+    return SpreadSpectrumWatermarker(cfg)

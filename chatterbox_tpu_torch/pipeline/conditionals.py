@@ -1,5 +1,6 @@
 """Voice conditionals as immutable values of tensors, stored as safetensors
-with the same keys as the JAX package's ``Conditionals.save``."""
+with the same keys as the JAX package's ``Conditionals.save``, and read from
+the reference's ``conds.pt`` (``load_torch``)."""
 
 from typing import NamedTuple
 
@@ -67,4 +68,24 @@ class Conditionals(NamedTuple):
                        t["t3.emotion_adv"]),
             RefDict(t["gen.prompt_token"].to(torch.int32), t["gen.prompt_token_len"].to(torch.int32),
                     t["gen.prompt_feat"], t["gen.embedding"]),
+        )
+
+    @classmethod
+    def load_torch(cls, fpath) -> "Conditionals":
+        """A reference ``conds.pt`` (a torch pickle of ``{"t3": T3Cond's
+        fields, "gen": the ref dict}``, tts.py:91-103), read with
+        ``weights_only=True`` as the JAX package's ``load_torch``: the
+        emotion as (B,), the token tensors int32, CPU tensors."""
+        d = torch.load(fpath, map_location="cpu", weights_only=True)
+        t3d, gen = d["t3"], d["gen"]
+
+        def n(x, dtype=None):
+            x = torch.as_tensor(x).detach()
+            return x if dtype is None else x.to(dtype)
+
+        return cls(
+            T3CondData(n(t3d["speaker_emb"]), n(t3d["cond_prompt_speech_tokens"], torch.int32),
+                       n(t3d["emotion_adv"]).reshape(-1)),
+            RefDict(n(gen["prompt_token"], torch.int32), n(gen["prompt_token_len"], torch.int32),
+                    n(gen["prompt_feat"]), n(gen["embedding"])),
         )

@@ -30,9 +30,11 @@ shorter rows are right-padded and vocoded masked (``n_valid``).
 
 On the device a tick gathers the CFM noise, runs the flow, slices each
 row's vocoder span, draws the additive noise and vocodes to int16 PCM; only
-the PCM and the f0 come back to the host, where the first chunk's
-trim-fade and the watermark are applied. The loop is serial: the next T3
-chunk starts after this tick's synthesis.
+the PCM and the f0 come back to the host, where each row's new audio is
+cut out and the first chunk's trim-fade applied. Each emitted chunk goes
+back to the device for the watermark (the pipeline's engine, spread-
+spectrum or neural). The loop is serial: the next T3 chunk starts after
+this tick's synthesis.
 """
 
 from dataclasses import dataclass
@@ -279,5 +281,8 @@ class _ChunkSynthesizer:
                 out[:n] = 0.0
                 out[n: 2 * n] *= fade[: max(0, min(n, len(out) - n))]
             self.n_done[i] = len(cleans[i])
-            outs[i] = self.tts.watermarker.apply_watermark(out)
+            # the watermark on the device, as in synthesize (a neural engine
+            # would otherwise run on the host for every chunk)
+            chunk = self.tts.watermarker.apply(torch.from_numpy(out[None]).to(self.dev))
+            outs[i] = chunk[0].cpu().numpy()
         return outs

@@ -5,9 +5,11 @@ Port of ``chatterbox_tpu/pipeline/tts.py``: ``prepare_conditionals`` turns
 a reference wav into Conditionals (S3Gen's RefDict from ``embed_ref``, T3's
 prompt tokens from the S3 tokenizer, the voice-encoder embedding), and
 ``generate_batch`` runs text -> ids -> T3 (CFG decode) -> host token
-compaction -> S3Gen (flow + HiFT + trim-fade) -> spread-spectrum watermark
--> int16 PCM. Shapes are bucketed as in the JAX package (TEXT_BUCKETS,
-TOKEN_BUCKETS) so both packages see the same padded batches. Entry points
+compaction -> S3Gen (flow + HiFT + trim-fade) -> watermark on the device
+batch (spread-spectrum, or the neural Perth engine when a Perth checkpoint
+is found: ``models/watermark.PerthImplicitWatermarker``) -> int16 PCM.
+Shapes are bucketed as in the JAX package (TEXT_BUCKETS, TOKEN_BUCKETS) so
+both packages see the same padded batches. Entry points
 run on ``cuda`` unless the caller passes ``device``; without a GPU and
 without a device they raise. The conditioning modules (voice encoder,
 CAMPPlus, S3 tokenizer) stay fp32 and run with TF32 off.
@@ -50,20 +52,25 @@ import numpy as np
 import torch
 
 from .. import weights
-from ..checkpoint.config_io import load_configs
+from ..checkpoint.config_io import load_configs, save_configs
+from ..checkpoint.pytree_io import save_params
+from ..checkpoint.torch_convert import read_safetensors
 from ..constants import S3_SR, S3GEN_SR, SPEECH_VOCAB_SIZE
 from ..core.dsp import ve_mel_spectrogram
 from ..core.resample import resample
 from ..core.sampling import SamplingConfig
 from ..device import full_fp32, resolve_device
-from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_from_env,
-                                  s3gen_wav, with_flow_steps)
+from ..models.s3gen.s3gen import (RefDict, S3GenConfig, convert_s3gen, embed_ref,
+                                  flow_steps_from_env, infer_s3gen_config, s3gen_wav,
+                                  with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.t3.llama import canonicalize_llama_params
-from ..models.t3.t3 import T3Config, t3_generate, t3_generate_resume, t3_generate_start
+from ..models.t3.t3 import (T3Config, convert_t3, t3_generate, t3_generate_resume,
+                            t3_generate_start)
 from ..models.tokenizer import EnTokenizer
-from ..models.voice_encoder import VoiceEncoderConfig, frame_step, num_wins, ve_embed_from_mels
-from ..models.watermark import SpreadSpectrumWatermarker
+from ..models.voice_encoder import (VoiceEncoderConfig, convert_voice_encoder, frame_step,
+                                    num_wins, ve_embed_from_mels)
+from ..models.watermark import PerthImplicitWatermarker
 from .audio import load_wav, trim_silence
 from .conditionals import Conditionals, T3CondData
 
@@ -131,15 +138,17 @@ def random_s3gen(cfg: S3GenConfig, seed: int, device) -> dict:
     }
 
 
-def native_s3gen(path, device) -> dict:
-    """An ``s3gen.jax.safetensors`` file -> S3Gen parameters on ``device``,
-    cast as in ``random_s3gen`` (CAMPPlus and the tokenizer when present)."""
-    s3 = weights.load_native(path)
-    params = {"flow": weights.tree_to(s3["flow"], device, _default_dtype(device))}
-    for name in ("hift", "campplus", "tokenizer"):
-        if s3.get(name) is not None:
-            params[name] = weights.tree_to(s3[name], device, torch.float32)
-    return params
+def _s3gen_dtype(name: str, device) -> torch.dtype:
+    """The flow in the working dtype; HiFT, CAMPPlus and the S3 tokenizer fp32."""
+    return _default_dtype(device) if name == "flow" else torch.float32
+
+
+def cast_s3gen(params, device) -> dict:
+    """S3Gen parameters in the port's layouts (``load_native``'s, or
+    ``from_jax_tree`` of ``convert_s3gen``'s) -> on ``device``, cast as in
+    ``random_s3gen``; a None tokenizer (a checkpoint without one) stays None."""
+    return {name: weights.tree_to(sub, device, _s3gen_dtype(name, device))
+            for name, sub in params.items()}
 
 
 def cfm_noise(device) -> torch.Tensor:
@@ -301,7 +310,9 @@ class ChatterboxTTS:
         # its compacted speech tokens, one array a text
         self.last_timings = {}
         self.last_speech_tokens = []
-        self.watermarker = SpreadSpectrumWatermarker()
+        # the neural Perth engine when a checkpoint is found, else
+        # spread-spectrum (models/watermark.py's factory, tts.py:142)
+        self.watermarker = PerthImplicitWatermarker()
         self._cfm_noise = cfm_noise(self.device)
         # the largest batch one dispatch takes, and the largest chunk of the
         # pipelined path, with the KV-cache byte budgets of
@@ -365,9 +376,78 @@ class ChatterboxTTS:
         conds = None
         if (ckpt / "conds.safetensors").exists():
             conds = Conditionals.load(ckpt / "conds.safetensors")
-        return cls(t3_params, native_s3gen(ckpt / "s3gen.jax.safetensors", dev), dev, tokenizer=tok,
+        s3gen_params = cast_s3gen(weights.load_native(ckpt / "s3gen.jax.safetensors"), dev)
+        return cls(t3_params, s3gen_params, dev, tokenizer=tok,
                    t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg, conds=conds, ve_params=ve_params,
                    ve_cfg=ve_cfg)
+
+    @classmethod
+    def from_local(cls, ckpt_dir, conds_path: str = None, device=None) -> "ChatterboxTTS":
+        """Load the reference checkpoint set (``ve``, ``t3_cfg`` and
+        ``s3gen.safetensors``, ``tokenizer.json``, and ``conds.pt`` or else
+        ``conds.safetensors``), converting the torch layouts once, as the
+        JAX package's ``from_local`` (tts.py:193-225): the default configs
+        with the tokenizer's read from the s3gen checkpoint's shapes
+        (``infer_s3gen_config``), a uniform ``model.`` key prefix of
+        ``t3_cfg`` dropped. Cast as in ``from_random``. Each module's state
+        dict is read memory-mapped, converted, moved to the device leaf by
+        leaf and dropped before the next is read."""
+        dev = resolve_device(device)
+        ckpt_dir = Path(ckpt_dir)
+        t3_cfg, s3gen_cfg, ve_cfg = T3Config(), S3GenConfig(), VoiceEncoderConfig()
+        ve_params = weights.tree_to(weights.from_jax_tree(convert_voice_encoder(
+            read_safetensors(ckpt_dir / "ve.safetensors"), ve_cfg)), dev, torch.float32)
+        t3_sd = read_safetensors(ckpt_dir / "t3_cfg.safetensors")
+        # the reference unwraps a "model"-keyed T3 state (tts.py:146-147);
+        # in a safetensors file that is a uniform "model." prefix
+        if t3_sd and all(k.startswith("model.") for k in t3_sd):
+            t3_sd = {k[len("model."):]: v for k, v in t3_sd.items()}
+        t3_params = weights.tree_to(weights.from_jax_tree(convert_t3(t3_sd, t3_cfg)), dev,
+                                    _default_dtype(dev))
+        del t3_sd
+        s3_sd = read_safetensors(ckpt_dir / "s3gen.safetensors")
+        s3gen_cfg = infer_s3gen_config(s3_sd, s3gen_cfg)
+        s3gen_params = cast_s3gen(weights.from_jax_tree(convert_s3gen(s3_sd, s3gen_cfg)), dev)
+        del s3_sd
+        conds = None
+        conds_file = Path(conds_path or ckpt_dir / "conds.pt")
+        if conds_file.exists():
+            conds = Conditionals.load_torch(conds_file)
+        elif (ckpt_dir / "conds.safetensors").exists():
+            conds = Conditionals.load(ckpt_dir / "conds.safetensors")
+        tok = EnTokenizer(str(ckpt_dir / "tokenizer.json"))
+        return cls(t3_params, s3gen_params, dev, tokenizer=tok, t3_cfg=t3_cfg,
+                   s3gen_cfg=s3gen_cfg, conds=conds, ve_params=ve_params, ve_cfg=ve_cfg)
+
+    @classmethod
+    def from_pretrained(cls, ckpt_dir=None, device=None) -> "ChatterboxTTS":
+        """``from_local`` of a directory that already holds the published
+        set: no download (tts.py:226-235), so no directory raises."""
+        if ckpt_dir is None:
+            raise ValueError(
+                "No network egress: pass ckpt_dir containing ve/t3_cfg/s3gen "
+                ".safetensors + tokenizer.json (the ResembleAI/chatterbox set)")
+        return cls.from_local(ckpt_dir, device=device)
+
+    def save_native(self, out_dir):
+        """Write the parameters as the native checkpoint the JAX package's
+        ``save_native`` writes (tts.py:274-299): ``t3``/``s3gen``/
+        ``ve.jax.safetensors`` in its layouts (bf16 leaves as BF16),
+        ``config.json`` and ``conds.safetensors``. T3 is written in the
+        canonical q/k/v layout from a copy: a runtime layout in place stays."""
+        out = Path(out_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        t3 = self.t3_params
+        if self._runtime_llama_layout(t3):
+            t3 = {**t3, "llama": canonicalize_llama_params(t3["llama"], self.t3_cfg.llama,
+                                                           t3["speech_emb"]["w"].dtype)}
+        save_params(weights.jax_layout(t3), out / "t3.jax.safetensors")
+        save_params(weights.jax_layout(self.s3gen_params), out / "s3gen.jax.safetensors")
+        if self.ve_params is not None:
+            save_params(weights.jax_layout(self.ve_params), out / "ve.jax.safetensors")
+        save_configs(out / "config.json", self.t3_cfg, self.s3gen_cfg, self.ve_cfg)
+        if self.conds is not None:
+            self.conds.save(out / "conds.safetensors")
 
     # ---------------------------------------------------------- conditioning
     @torch.inference_mode()

@@ -29,16 +29,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import weights
 from ..checkpoint.config_io import load_configs
+from ..checkpoint.torch_convert import read_safetensors
 from ..constants import S3_SR, S3GEN_SR
 from ..device import full_fp32, resolve_device
-from ..models.s3gen.s3gen import (RefDict, S3GenConfig, embed_ref, flow_steps_from_env,
-                                  with_flow_steps)
+from ..models.s3gen.s3gen import (RefDict, S3GenConfig, convert_s3gen, embed_ref,
+                                  flow_steps_from_env, with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
-from ..models.watermark import SpreadSpectrumWatermarker
+from ..models.watermark import PerthImplicitWatermarker
 from .audio import load_wav
-from .tts import (TOKEN_BUCKETS, _bucket, cfm_noise, collect, native_s3gen, random_s3gen,
-                  synthesize)
+from .conditionals import Conditionals
+from .tts import TOKEN_BUCKETS, _bucket, cast_s3gen, cfm_noise, collect, random_s3gen, synthesize
 
 _SAMPLES_PER_TOKEN = S3_SR // 25  # 640 at 16 kHz
 
@@ -56,7 +58,7 @@ class ChatterboxVC:
         self.s3gen_cfg = flow_steps_from_env(s3gen_cfg)
         self.ref_dict = ref_dict
         self.sr = S3GEN_SR
-        self.watermarker = SpreadSpectrumWatermarker()
+        self.watermarker = PerthImplicitWatermarker()
         self._cfm_noise = cfm_noise(self.device)
         # host seconds of the last generate_batch, ending in the int16 copy
         # (under defer_collect, in S3Gen's dispatch)
@@ -80,7 +82,25 @@ class ChatterboxVC:
         s3gen_cfg = S3GenConfig()
         if (ckpt / "config.json").exists():
             s3gen_cfg = load_configs(ckpt / "config.json")[1]
-        return cls(native_s3gen(ckpt / "s3gen.jax.safetensors", dev), dev, s3gen_cfg)
+        return cls(cast_s3gen(weights.load_native(ckpt / "s3gen.jax.safetensors"), dev), dev,
+                   s3gen_cfg)
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device=None) -> "ChatterboxVC":
+        """S3Gen from the reference set's ``s3gen.safetensors`` at the default
+        config, and the target voice from its ``conds.pt`` when there is
+        one, as the JAX package's ``from_local`` (vc.py:69-80); cast as in
+        ``from_random``."""
+        dev = resolve_device(device)
+        ckpt_dir = Path(ckpt_dir)
+        cfg = S3GenConfig()
+        params = cast_s3gen(weights.from_jax_tree(convert_s3gen(
+            read_safetensors(ckpt_dir / "s3gen.safetensors"), cfg)), dev)
+        ref_dict = None
+        if (ckpt_dir / "conds.pt").exists():
+            gen = Conditionals.load_torch(ckpt_dir / "conds.pt").gen
+            ref_dict = RefDict(*(x.to(dev) for x in gen))
+        return cls(params, dev, cfg, ref_dict)
 
     @torch.inference_mode()
     def set_target_voice(self, wav_fpath_or_array) -> RefDict:

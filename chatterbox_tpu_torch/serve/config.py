@@ -19,7 +19,7 @@ class ServerConfig(Schema):
     host: str = "0.0.0.0"
     port: int = F(8000, ge=0, le=65535)  # 0: an ephemeral port
     device: str = "auto"  # auto (the card) | cuda | cpu
-    model_dir: str = ""  # a native checkpoint directory; empty: random weights (dev)
+    model_dir: str = ""  # a native or reference checkpoint set; empty: random weights (dev)
     voice_storage_path: str = "storage/voices"
     config_storage_path: str = "storage/configs"
     cache_path: str = "storage/cache"

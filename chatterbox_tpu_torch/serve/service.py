@@ -4,10 +4,11 @@ package's ``serve/service.py``, with its route set: /health, /generate,
 /generate/stream, /emotions CRUD + test, /voices upload/list/remove,
 /outputs files and the / web UI.
 
-The model: the ``tts`` given, else ``from_native(model_dir)`` (the native
-checkpoint format; the reference checkpoint set is not read yet, ROADMAP
-A20), else seeded random weights (a development server), on the configured
-device (``auto``: the card, never the CPU on its own). ``health()``
+The model: the ``tts`` given, else ``model_dir`` loaded with
+``from_native`` (a native checkpoint) or ``from_local`` (the reference
+checkpoint set), else seeded random weights (a development server), on
+the configured device (``auto``: the card, never the CPU on its own).
+``health()``
 reports the torch device and its allocator's memory. Unlike the JAX
 package, ``/generate/stream`` refuses ``alignment=true`` (a ValueError: 400)
 instead of dropping it: the streaming carry runs no watchdog.
@@ -56,16 +57,16 @@ def wav_bytes(wav: np.ndarray, sr: int) -> bytes:
 
 
 def load_model(cfg: ServerConfig) -> ChatterboxTTS:
-    """The configured model on the configured device: ``from_native`` of a
-    non-empty ``model_dir`` (which must hold ``t3.jax.safetensors``, else
-    ValueError), else seeded random weights."""
+    """The configured model on the configured device: a non-empty
+    ``model_dir`` loads with ``from_native`` when it holds a native
+    checkpoint (``t3.jax.safetensors``) and with ``from_local`` (the
+    reference checkpoint set) otherwise, as the JAX service; without one,
+    seeded random weights."""
     device = resolve_device(None if cfg.device == "auto" else cfg.device)
     if cfg.model_dir:
-        if not (Path(cfg.model_dir) / "t3.jax.safetensors").exists():
-            raise ValueError(
-                f"{cfg.model_dir} holds no native checkpoint (t3.jax.safetensors); the port "
-                "does not read the reference checkpoint set (from_local) yet: ROADMAP A20")
-        return ChatterboxTTS.from_native(cfg.model_dir, device=device)
+        if (Path(cfg.model_dir) / "t3.jax.safetensors").exists():
+            return ChatterboxTTS.from_native(cfg.model_dir, device=device)
+        return ChatterboxTTS.from_local(cfg.model_dir, device=device)
     logger.warning("CHATTERBOX_MODEL_DIR unset: serving random-weight model (dev mode)")
     return ChatterboxTTS.from_random(device=device)
 

@@ -21,12 +21,14 @@ layout.
 
 ``load_native`` reads the ``*.jax.safetensors`` files the JAX package's
 ``save_native`` writes: keys are slash-joined tree paths, ``#i`` a list
-index and ``@none`` a None leaf (checkpoint/pytree_io.py:16-51).
+index and ``@none`` a None leaf (``checkpoint/pytree_io.py``, whose
+``save_params`` writes them from ``jax_layout`` trees).
 """
 
 import numpy as np
 import torch
 
+from .checkpoint.pytree_io import unflatten
 from .checkpoint.safetensors_io import load_safetensors
 
 _EMBEDDINGS = {"text_emb", "speech_emb", "text_pos_emb", "speech_pos_emb", "input_embedding"}
@@ -106,16 +108,19 @@ def from_jax_tree(tree):
     return _map_tree(tree, conv)
 
 
+def jax_layout(params):
+    """The port's parameters -> CPU tensors in the JAX package's layouts,
+    dtypes kept (the tree ``checkpoint/pytree_io.save_params`` writes)."""
+    return _map_tree(params, lambda path, t: _from_port(t.detach().cpu(), _layout(path, t.ndim)))
+
+
 def to_jax_tree(params):
     """Inverse of ``from_jax_tree``: the port's parameters -> numpy arrays in
     the JAX package's layouts (bf16 tensors come back as float32)."""
     def conv(path, t):
-        t = _from_port(t.detach().cpu(), _layout(path, t.ndim))
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.numpy()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    return _map_tree(params, conv)
+    return _map_tree(jax_layout(params), conv)
 
 
 def tree_to(tree, device=None, dtype=None):
@@ -128,28 +133,6 @@ def tree_to(tree, device=None, dtype=None):
     return _map_tree(tree, conv)
 
 
-def _unflatten(flat):
-    root = {}
-    for key, val in flat.items():
-        parts = key.split("/")
-        node = root
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = val
-
-    def convert(node):
-        if not isinstance(node, dict):
-            return node
-        if "@none" in node:
-            return None
-        keys = list(node.keys())
-        if keys and all(k.startswith("#") for k in keys):
-            return [convert(node[k]) for k in sorted(keys, key=lambda k: int(k[1:]))]
-        return {k: convert(v) for k, v in node.items()}
-
-    return convert(root)
-
-
 def load_native(path):
     """A ``save_native`` ``*.jax.safetensors`` file -> the port's parameters
     (CPU tensors, PyTorch layouts). BF16 payloads are viewed as
@@ -159,7 +142,7 @@ def load_native(path):
     for name, a in arrays.items():
         t = torch.from_numpy(a.copy())
         flat[name] = t.view(torch.bfloat16) if name in bf16 else t
-    tree = _unflatten(flat)
+    tree = unflatten(flat)
     return _map_tree(tree, lambda path, t: _to_port(t, _layout(path, t.ndim)))
 
 

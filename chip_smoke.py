@@ -97,7 +97,17 @@ Phases (any failure exits non-zero before the last line):
      must equal per-batch ``generate_batch`` calls bit for bit (both timed
      warm); then the two layouts' flow mels on one batch against each
      other;
-  8. prints the kernel table as one JSON line (K1a-K5 and one row for each
+  8. the reference checkpoint set, path M (``reference_set_path``): a fresh
+     ``from_random(seed=0)`` written in the reference format by
+     ``tests/torch_reference_format.py`` into a directory of the checkout
+     (removed at the end), loaded with ``ChatterboxTTS.from_local`` (every
+     leaf bit for bit; the load's wall seconds and peak RSS), path A's call
+     on it (launches counted and checked; tokens and wavs equal to the
+     written model's), ``save_native`` -> ``from_native``,
+     ``ChatterboxVC.from_local`` on two of path E's sources, and a random
+     Perth net from the factory, on the card against the CPU, in the
+     pipeline and in a stream;
+  9. prints the kernel table as one JSON line (K1a-K5 and one row for each
      probe, its variants under it), the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2491,6 +2501,341 @@ def vc_pipelined(vc, src_paths, card):
     return counts
 
 
+# path M: the reference checkpoint set, written from the from_random model
+# and loaded back; the 2-text calls' budget, the VC sources it converts, and
+# the Perth net's topology (tests/torch_perth_ref.py's defaults: n_fft 1024)
+M_SHORT_TOKENS = 100
+M_VC_SOURCES = 2
+PERTH_TOPOLOGY = {"n_bins": 513, "hidden": 256, "n_layers": 4}
+PERTH_ATOL = 1e-5  # tests/test_torch_checkpoint.py's, against the JAX package
+
+
+def same_params(what, got, want):
+    """Fail unless both parameter trees hold the same leaves, each of the
+    same dtype and shape and equal bit for bit (compared as integers)."""
+    import torch
+
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    a, b = flatten(got), flatten(want)
+    if a.keys() != b.keys():
+        fail(f"path M: {what}: leaves differ: {sorted(a.keys() ^ b.keys())[:10]}")
+    for k, x in a.items():
+        y = b[k]
+        if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
+            fail(f"path M: {what}: {k}: {x.dtype} {tuple(x.shape)} on {x.device}, not "
+                 f"{y.dtype} {tuple(y.shape)} on {y.device}")
+        it = ints[x.element_size()]
+        if not torch.equal(x.contiguous().view(it), y.contiguous().view(it)):
+            fail(f"path M: {what}: {k} differs")
+    dtypes = sorted({str(x.dtype).replace("torch.", "") for x in a.values()})
+    print(f"path M: {what}: {len(a)} leaves equal bit for bit ({', '.join(dtypes)})", flush=True)
+
+
+class RssPeak:
+    """The largest resident set of this process while the block runs, read
+    every 10 ms from /proc/self/statm on a thread (None where that file
+    cannot be read), beside the process's lifetime peak (``ru_maxrss``)
+    before and after the block."""
+
+    def __enter__(self):
+        import resource
+        import threading
+
+        self.start = self.peak = None
+        self.maxrss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        page = os.sysconf("SC_PAGE_SIZE")
+        while True:
+            try:
+                with open("/proc/self/statm") as f:
+                    rss = int(f.read().split()[1]) * page
+            except (OSError, ValueError, IndexError):
+                return
+            self.start = rss if self.start is None else self.start
+            self.peak = max(self.peak or 0, rss)
+            if self._stop.wait(0.01):
+                return
+
+    def __exit__(self, *exc):
+        import resource
+
+        self._stop.set()
+        self._thread.join()
+        self.maxrss_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+    def __str__(self):
+        sampled = ("not measured" if self.peak is None else
+                   f"{self.peak} bytes, {self.start} at the start")
+        return (f"peak RSS {sampled} (sampled every 10 ms), the process's lifetime peak "
+                f"{self.maxrss_before * 1024} -> {self.maxrss_after * 1024} bytes")
+
+
+class WatermarkSpy:
+    """A watermarker that records the (B, T) batch each ``apply`` is given
+    (the pipeline's unwatermarked wavs) and applies ``engine``."""
+
+    def __init__(self, engine):
+        self.engine, self.seen = engine, []
+
+    def apply(self, wav):
+        self.seen.append(wav.clone())
+        return self.engine.apply(wav)
+
+
+def reference_set_path(card, ref_path, src_paths):
+    """Path M: the reference checkpoint set. The ``from_random(seed=0)``
+    model of paths A and E is written in the reference format
+    (``tests/torch_reference_format.py``: fp32 ``t3_cfg`` under a
+    ``model.`` prefix, HiFT's weight-norm pairs spelled
+    ``parametrizations.weight.*``, the ``tokenizer.`` subtree, a
+    ``tokenizer.json``, a ``conds.pt`` and a random Perth net's
+    ``perth.pth``) into a directory of the checkout, removed at the end, and
+    loaded back on the card:
+      1. ``ChatterboxTTS.from_local``: every leaf and the conditionals equal
+         the written model's bit for bit (load wall seconds, peak RSS);
+      2. path A's call on the loaded model, counted (K1a x 30 x 249, K2, K3,
+         K4; no K1b, K1c+d, K2b, K5): tokens and wavs (cuDNN deterministic)
+         equal to the written model's; then a warm call timed;
+      3. ``save_native`` then ``from_native``: the same leaves, and a 2-text
+         call's tokens equal to the loaded model's (step 5's first call);
+      4. ``ChatterboxVC.from_local``: S3Gen equal, two of path E's sources
+         converted to the written model's wavs;
+      5. the Perth factory on ``perth.pth``: the engine on the card within
+         ``PERTH_ATOL`` of its CPU run on step 2's wavs and the reference
+         voice, then in the pipeline, the vocoder gained to a speaking
+         level: a 2-text call's tokens equal the spread-spectrum call's,
+         its int16 wavs differ from that call's and equal the engine
+         applied alone to the call's unwatermarked batch; then a 2-text
+         stream of ``M_SHORT_TOKENS`` with each engine: every chunk is
+         watermarked on the card, the neural stream's chunks equal the
+         engine applied alone to its unwatermarked chunks, which equal the
+         spread-spectrum stream's.
+    Returns step 2's first-call launch counts."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_reference_format as rf
+    from torch_perth_ref import PerthNetImplicitRef
+
+    from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxVC, weights
+    from chatterbox_tpu_torch.constants import S3GEN_SR
+    from chatterbox_tpu_torch.models.watermark import PerthImplicitWatermarker, PerthNetImplicit
+    from chatterbox_tpu_torch.pipeline.audio import load_wav
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.pipeline.streaming import StreamConfig, stream_generate_batch
+
+    t0 = time.time()
+    ref = ChatterboxTTS.from_random(seed=0)
+    conds = random_conditionals(ref.device)
+    torch.cuda.synchronize()
+    print(f"path M: from_random at full width in {time.time() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory(prefix=".smoke_reference_", dir=HERE) as work:
+        ckpt, native = os.path.join(work, "reference"), os.path.join(work, "native")
+        t0 = time.time()
+        rf.write_reference_set(
+            ckpt, *(weights.to_jax_tree(p) for p in (ref.t3_params, ref.s3gen_params,
+                                                     ref.ve_params)),
+            conds=[x.cpu().numpy() for x in (*conds.t3, *conds.gen)], t3_prefix="model.",
+            weight_norm="parametrizations")
+        torch.manual_seed(0)
+        torch.save({"model": PerthNetImplicitRef(**PERTH_TOPOLOGY).state_dict()},
+                   os.path.join(ckpt, "perth.pth"))
+        sizes = {f: os.path.getsize(os.path.join(ckpt, f)) for f in sorted(os.listdir(ckpt))}
+        print(f"path M: reference set written in {time.time() - t0:.1f} s: "
+              + json.dumps(sizes), flush=True)
+
+        # 1. from_local on the card
+        with RssPeak() as rss:
+            t0 = time.time()
+            tts = ChatterboxTTS.from_local(ckpt)
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+        print(f"path M: from_local of {sum(sizes.values())} bytes in {load_s:.3f} s; during "
+              f"the load {rss} on {card}", flush=True)
+        for name in ("t3_params", "s3gen_params", "ve_params"):
+            same_params(f"from_local {name}", getattr(tts, name), getattr(ref, name))
+        for got, want in zip((*tts.conds.t3, *tts.conds.gen), (*conds.t3, *conds.gen)):
+            if got.dtype != want.dtype or not torch.equal(got, want.cpu()):
+                fail("path M: the conditionals from conds.pt differ from those written")
+        if tts.s3gen_cfg != ref.s3gen_cfg or tts.t3_cfg != ref.t3_cfg:
+            fail("path M: from_local's configs differ from the written model's")
+        # the written model reads the texts with the set's tokenizer.json too
+        ref.tokenizer = tts.tokenizer
+
+        # 2. path A's call on the loaded model against the written model's
+        kw = {"seed": 0, "max_new_tokens": MAX_NEW}
+        with deterministic_cudnn():
+            reset_launch_counts()
+            t0 = time.time()
+            wavs = tts.generate_batch(TEXTS, **kw)
+            torch.cuda.synchronize()
+            first = time.time() - t0
+            counts = launch_counts()
+            tokens = [r.copy() for r in tts.last_speech_tokens]
+            want_wavs = ref.generate_batch(TEXTS, conds=conds, **kw)
+        check_wavs("M", wavs, N_TEXTS)
+        check_launches("M", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
+                       {_K1A: T3_LAYERS * (MAX_NEW - 1)})
+        if not all(np.array_equal(a, b) for a, b in zip(tokens, ref.last_speech_tokens)):
+            fail("path M: the loaded model's tokens differ from the written model's")
+        if not all(np.array_equal(a, b) for a, b in zip(wavs, want_wavs)):
+            fail("path M: the loaded model's wavs differ from the written model's")
+        print(f"path M: first call {first:.3f} s; tokens and wavs equal to the written "
+              f"model's (cuDNN deterministic)", flush=True)
+        print("path M: kernel launches " + json.dumps(counts), flush=True)
+        t0 = time.time()
+        warm = tts.generate_batch(TEXTS, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        audio_s = sum(len(w) for w in warm) / tts.sr
+        print(f"path M: {N_TEXTS} texts, {json.dumps(kw)}: warm wall {wall:.3f} s, audio "
+              f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, t3_s "
+              f"{tts.last_timings['t3_s']:.3f}, s3gen_s {tts.last_timings['s3gen_s']:.3f} on "
+              f"{card}", flush=True)
+
+        # 3. save_native -> from_native
+        t0 = time.time()
+        tts.save_native(native)
+        saved = time.time() - t0
+        t0 = time.time()
+        # save_native writes no tokenizer.json (nor does the JAX package's)
+        back = ChatterboxTTS.from_native(native, tokenizer_json=os.path.join(ckpt,
+                                                                             "tokenizer.json"))
+        torch.cuda.synchronize()
+        print(f"path M: save_native in {saved:.1f} s, from_native in {time.time() - t0:.1f} s",
+              flush=True)
+        for name in ("t3_params", "s3gen_params", "ve_params"):
+            same_params(f"save_native -> from_native {name}", getattr(back, name),
+                        getattr(tts, name))
+        # its 2-text call's tokens are held to the loaded model's in step 5
+        short = {"seed": 0, "max_new_tokens": M_SHORT_TOKENS}
+        back.generate_batch(TEXTS[:2], **short)
+        native_tokens = [r.copy() for r in back.last_speech_tokens]
+        del back
+
+        # 4. VC from the reference set
+        vc = ChatterboxVC.from_local(ckpt)
+        same_params("ChatterboxVC.from_local s3gen_params", vc.s3gen_params, ref.s3gen_params)
+        srcs = src_paths[:M_VC_SOURCES]
+        with deterministic_cudnn():
+            got = vc.generate_batch(srcs, target_voice_path=ref_path)
+            want = ChatterboxVC(ref.s3gen_params, ref.device, ref.s3gen_cfg).generate_batch(
+                srcs, target_voice_path=ref_path)
+        check_wavs("M (VC)", got, M_VC_SOURCES)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail("path M: ChatterboxVC.from_local's wavs differ from the written model's")
+        print(f"path M: ChatterboxVC.from_local: {M_VC_SOURCES} sources equal to the written "
+              f"model's", flush=True)
+        del vc, ref
+
+        # 5. the neural Perth engine, on the card against the CPU, then in the
+        # pipeline
+        engine = PerthImplicitWatermarker(checkpoint=os.path.join(ckpt, "perth.pth"))
+        if not isinstance(engine, PerthNetImplicit):
+            fail(f"path M: the Perth factory gave {type(engine).__name__}")
+        # step 2's wavs (random weights: quiet) and the reference voice
+        # (synthetic speech at a speaking level)
+        voice = load_wav(ref_path, S3GEN_SR)
+        batch = np.zeros((len(wavs) + 1, max(len(voice), *(len(w) for w in wavs))), np.float32)
+        for i, w in enumerate([*wavs, voice]):
+            batch[i, : len(w)] = w
+        x = torch.from_numpy(batch)
+        t0 = time.time()
+        on_card = engine.apply(x.to(tts.device)).cpu()
+        card_s = time.time() - t0
+        t0 = time.time()
+        on_cpu = engine.apply(x)
+        err = float((on_card - on_cpu).abs().max())
+        peaks = float(np.abs(batch[:-1]).max()), float(np.abs(voice).max())
+        print(f"path M: Perth ({engine.n_fft}-point STFT) on {tuple(batch.shape)} (peaks "
+              f"{peaks[0]:.4f} for the wavs, {peaks[1]:.4f} for the voice): card {card_s:.3f} s (first call), CPU {time.time() - t0:.3f} s, "
+              f"max_abs_err {err:.3e} tol {PERTH_ATOL:.0e}; the voice's largest change "
+              f"{float((on_cpu[-1] - x[-1]).abs().max()):.4f}", flush=True)
+        if not err <= PERTH_ATOL:
+            fail(f"path M: the Perth engine on the card is {err} from its CPU run")
+        # the pipeline, its vocoder's magnitudes gained as path J's exact-window
+        # check gains them, so that the wavs reach a speaking level and the
+        # watermark shows in int16; the spread-spectrum call first
+        hift = tts.s3gen_params["hift"]
+        post = hift["conv_post"]
+        bias = post["b"].clone()
+        bias[: tts.s3gen_cfg.hift.istft_n_fft // 2 + 1] += math.log(STREAM_EXACT_GAIN)
+        hift["conv_post"] = {**post, "b": bias}
+        spread_engine, spy = tts.watermarker, WatermarkSpy(engine)
+        try:
+            with deterministic_cudnn():
+                spread = tts.generate_batch(TEXTS[:2], **short)
+                spread_tokens = [r.copy() for r in tts.last_speech_tokens]
+                tts.watermarker = spy
+                marked = tts.generate_batch(TEXTS[:2], **short)
+                if len(spy.seen) != 1:
+                    fail(f"path M: the pipeline watermarked {len(spy.seen)} batches, not 1")
+                alone = engine.apply(spy.seen[0])
+                # a stream with each engine: the chunks go to the card for it
+                streams, m_stream = {}, StreamConfig(max_new_tokens=M_SHORT_TOKENS)
+                for name, wm in (("spread", spread_engine), ("neural", engine)):
+                    tts.watermarker = stream_spy = WatermarkSpy(wm)
+                    t0 = time.time()
+                    # the chunks in the order they were watermarked: tick by
+                    # tick, the rows in order
+                    chunks = [c for tick in stream_generate_batch(tts, TEXTS[:2], stream=m_stream,
+                                                                  seed=0)
+                              for c in tick if c is not None]
+                    streams[name] = chunks, stream_spy.seen, time.time() - t0
+        finally:
+            hift["conv_post"], tts.watermarker = post, spread_engine
+        alone = (torch.round(torch.clamp(alone, -1.0, 1.0) * 32767.0).to(torch.int16).cpu()
+                 .numpy().astype(np.float32) / 32767.0)
+        check_wavs("M (Perth)", marked, 2)
+        if not all(np.array_equal(a, b) for a, b in zip(native_tokens, spread_tokens)):
+            fail("path M: from_native's tokens differ from the loaded model's")
+        if not all(np.array_equal(a, b) for a, b in zip(tts.last_speech_tokens, spread_tokens)):
+            fail("path M: the neural engine changed T3's tokens")
+        if not all(np.array_equal(w, alone[i, : len(w)]) for i, w in enumerate(marked)):
+            fail("path M: the pipeline's neural watermark differs from the engine's alone")
+        moved = max(float(np.abs(a - b).max()) for a, b in zip(marked, spread))
+        peak = max(float(np.abs(w).max()) for w in marked)
+        print(f"path M: the neural engine in the pipeline (vocoder gain {STREAM_EXACT_GAIN:g}, "
+              f"peak {peak:.4f}): tokens equal to the spread-spectrum call's, int16 wavs equal "
+              f"to the engine applied alone; max |neural - spread-spectrum| {moved:.4f}",
+              flush=True)
+        if not moved > 0:
+            fail("path M: the neural engine's wavs equal the spread-spectrum engine's")
+        for name, (chunks, seen, _) in streams.items():
+            if not chunks or len(chunks) != len(seen):
+                fail(f"path M: the {name} stream watermarked {len(seen)} chunks of "
+                     f"{len(chunks)}")
+            if any(x.device.type != tts.device.type or x.shape != (1, len(c))
+                   for x, c in zip(seen, chunks)):
+                fail(f"path M: the {name} stream watermarked a chunk off the card or cut")
+        (s_chunks, s_seen, s_wall), (n_chunks, n_seen, n_wall) = (streams["spread"],
+                                                                  streams["neural"])
+        if not all(torch.equal(a, b) for a, b in zip(s_seen, n_seen)):
+            fail("path M: the two streams' unwatermarked chunks differ")
+        with deterministic_cudnn():
+            alone = [engine.apply(x)[0].cpu().numpy() for x in n_seen]
+        if not all(np.array_equal(c, a) for c, a in zip(n_chunks, alone)):
+            fail("path M: the stream's neural watermark differs from the engine's alone")
+        moved = max(float(np.abs(a - b).max()) for a, b in zip(n_chunks, s_chunks))
+        if not moved > 0:
+            fail("path M: the neural stream's chunks equal the spread-spectrum stream's")
+        print(f"path M: 2-text streams of {M_SHORT_TOKENS} tokens (vocoder gain "
+              f"{STREAM_EXACT_GAIN:g}): {len(n_chunks)} chunks each, every one watermarked on "
+              f"the card; the neural chunks equal the engine applied alone, the unwatermarked "
+              f"chunks equal the spread-spectrum stream's; max |neural - spread-spectrum| "
+              f"{moved:.4f}; wall {s_wall:.3f} s spread-spectrum, {n_wall:.3f} s neural (first "
+              f"calls) on {card}", flush=True)
+    return counts
+
+
 def write_audio(audio_dir):
     """The seeded reference (24 kHz) and sources (16 kHz) as WAV files ->
     (reference path, source paths, source lengths in samples)."""
@@ -2548,9 +2893,11 @@ def main():
         t4 = time.time()
         vc_counts = vc_path(card, ref_path, src_paths, src_lens)
         t5 = time.time()
+        counts["M"] = reference_set_path(card, ref_path, src_paths)
+        t6 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
-          f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s",
-          flush=True)
+          f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s, "
+          f"reference set (path M) {t6 - t5:.1f} s", flush=True)
     counts["E"] = {k: sum(c[k] for c in vc_counts.values()) for k in vc_counts["fused"]}
     counts["probes"] = probe_counts
     # path I's kernels at its batch: their errors count in the row's

@@ -265,25 +265,26 @@ def test_server_config_device_and_env(monkeypatch):
 
 
 def test_service_model_dir(tmp_path, monkeypatch):
-    """A native checkpoint directory loads through ``from_native`` on the
-    configured device; any other directory (the reference checkpoint set)
-    raises a ValueError that names ROADMAP A20."""
+    """A native checkpoint directory loads through ``from_native`` and any
+    other directory (the reference checkpoint set) through ``from_local``,
+    as the JAX service does, each on the configured device."""
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
     from chatterbox_tpu_torch.serve import service
 
+    calls = []
+    for name in ("from_native", "from_local"):
+        monkeypatch.setattr(ChatterboxTTS, name, classmethod(
+            lambda cls, d, device=None, name=name: calls.append((name, d, device))))
     ref_dir = tmp_path / "reference"
     ref_dir.mkdir()
     (ref_dir / "t3_cfg.safetensors").write_bytes(b"")
-    with pytest.raises(ValueError, match="A20"):
-        service.load_model(ServerConfig(model_dir=str(ref_dir), device="cpu"))
+    service.load_model(ServerConfig(model_dir=str(ref_dir), device="cpu"))
     native = tmp_path / "native"
     native.mkdir()
     (native / "t3.jax.safetensors").write_bytes(b"")
-    calls = []
-    monkeypatch.setattr(ChatterboxTTS, "from_native",
-                        classmethod(lambda cls, d, device=None: calls.append((d, device))))
     service.load_model(ServerConfig(model_dir=str(native), device="cpu"))
-    assert calls == [(str(native), torch.device("cpu"))]
+    assert calls == [("from_local", str(ref_dir), torch.device("cpu")),
+                     ("from_native", str(native), torch.device("cpu"))]
 
 
 # ---------------------------------------------------------------------------

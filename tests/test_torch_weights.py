@@ -224,7 +224,10 @@ def test_port_init_shapes_match_jax_init():
 
 
 def _port_sources():
-    return sorted((REPO / "chatterbox_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The port, chip_smoke.py and the test helpers chip_smoke.py imports."""
+    return sorted((REPO / "chatterbox_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "torch_reference_format.py",
+        REPO / "tests" / "torch_perth_ref.py"]
 
 
 def test_port_sources_import_no_jax():
@@ -285,6 +288,26 @@ v = vc.generate(synthetic_voice(1, 0.5, 16000), target_voice_path=None if vc.set
     synthetic_voice(2, 0.8, 24000)) is None else None)
 assert v.shape == (1, 13 * 960), v.shape
 import chatterbox_tpu_torch.serve.server
+import tempfile
+sys.path.insert(0, "tests")
+import torch_reference_format as rf
+from chatterbox_tpu_torch import weights
+from chatterbox_tpu_torch.pipeline import tts as tts_mod
+trees = [weights.to_jax_tree(p) for p in (tts.t3_params, tts.s3gen_params, tts.ve_params)]
+tts_mod.T3Config, tts_mod.S3GenConfig = (lambda: t3), (lambda: s3)
+tts_mod.VoiceEncoderConfig = lambda: tts.ve_cfg
+with tempfile.TemporaryDirectory() as d:
+    rf.write_reference_set(d, *trees, conds=[x.numpy() for x in (*conds.t3, *conds.gen)])
+    back = ChatterboxTTS.from_local(d, device="cpu")
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+for name in ("t3_params", "s3gen_params", "ve_params"):
+    got, want = leaves(getattr(back, name)), leaves(getattr(tts, name))
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)), name
 from chatterbox_tpu_torch.pipeline.streaming import StreamConfig, stream_generate
 chunks = list(stream_generate(tts, "Two ticks.", conds=conds, min_new_tokens=7,
                               stream=StreamConfig(chunk_tokens=4, first_chunk_tokens=0,
@@ -303,8 +326,9 @@ print("OK")
     assert out.returncode == 0 and out.stdout.strip().endswith("OK"), out.stderr[-3000:]
 
 
-@pytest.mark.parametrize("entry", ["from_random", "from_native", "vc_from_random",
-                                   "vc_from_native", "tts_service"])
+@pytest.mark.parametrize("entry", ["from_random", "from_native", "from_local", "from_pretrained",
+                                   "vc_from_random", "vc_from_native", "vc_from_local",
+                                   "tts_service"])
 def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monkeypatch,
                                                         tmp_path):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
@@ -318,10 +342,16 @@ def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monke
             ChatterboxTTS.from_random(seed=0, t3_cfg=P_T3, s3gen_cfg=P_S3GEN)
         elif entry == "from_native":
             ChatterboxTTS.from_native(native_dir)
+        elif entry == "from_local":  # the device is resolved before any file is read
+            ChatterboxTTS.from_local(tmp_path)
+        elif entry == "from_pretrained":
+            ChatterboxTTS.from_pretrained(tmp_path)
         elif entry == "vc_from_random":
             ChatterboxVC.from_random(seed=0, s3gen_cfg=P_S3GEN)
         elif entry == "vc_from_native":
             ChatterboxVC.from_native(native_dir)
+        elif entry == "vc_from_local":
+            ChatterboxVC.from_local(tmp_path)
         else:  # the server's "auto" device is the card, never the CPU
             TTSService(ServerConfig(device="auto", voice_storage_path=str(tmp_path / "v"),
                                     config_storage_path=str(tmp_path / "c"),
