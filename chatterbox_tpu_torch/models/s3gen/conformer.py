@@ -7,7 +7,10 @@ the rel-shifted term q_v . W_pos pe(t - s) equals qhat[t] . shat[s], where
 qhat is q_v folded with W_pos and rope-rotated by the query position and
 shat the absolute sinusoid table; W_pos's bias would add a per-row constant
 and is dropped. No (T, 2T-1) tensor and no rel-shift exist. The attention
-itself is kernel K4 (``ops/flash_attention.py``).
+itself is kernel K4 (``ops/flash_attention.py``). With the module switch
+``FLASH_ATTENTION`` off (the JAX package's, conformer.py:76,160) it is the
+dense ESPnet attention instead: the (T, 2T-1) positional term rel-shifted,
+exact fp32 softmax; the kernels have no backward, so a gradient needs it.
 """
 
 from dataclasses import dataclass
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ...checkpoint import torch_convert as tc
-from ...core.layers import conv1d, layer_norm, leaky_relu, linear
+from ...core.layers import conv1d, layer_norm, leaky_relu, linear, merge_heads, split_heads
 from ...ops.flash_attention import flash_relpos_attention
 
 
@@ -32,6 +35,60 @@ class ConformerConfig:
     pre_lookahead_len: int = 3
     up_stride: int = 2
     ln_eps: float = 1e-12
+
+
+FLASH_ATTENTION = True  # module switch, as the JAX package's
+
+
+def espnet_rel_pe(d_model: int, t: int) -> np.ndarray:
+    """EspnetRelPositionalEncoding for a sequence of t: (1, 2t-1, d) float32,
+    positive relative positions t-1 .. 0 then negative -1 .. -(t-1)
+    (conformer.py:35-61; the table is built for max(t, 16) and centred)."""
+    max_len = max(t, 16)
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * -(np.log(10000.0) / d_model))
+    pe_pos = np.zeros((max_len, d_model))
+    pe_neg = np.zeros((max_len, d_model))
+    pe_pos[:, 0::2] = np.sin(position * div)
+    pe_pos[:, 1::2] = np.cos(position * div)
+    pe_neg[:, 0::2] = np.sin(-position * div)
+    pe_neg[:, 1::2] = np.cos(-position * div)
+    pe = np.concatenate([pe_pos[::-1], pe_neg[1:]], axis=0)
+    center = pe.shape[0] // 2
+    return pe[None, center - t + 1 : center + t].astype(np.float32)
+
+
+def _rel_shift_bd(bd):
+    """(B, H, T, 2T-1) -> (B, H, T, T): out[t, s] = bd[t, T-1 - t + s], by
+    the reference's pad/reshape trick (conformer.py:64-73)."""
+    b, h, t, _ = bd.shape
+    padded = F.pad(bd, (1, 0)).reshape(b, h, 2 * t, t)
+    return padded[:, :, 1:].reshape(b, h, t, 2 * t - 1)[..., :t]
+
+
+def rel_pos_attention_dense(p, x, n_heads, key_mask=None):
+    """The dense ESPnet rel-pos attention (conformer.py:157-189): ac = q_u.k,
+    bd = q_v.(W_pos pe) rel-shifted, softmax((ac + bd) / sqrt(D)) in fp32,
+    pad keys' scores at -1e9 and their probabilities zeroed. Pad query rows
+    keep an output here, where the K4 path zeroes them: the two agree on
+    the valid rows."""
+    b, t, c = x.shape
+    d_k = c // n_heads
+    q, k, v = (split_heads(linear(p[n], x), n_heads) for n in ("q", "k", "v"))
+    pe = torch.from_numpy(espnet_rel_pe(c, t)).to(device=x.device, dtype=x.dtype)
+    pp = split_heads(linear(p["pos"], pe), n_heads)  # (1, H, 2T-1, D)
+    q_u = q + p["pos_bias_u"][None, :, None, :]
+    q_v = q + p["pos_bias_v"][None, :, None, :]
+    ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
+    bd = _rel_shift_bd(torch.matmul(q_v.float(), pp.float().transpose(-1, -2)))
+    scores = (ac + bd) / float(np.sqrt(d_k))
+    if key_mask is not None:
+        keep = key_mask[:, None, None, :]
+        probs = torch.where(keep, torch.softmax(torch.where(keep, scores, -1.0e9), dim=-1), 0.0)
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    return linear(p["out"], merge_heads(out))
 
 
 def sinusoid_tables(t: int, c: int):
@@ -66,8 +123,11 @@ def relpos_operands(p, x, n_heads):
 
 
 def rel_pos_attention(p, x, n_heads, key_mask=None):
-    """RelPositionMultiHeadedAttention (self-attention), through K4. Pad
+    """RelPositionMultiHeadedAttention (self-attention), through K4 (the
+    dense ``rel_pos_attention_dense`` with ``FLASH_ATTENTION`` off). Pad
     keys are biased with -1e9 and pad-query rows are zeroed afterwards."""
+    if not FLASH_ATTENTION:
+        return rel_pos_attention_dense(p, x, n_heads, key_mask)
     b, t, c = x.shape
     d_k = c // n_heads
     q_u, k, v, qhat, shat = relpos_operands(p, x, n_heads)

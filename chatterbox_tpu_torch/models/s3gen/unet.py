@@ -8,7 +8,10 @@ then reads the packed to_qkv output through kernel K3 when the weights are
 fused and the inner width is a multiple of 128, and takes split q, k, v
 through kernel K5 otherwise: for unfused to_q/to_k/to_v weights (the
 reference checkpoint's layout) and for other widths
-(``ops/flash_attention.py``).
+(``ops/flash_attention.py``). ``use_flash=False`` (or the module switch
+``FLASH_ATTENTION``, as in the JAX package) takes the dense attention of
+``core/layers.sdpa`` instead: the path a gradient goes through, since the
+kernels have no backward and refuse autograd.
 """
 
 from dataclasses import dataclass
@@ -18,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ...checkpoint import torch_convert as tc
-from ...core.layers import causal_conv1d, conv1d, layer_norm, linear, merge_heads, mish, split_heads
+from ...core.layers import (causal_conv1d, conv1d, layer_norm, linear, merge_heads, mish, sdpa,
+                            split_heads)
 from ...ops.flash_attention import flash_self_attention, flash_self_attention_packed
 
 
@@ -59,38 +63,68 @@ def _causal_resnet(p, x, mask, t_emb):
     return h + conv1d(p["res_conv"], x * mask)
 
 
-def _attn(p, x, n_heads, key_bias=None):
+FLASH_ATTENTION = True  # module switch, as the JAX package's (unet.py:61)
+
+
+def _attn(p, x, n_heads, key_bias=None, use_flash=None):
     """diffusers Attention: q/k/v projections without bias, scale
-    1/sqrt(head_dim), out bias. K3 on the packed qkv when ``to_qkv`` is
-    fused and its inner width a multiple of 128; otherwise K5 on (B, H, T, D)
-    q, k, v split from ``to_qkv`` or projected by ``to_q``/``to_k``/``to_v``."""
-    b, t, _ = x.shape
-    tp = -(-t // 128) * 128
-    bias = key_bias.float() if key_bias is not None else torch.zeros(
-        (b, t), dtype=torch.float32, device=x.device)
-    bias = F.pad(bias, (0, tp - t), value=-1.0e10).contiguous()
-    if "to_qkv" in p and (p["to_qkv"]["w"].shape[0] // 3) % 128 == 0:
-        qkv = F.pad(linear(p["to_qkv"], x), (0, 0, 0, tp - t)).contiguous()
-        return linear(p["to_out"], flash_self_attention_packed(qkv, bias, n_heads)[:, :t])
+    1/sqrt(head_dim), out bias. With ``use_flash`` (default: the module's
+    ``FLASH_ATTENTION``): K3 on the packed qkv when ``to_qkv`` is fused and
+    its inner width a multiple of 128; otherwise K5 on (B, H, T, D) q, k, v
+    split from ``to_qkv`` or projected by ``to_q``/``to_k``/``to_v``.
+    Without: the dense ``sdpa`` on the unpadded q, k, v (unet.py:64-134)."""
+    if use_flash is None:
+        use_flash = FLASH_ATTENTION
     if "to_qkv" in p:
+        if use_flash and (p["to_qkv"]["w"].shape[0] // 3) % 128 == 0:
+            return linear(p["to_out"], _packed(linear(p["to_qkv"], x), key_bias, n_heads))
         qkv = linear(p["to_qkv"], x).chunk(3, dim=-1)
     else:
         qkv = [linear(p[name], x) for name in ("to_q", "to_k", "to_v")]
-    q, k, v = (split_heads(F.pad(y, (0, 0, 0, tp - t)), n_heads).contiguous() for y in qkv)
-    out = flash_self_attention(q, k, v, bias)[:, :, :t]
+    q, k, v = (split_heads(y, n_heads) for y in qkv)
+    if use_flash:
+        out = _heads(q, k, v, key_bias)
+    else:
+        out = sdpa(q, k, v, bias=None if key_bias is None else key_bias.float()[:, None, None, :])
     return linear(p["to_out"], merge_heads(out))
 
 
-def _transformer_block(p, x, cfg: UNetConfig, key_bias=None):
+def _padded_bias(key_bias, b, t, tp, device):
+    """The (B, tp) f32 key bias of the kernels: pad keys at -1e10."""
+    bias = key_bias.float() if key_bias is not None else torch.zeros(
+        (b, t), dtype=torch.float32, device=device)
+    return F.pad(bias, (0, tp - t), value=-1.0e10).contiguous()
+
+
+def _packed(qkv, key_bias, n_heads):
+    """K3 on the packed (B, T, 3*H*D) qkv, T padded to a multiple of 128."""
+    b, t, _ = qkv.shape
+    tp = -(-t // 128) * 128
+    qkv = F.pad(qkv, (0, 0, 0, tp - t)).contiguous()
+    return flash_self_attention_packed(qkv, _padded_bias(key_bias, b, t, tp, qkv.device),
+                                       n_heads)[:, :t]
+
+
+def _heads(q, k, v, key_bias):
+    """K5 on (B, H, T, D) q, k, v, T padded to a multiple of 128."""
+    b, _, t, _ = q.shape
+    tp = -(-t // 128) * 128
+    q, k, v = (F.pad(y, (0, 0, 0, tp - t)).contiguous() for y in (q, k, v))
+    return flash_self_attention(q, k, v, _padded_bias(key_bias, b, t, tp, q.device))[:, :, :t]
+
+
+def _transformer_block(p, x, cfg: UNetConfig, key_bias=None, use_flash=None):
     """BasicTransformerBlock, plain-LayerNorm path with an exact-GELU FFN."""
-    x = x + _attn(p["attn"], layer_norm(p["norm1"], x, 1e-5), cfg.num_heads, key_bias)
+    x = x + _attn(p["attn"], layer_norm(p["norm1"], x, 1e-5), cfg.num_heads, key_bias,
+                  use_flash)
     y = layer_norm(p["norm3"], x, 1e-5)
     return x + linear(p["ff_out"], F.gelu(linear(p["ff_in"], y)))
 
 
-def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None):
+def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None, use_flash=None):
     """Velocity estimate. x, mu, cond (B, T, 80); spks (B, 80); t (B,) in
-    [0, 1]; mask (B, T) bool or None. Returns (B, T, 80)."""
+    [0, 1]; mask (B, T) bool or None. Returns (B, T, 80). ``use_flash``
+    picks every block's attention (see ``_attn``)."""
     b, tt, _ = x.shape
     if mask is None:
         mask_c = torch.ones((b, tt, 1), dtype=x.dtype, device=x.device)
@@ -105,17 +139,17 @@ def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None):
     h = torch.cat([x, mu, spks[:, None].expand(b, tt, spks.shape[-1]), cond], dim=-1)
     h = _causal_resnet(p["down_resnet"], h, mask_c, t_emb)
     for bp in p["down_tf"]:
-        h = _transformer_block(bp, h, cfg, key_bias)
+        h = _transformer_block(bp, h, cfg, key_bias, use_flash)
     skip = h
     h = causal_conv1d(p["down_conv"], h * mask_c)
     for mp in p["mid"]:
         h = _causal_resnet(mp["resnet"], h, mask_c, t_emb)
         for bp in mp["tf"]:
-            h = _transformer_block(bp, h, cfg, key_bias)
+            h = _transformer_block(bp, h, cfg, key_bias, use_flash)
     h = torch.cat([h, skip], dim=-1)
     h = _causal_resnet(p["up_resnet"], h, mask_c, t_emb)
     for bp in p["up_tf"]:
-        h = _transformer_block(bp, h, cfg, key_bias)
+        h = _transformer_block(bp, h, cfg, key_bias, use_flash)
     h = causal_conv1d(p["up_conv"], h * mask_c)
     h = _causal_block(p["final_block"], h, mask_c)
     return conv1d(p["final_proj"], h * mask_c) * mask_c

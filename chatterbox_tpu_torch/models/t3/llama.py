@@ -101,9 +101,18 @@ def apply_rope(q, k, cos, sin):
     return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
-def layer_params(params, i):
-    """Layer i's parameter dict, sliced from the stacked (L, ...) tensors."""
-    return {name: {k: v[i] for k, v in sub.items()} for name, sub in params["layers"].items()}
+def unstack_layers(params):
+    """Every layer's parameter dict, as views of the stacked tensors. One
+    ``unbind`` a tensor: under autograd its backward stacks the layers'
+    gradients once, where slicing layer by layer would add a zero-padded
+    (L, ...) gradient per layer."""
+    n = next(iter(next(iter(params["layers"].values())).values())).shape[0]
+    layers = [{} for _ in range(n)]
+    for name, sub in params["layers"].items():
+        for k, v in sub.items():
+            for i, vi in enumerate(v.unbind(0)):
+                layers[i].setdefault(name, {})[k] = vi
+    return layers
 
 
 def fuse_qkv_params(params):
@@ -213,8 +222,8 @@ class QuantCache(NamedTuple):
     tail: torch.Tensor  # (L, 2, B, H, TAIL_W, D) working dtype: slots [merge_base, +TAIL_W)
 
 
-def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask, cache_len: int,
-                  cache_quant: bool = False):
+def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
+                  cache_len: Optional[int], cache_quant: bool = False):
     """Full-sequence causal forward writing a fresh KV cache of length
     ``cache_len``. inputs_embeds (B, T, C); positions (B, T) int; attn_mask
     (B, T) bool (True = real token) or None. Returns (hidden (B, T, C),
@@ -222,7 +231,12 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
     dtype, or with ``cache_quant`` a ``QuantCache`` whose int8 values hold
     every prefill token (K2b, one launch), whose padding slots have scale
     1.0, and whose tail holds slots [T // TAIL_W * TAIL_W, T) in the
-    embeddings' dtype."""
+    embeddings' dtype. ``cache_len=None`` builds no cache and returns None
+    for it: the teacher-forced training pass, where a cache would keep a
+    second copy of every layer's K and V alive under autograd (the JAX
+    package passes ``cache_len = T`` and XLA drops the unused cache)."""
+    if cache_len is None and cache_quant:
+        raise ValueError("cache_quant needs a cache_len")
     b, t, _ = inputs_embeds.shape
     dev, dt = inputs_embeds.device, inputs_embeds.dtype
     cos, sin = rope_cos_sin(cfg, positions)
@@ -234,16 +248,16 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
     kv_shape = (cfg.num_hidden_layers, 2, b, cfg.num_key_value_heads)
     # the bf16 path writes into the cache itself; the int8 path gathers the
     # K/V of every layer first and quantizes them in one launch
-    kvs = torch.zeros(kv_shape + (t if cache_quant else cache_len, cfg.head_dim),
-                      dtype=dt, device=dev)
+    kvs = None if cache_len is None else torch.zeros(
+        kv_shape + (t if cache_quant else cache_len, cfg.head_dim), dtype=dt, device=dev)
     x = inputs_embeds
-    for i in range(cfg.num_hidden_layers):
-        lp = layer_params(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         y = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
         q, k, v = _qkv(lp, y, cfg)
         q, k = apply_rope(q, k, cos, sin)
-        kvs[i, 0, :, :, :t] = k
-        kvs[i, 1, :, :, :t] = v
+        if kvs is not None:
+            kvs[i, 0, :, :, :t] = k
+            kvs[i, 1, :, :, :t] = v
         x = x + _wmat(merge_heads(sdpa(q, k, v, bias=bias)), lp["o"])
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
         x = x + _wmat(_mlp(lp, y), lp["down"])
@@ -309,7 +323,7 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
             raise ValueError("alignment needs the working-dtype KV cache and a text_slice")
     cos, sin = rope_cos_sin(cfg, positions)
     if layers is None:
-        layers = [layer_params(params, i) for i in range(cfg.num_hidden_layers)]
+        layers = unstack_layers(params)
     kv_dtype = cache.tail.dtype if quant else cache.dtype
     new_kv = torch.empty((cfg.num_hidden_layers, 2, b, cfg.num_key_value_heads, d),
                          dtype=kv_dtype, device=x.device)

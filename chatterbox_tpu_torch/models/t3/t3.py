@@ -12,21 +12,22 @@ not change the result. The loop exists once, in ``t3_generate_resume``:
 calls advance in chunks (streaming, preemptible batches), and
 ``t3_generate`` is the two over the whole budget. ``cache_quant`` takes the int8 KV cache and
 ``alignment`` the hallucination watchdog (``alignment.py``), as in the JAX
-package.
+package. ``t3_forward``/``t3_loss`` are the teacher-forced training pass.
 """
 
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
 from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds, convert_cond_enc
-from .llama import (LLAMA_520M, LlamaConfig, convert_llama, layer_params, llama_decode_step,
-                    llama_prefill)
+from .llama import (LLAMA_520M, LlamaConfig, convert_llama, llama_decode_step, llama_prefill,
+                    unstack_layers)
 
 # the decode loop reads "every row done" on the host once per this many steps
 # (each read waits for the card)
@@ -260,7 +261,7 @@ def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
     stop = cfg.stop_speech_token
     text_lens = text_lens.to(dev)
     tmax = cy.gap_end - cfg.n_cond
-    layers = [layer_params(p["llama"], i) for i in range(cfg.llama.num_hidden_layers)]
+    layers = unstack_layers(p["llama"])
     eos_col = torch.arange(cfg.speech_tokens_dict_size, device=dev)[None] == stop
     rows_b = torch.arange(b, device=dev)
     alignment = cy.align is not None
@@ -344,3 +345,61 @@ def t3_generate(
                    cache_quant and not alignment)
     _, res = t3_generate_resume(p, cfg, carry, text_lens, sampling, max_new_tokens)
     return res
+
+
+# ---------------------------------------------------------------------------
+# the teacher-forced forward and its loss (t3.py:500-557; used by train/)
+# ---------------------------------------------------------------------------
+
+
+def t3_forward(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv, text_tokens, text_lens,
+               speech_tokens, speech_lens):
+    """Teacher-forced forward -> (text_logits (B, Tt, V_text), speech_logits
+    (B, Ts, V_speech)): [cond; text + pos; speech + pos] in one causal
+    prefill that builds no KV cache, pads masked out of the keys and their
+    rope positions compacted (``cumsum(valid) - 1``, 0 at pads)."""
+    b, tt = text_tokens.shape
+    ts = speech_tokens.shape[1]
+    dev = text_tokens.device
+    cond = t3_cond_prefix(p, cfg, speaker_emb, prompt_tokens, emotion_adv)
+    text_emb = embedding(p["text_emb"], text_tokens.long()) + p["text_pos_emb"]["w"][None, :tt]
+    speech_emb = (embedding(p["speech_emb"], speech_tokens.long())
+                  + p["speech_pos_emb"]["w"][None, :ts])
+    embeds = torch.cat([cond, text_emb, speech_emb], dim=1)
+    valid = torch.cat([
+        torch.ones((b, cfg.n_cond), dtype=torch.bool, device=dev),
+        torch.arange(tt, device=dev)[None] < text_lens.to(dev)[:, None],
+        torch.arange(ts, device=dev)[None] < speech_lens.to(dev)[:, None],
+    ], dim=1)
+    positions = torch.cumsum(valid.long(), dim=1) - 1
+    positions = torch.where(valid, positions, 0)
+    hidden, _ = llama_prefill(p["llama"], cfg.llama, embeds, positions, valid, None)
+    text_latents = hidden[:, cfg.n_cond : cfg.n_cond + tt]
+    speech_latents = hidden[:, cfg.n_cond + tt :]
+    return linear(p["text_head"], text_latents), linear(p["speech_head"], speech_latents)
+
+
+def masked_ce(logits, targets, lens):
+    """Mean over the first ``lens`` positions of each row of the cross
+    entropy, from an fp32 log-softmax, of each position's logits against
+    the token at the same position (no shift: the JAX package's arithmetic,
+    whose docstring cites the reference's t3.py:167-201), divided by
+    max(positions, 1). The per-position NLL picks one entry a position
+    (``cross_entropy`` without reduction), so its backward writes each
+    logit's gradient once and adds nothing with atomics on the card."""
+    dev = targets.device
+    mask = torch.arange(targets.shape[1], device=dev)[None] < lens.to(dev)[:, None]
+    nll = F.cross_entropy(logits.float().flatten(0, 1), targets.long().flatten(),
+                          reduction="none").view(targets.shape)
+    return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1)
+
+
+def t3_loss(p, cfg: T3Config, batch):
+    """Masked CE losses (loss_text, loss_speech) of ``t3_forward`` on a batch
+    dict with the JAX package's keys (speaker_emb, prompt_tokens,
+    emotion_adv, text_tokens, text_lens, speech_tokens, speech_lens)."""
+    text_logits, speech_logits = t3_forward(
+        p, cfg, batch["speaker_emb"], batch["prompt_tokens"], batch["emotion_adv"],
+        batch["text_tokens"], batch["text_lens"], batch["speech_tokens"], batch["speech_lens"])
+    return (masked_ce(text_logits, batch["text_tokens"], batch["text_lens"]),
+            masked_ce(speech_logits, batch["speech_tokens"], batch["speech_lens"]))

@@ -105,6 +105,21 @@ def require(cond, msg: str):
         raise ValueError(msg)
 
 
+def refuse_autograd(what: str, *tensors):
+    """Raise RuntimeError when grad mode is on and an operand requires grad.
+    A kernel writes its output through raw pointers, so autograd would get
+    a tensor with no ``grad_fn`` and the gradient would stop there without
+    a word; the JAX package's Pallas calls refuse ``jax.grad`` the same way.
+    No kernel has a backward: differentiate the plain path (the UNet's
+    ``use_flash=False``) instead. Under ``inference_mode`` or ``no_grad``
+    this is one flag read."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward, and an operand requires grad; "
+                           "call it under torch.no_grad() or take the plain path")
+
+
 def check(status: int, what: str):
     """Raise if a launch returned a CUDA error code."""
     if status != 0:

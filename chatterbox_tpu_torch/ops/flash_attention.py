@@ -41,7 +41,10 @@ data); see the source note. The kernels take bf16 operands, head dim 64
 (the flow's working dtype and width) and T a multiple of 128 (the query
 and key tiles; the UNet and the conformer pad to it); K4 a q-hat depth C a
 multiple of 64, at most 512. A wrapper takes its plain version only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+CPU tensors; for CUDA tensors it launches the kernel or raises. No kernel
+has a backward: on either device a wrapper raises when grad mode is on and
+an operand requires grad (``_build.refuse_autograd``); the plain versions
+stay differentiable functions.
 """
 
 import ctypes
@@ -109,6 +112,7 @@ def flash_self_attention_packed_plain(qkv, key_bias, n_heads: int):
 def flash_self_attention_packed(qkv, key_bias, n_heads: int):
     """qkv (B, T, 3*H*D), key_bias (B, T) additive f32 or None ->
     (B, T, H*D) in qkv's dtype."""
+    _build.refuse_autograd("flash_self_attention_packed", qkv, key_bias)
     if qkv.device.type == "cpu":
         return flash_self_attention_packed_plain(qkv, key_bias, n_heads)
     require(qkv.device.type == "cuda", f"unsupported device {qkv.device}")
@@ -153,6 +157,7 @@ def flash_self_attention_plain(q, k, v, key_bias=None):
 def flash_self_attention(q, k, v, key_bias=None):
     """q, k, v (B, H, T, D); key_bias (B, T) additive f32 or None ->
     (B, H, T, D) in q's dtype. Exact, non-causal."""
+    _build.refuse_autograd("flash_self_attention", q, k, v, key_bias)
     if q.device.type == "cpu":
         return flash_self_attention_plain(q, k, v, key_bias)
     require(q.device.type == "cuda", f"unsupported device {q.device}")
@@ -201,6 +206,7 @@ def flash_relpos_attention(q_u, q_hat, k, s_hat, v, key_bias, n_heads: int,
                            scale: float):
     """q_u, k, v (B, T, H*D); q_hat (B, T, H*C); s_hat (1, T, C) or (T, C);
     key_bias (B, T) additive f32 -> (B, T, H*D) in q_u's dtype."""
+    _build.refuse_autograd("flash_relpos_attention", q_u, q_hat, k, s_hat, v, key_bias)
     if q_u.device.type == "cpu":
         return flash_relpos_attention_plain(q_u, q_hat, k, s_hat, v, key_bias, n_heads, scale)
     require(q_u.device.type == "cuda", f"unsupported device {q_u.device}")

@@ -52,7 +52,9 @@ K2 replaces ``flash_cache_merge_ds`` (flash_decode.py:273-353):
 Both are bound by bytes.
 
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. On either device it raises when grad mode is
+on and an operand requires grad (``_build.refuse_autograd``): no kernel has a
+backward.
 """
 
 import ctypes
@@ -260,6 +262,7 @@ def flash_decode_layer_attention(cache, layer_idx: int, cur_len: int, row_prefix
                                 gap_end: int, q, k_new, v_new):
     """K1a: decode attention for one layer against the full multi-layer
     cache; returns (B, H, D) in q's dtype. See the module docstring."""
+    _build.refuse_autograd("flash_decode_layer_attention", cache, q, k_new, v_new)
     if cache.device.type == "cpu":
         return flash_decode_layer_attention_plain(
             cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
@@ -272,6 +275,7 @@ def flash_decode_layer_attention_stats(cache, layer_idx: int, cur_len: int, row_
                                       gap_end: int, q, k_new, v_new):
     """K1b: K1a plus the final softmax stats; returns (out (B, H, D) in q's
     dtype, m (B, H) fp32, l (B, H) fp32)."""
+    _build.refuse_autograd("flash_decode_layer_attention_stats", cache, q, k_new, v_new)
     if cache.device.type == "cpu":
         return flash_decode_layer_attention_stats_plain(
             cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
@@ -286,6 +290,7 @@ def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base: int, lay
     """K1c+d: decode attention over the int8 cache below ``merge_base`` and
     the tail from ``merge_base`` to ``cur_len``; returns (B, H, D) in q's
     dtype. ``0 <= merge_base <= cur_len <= merge_base + W``."""
+    _build.refuse_autograd("flash_decode_layer_attention_int8", scales, tail, q, k_new, v_new)
     n_layers, two, b, h, s, d = cache8.shape
     w = tail.shape[4]
     require(0 <= merge_base <= cur_len <= merge_base + w <= s and 0 <= layer_idx < n_layers,
@@ -323,6 +328,7 @@ def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base: int, lay
 def kv_cache_append(cache, new_kv, pos: int):
     """K2: write one decode step's K/V of every layer into slot ``pos`` of
     the cache (or the tail), in place; returns the cache."""
+    _build.refuse_autograd("kv_cache_append", cache, new_kv)
     if cache.device.type == "cpu":
         return kv_cache_append_plain(cache, new_kv, pos)
     require(cache.device.type == "cuda", f"unsupported device {cache.device}")
@@ -348,6 +354,7 @@ def kv_cache_quantize_write(cache8, scales, src, pos: int):
     """K2b: quantize src (L, 2, B, H, n, D) per token into slots
     [pos, pos + n) of the int8 cache and its scales, in place; returns
     (cache8, scales)."""
+    _build.refuse_autograd("kv_cache_quantize_write", scales, src)
     n_layers, two, b, h, s, d = cache8.shape
     n = src.shape[4]
     require(src.shape == (n_layers, two, b, h, n, d) and 0 <= pos and pos + n <= s,

@@ -157,6 +157,7 @@ def _on_cuda(*ts):
 def noop_copy(q):
     """P1: a copy of q (any contiguous tensor whose bytes are whole 16-byte
     vectors)."""
+    _build.refuse_autograd("noop_copy", q)
     if q.device.type == "cpu":
         return noop_copy_plain(q)
     _on_cuda(q)
@@ -184,6 +185,7 @@ def cache_column_write(cache, new, pos: int, b_blk: int):
     """P2/P3 "col": the column ``new`` written at slot ``pos`` of every
     (layer, k/v, row, head, dim) line of ``cache``, in place; one block per
     (layer, ``b_blk`` rows). Returns the cache."""
+    _build.refuse_autograd("cache_column_write", cache, new)
     if cache.device.type == "cpu":
         return cache_column_write_plain(cache, new, pos)
     n_layers, _, b, h, d, s = _check_cache(cache, new)
@@ -200,6 +202,7 @@ def cache_block_rmw(cache, new, pos: int, b_blk: int, s_blk: int, fold_kv: bool)
     and rewriting the ``s_blk``-slot segment that holds ``pos``; one block
     per (layer, k/v plane unless ``fold_kv``, ``b_blk`` rows). Returns the
     cache."""
+    _build.refuse_autograd("cache_block_rmw", cache, new)
     if cache.device.type == "cpu":
         return cache_column_write_plain(cache, new, pos)
     n_layers, _, b, h, d, s = _check_cache(cache, new)
@@ -217,6 +220,7 @@ def cache_block_rmw(cache, new, pos: int, b_blk: int, s_blk: int, fold_kv: bool)
 def int8_probe(case: str, k8, sc, q, t8):
     """P4: one of ``INT8_CASES`` on the probe's inputs (see
     ``int8_probe_plain``)."""
+    _build.refuse_autograd("int8_probe", sc, q)
     if k8.device.type == "cpu":
         return int8_probe_plain(case, k8, sc, q, t8)
     _on_cuda(k8, sc, q, t8)
@@ -240,6 +244,7 @@ def int8_probe(case: str, k8, sc, q, t8):
 def softmax_probe(case: str, x, v, scr0):
     """P5: one of ``SOFTMAX_CASES`` over the probe's two grid steps (see
     ``softmax_probe_plain``); returns (1, 64) f32."""
+    _build.refuse_autograd("softmax_probe", x, v, scr0)
     if x.device.type == "cpu":
         return softmax_probe_plain(case, x, v, scr0)
     _on_cuda(x, v, scr0)

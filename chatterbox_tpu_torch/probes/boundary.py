@@ -32,7 +32,7 @@ import torch
 
 from ..core.layers import rms_norm
 from ..models.t3.llama import (LlamaConfig, _mlp, _qkv, _wmat, apply_rope, fuse_qkv_params,
-                               layer_params, quantize_llama_weights, rope_cos_sin)
+                               quantize_llama_weights, rope_cos_sin, unstack_layers)
 from ..ops.flash_decode import flash_decode_layer_attention
 from ..ops.probes import noop_copy
 from . import device_name, main
@@ -78,7 +78,7 @@ def make_setup(params, cfg: LlamaConfig, rows=16, s=384, cur=256, device="cuda",
 
     positions = torch.full((rows, 1), cur, dtype=torch.long, device=device)
     cos, sin = rope_cos_sin(cfg, positions)
-    return Setup(cfg, [layer_params(params, i) for i in range(n_l)],
+    return Setup(cfg, unstack_layers(params),
                  randn(n_l, 2, rows, h, s, d),
                  torch.full((rows,), ROW_PREFIX, dtype=torch.int32, device=device), GAP_END, cur,
                  cos, sin,

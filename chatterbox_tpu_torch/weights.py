@@ -114,6 +114,13 @@ def jax_layout(params):
     return _map_tree(params, lambda path, t: _from_port(t.detach().cpu(), _layout(path, t.ndim)))
 
 
+def jax_layout_meta(params):
+    """``jax_layout`` as meta tensors: each leaf's JAX-layout shape and
+    dtype, without a copy of its data."""
+    return _map_tree(params, lambda path, t: _from_port(
+        torch.empty(t.shape, dtype=t.dtype, device="meta"), _layout(path, t.ndim)))
+
+
 def to_jax_tree(params):
     """Inverse of ``from_jax_tree``: the port's parameters -> numpy arrays in
     the JAX package's layouts (bf16 tensors come back as float32)."""

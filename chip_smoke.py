@@ -25,7 +25,7 @@ Phases (any failure exits non-zero before the last line):
      column writes;
   4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
      launch counters set to 0 just before and read just after: P1's four
-     30-layer chains at full width, eager and as a CUDA graph, with bf16
+     chains of ``P1_LAYERS`` (10) layers at full width, eager and as a CUDA graph, with bf16
      and with int8 weights, then P2/P3, P4 and P5 (``probe_phase``);
   5. reference: a small model with the main path's head width, through the
      port on the card against the port's plain versions on the CPU (T3 with
@@ -34,7 +34,9 @@ Phases (any failure exits non-zero before the last line):
      ``reference_phase`` and ``conditioning_reference`` for each comparison
      and its tolerance);
   6. the TTS paths, on ``ChatterboxTTS.from_random(seed=0)`` at full width
-     (T3 and flow in bf16, HiFT and the conditioning modules in fp32), each
+     with T3 cut to ``TTS_T3_LAYERS`` (10) of its 30 layers, path I on a
+     second model with all 30 (T3 and flow in bf16, HiFT and the
+     conditioning modules in fp32), each
      ``generate_batch`` on the same 8 texts, each first call run with the
      launch counters set to 0 just before it and read just after, the wavs
      checked, and the kernels its path must (and must not) launch checked:
@@ -63,10 +65,10 @@ Phases (any failure exits non-zero before the last line):
           wav lengths must equal F's, and the flow launches K3 exactly
           4 x 56 times;
        J. ``stream_generate_batch`` of four texts at the default
-          ``StreamConfig`` (1000 tokens, the int8 cache), a first call
-          counted and checked (whole finite chunks; tokens equal to a
+          ``StreamConfig`` (1000 tokens, the int8 cache), one call
+          counted, checked (whole finite chunks; tokens equal to a
           one-shot ``t3_generate``; K1c+d, K2b, K3 and K4 per step and per
-          tick), a second timed (time to first audio, ms a tick, T3's ms a
+          tick) and timed (time to first audio, ms a tick, T3's ms a
           step, ``stream_aggregate_audio_sec_per_s_n4``), then one stream
           with the flow window over its whole history against
           ``generate_batch`` (SNR bound ``STREAM_SNR_DB``);
@@ -78,14 +80,14 @@ Phases (any failure exits non-zero before the last line):
           coalesce), a seeded /generate (equal to a direct call), 2
           concurrent streams with a bulk /generate (must go preemptibly),
           and a stream with alignment (400);
-     K1 must launch once a layer a decode step (A: 30 x 249, B and I:
-     30 x 999; C: 29 x 249 K1a and 249 K1b; H: 2 x 30 x 249; J: 30 x 999
-     K1c+d; K: 30 x 249), K2b once at the prefill and once every 8 steps
+     K1 must launch once a layer a decode step (A: 10 x 249, B: 10 x 999,
+     I: 30 x 999; C: 9 x 249 K1a and 249 K1b; H: 2 x 10 x 249; J: 10 x 999
+     K1c+d; K: 10 x 249), K2b once at the prefill and once every 8 steps
      (I: 126);
      after each first call a second, warm call is timed (audio seconds per
-     second, per stage) and a third profiled (device time by kernel, the
-     busy share), except on path D, whose device work is path A's; no TTS
-     path launches K5;
+     second, per stage), and on paths A and F (bf16 and int8 weights) a
+     third profiled (device time by kernel, the busy share); no TTS path
+     launches K5;
   7. the VC path E: ``ChatterboxVC.from_random(seed=0)`` (the same S3Gen
      weights), ``generate_batch`` of 8 seeded 3-12 s sources written as
      16 kHz WAVs, with ``target_voice_path`` the reference of path D: in
@@ -107,7 +109,18 @@ Phases (any failure exits non-zero before the last line):
      ``ChatterboxVC.from_local`` on two of path E's sources, and a random
      Perth net from the factory, on the card against the CPU, in the
      pipeline and in a stream;
-  9. prints the kernel table as one JSON line (K1a-K5 and one row for each
+  9. T3 training, path N (``train_path``): ``T3Trainer`` on ``T3Config()``
+     in fp32 (532,397,056 parameters) with batches of 8 rows of 34 + 128 +
+     512 positions: the first gradient reaches every leaf; 2 warm and 4
+     timed steps on one batch (losses finite and falling; ms a step by
+     ``runtime.profiling.StageTimer``, tokens/s, the share of the fp32
+     bound, peak memory, the AdamW update's ms); a save and resume under
+     ``torch.use_deterministic_algorithms(True)`` equal bit for bit to the
+     straight run; a 4-layer T3 at full width on the card against the CPU;
+     ``cfm_loss`` at the full flow width on 8 rows of 1000 frames (K3 56
+     launches, against the dense path; autograd through K3 raises; the
+     dense path's gradient finite);
+ 10. prints the kernel table as one JSON line (K1a-K5 and one row for each
      probe, its variants under it), the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -128,6 +141,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+# cuBLAS runs deterministically under torch.use_deterministic_algorithms (path
+# N's resume check) only with a fixed workspace, set before its first call;
+# 8 buffers of 4 MiB
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM published peaks (dense): bf16 tensor cores, fp32 outside the
 # tensor cores (the probes' fp32 fragments), and HBM3 bandwidth
@@ -160,6 +177,12 @@ MAX_NEW_DEFAULT = 1000  # generate_batch's default budget: path B, the int8 cach
 TAIL_W = 8
 PROMPT_TOKENS = 250  # flow prompt: 250 tokens / 500 mel frames
 T3_LAYERS, T3_HEADS, HEAD_DIM = 30, 16, 64
+# depth cut so that the run fits its time limit (a decode step is bound by
+# the host's launches, a cost a layer; the width stays full): the TTS paths'
+# T3 (the alignment layer, 9, stays in the stack; path I, the memory cap,
+# and path M, the reference set, keep all 30) and P1's chains
+TTS_T3_LAYERS = 10
+P1_LAYERS = 10
 N_COND, TEXT_BUCKET, N_BOS = 34, 64, 2
 FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
 # K3's and K5's (padded T, valid mel frames): path A's flow (250 + 250
@@ -837,8 +860,8 @@ def _case_row(name, headline, variants, io_bytes, flops):
 def probe_phase(card):
     """The probes' entry points on the card, the launch counters set to 0
     just before and read just after: P1 (``probes.boundary``: the four
-    30-layer chains at full width, eager and as a CUDA graph, with bf16 and
-    with int8 weights), then P2/P3, P4 and P5 (each checks its kernels
+    chains of ``P1_LAYERS`` layers at full width, eager and as a CUDA
+    graph, with bf16 and with int8 weights), then P2/P3, P4 and P5 (each checks its kernels
     against their plain versions and times them). Prints P1's results as
     one JSON line and the rest as another; fails if a probe kernel was not
     launched. Returns (results, counts)."""
@@ -849,7 +872,8 @@ def probe_phase(card):
 
     dev = torch.device("cuda")
     reset_launch_counts()
-    p1 = {"bf16": boundary.run(dev), "int8": boundary.run(dev, wquant=True)}
+    p1 = {"bf16": boundary.run(dev, layers=P1_LAYERS),
+          "int8": boundary.run(dev, wquant=True, layers=P1_LAYERS)}
     rest = {"P2/P3": cache_write.run(dev), "P4": int8_cache.run(dev), "P5": ops.run(dev)}
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -1199,6 +1223,7 @@ PATHS = {
           (_K1B, _K1C, _K2B, _K5)),
 }
 WQUANT_PATHS = ("F", "G")
+PROFILED_PATHS = ("A", "F")
 
 # path E: the reference and the sources, seeded synthetic speech
 REF_SECONDS = 10.0
@@ -1426,7 +1451,7 @@ def split_path(tts, conds, card):
     if len(fd._workspaces) != spaces:
         fail("path H: a KV cache's K1 workspace outlived its chunk")
     check_launches("H", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
-                   {_K1A: 2 * T3_LAYERS * (MAX_NEW - 1)})
+                   {_K1A: 2 * tts.t3_cfg.llama.num_hidden_layers * (MAX_NEW - 1)})
     if len(split_tokens) != 2:
         fail(f"path H: {len(split_tokens)} chunks, not 2")
     for c in range(2):
@@ -1490,7 +1515,8 @@ def cap_path(tts, conds, card):
         fail(f"path I: T3 ran a {tts.last_timings['kv_cache']} KV cache, not int8")
     steps = MAX_NEW_DEFAULT - 1
     check_launches("I", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
-                   {_K1C: T3_LAYERS * steps, _K2B: 1 + MAX_NEW_DEFAULT // TAIL_W})
+                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * steps,
+                    _K2B: 1 + MAX_NEW_DEFAULT // TAIL_W})
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(f"path I: the one-shot cap at {MAX_NEW_DEFAULT} tokens (text bucket {tb}): batch {b} "
           f"(max_device_batch {tts.max_device_batch}); wall {wall:.3f} s for {audio_s:.3f} s of "
@@ -1684,10 +1710,9 @@ STREAM_EXACT_TOKENS = 100
 STREAM_SNR_DB = 10.0
 STREAM_LAST_SNR_DB = 30.0
 STREAM_EXACT_GAIN = 100.0
-# (gain, flow_ctx_tokens) of path J's window sweep: the gains the check's
-# was chosen among, and a 25-token window that the last-chunk bound must fail
-STREAM_SWEEP = ((1.0, STREAM_EXACT_TOKENS), (STREAM_EXACT_GAIN, STREAM_EXACT_TOKENS),
-                (1000.0, STREAM_EXACT_TOKENS), (STREAM_EXACT_GAIN, 25))
+# (gain, flow_ctx_tokens) of path J's window sweep: the whole history, and a
+# 25-token window that the last-chunk bound must fail
+STREAM_SWEEP = ((STREAM_EXACT_GAIN, STREAM_EXACT_TOKENS), (STREAM_EXACT_GAIN, 25))
 # path K: generate_batch_preemptible's T3 chunk
 PREEMPT_CHUNK = 25
 
@@ -1814,11 +1839,12 @@ def merge_tick_checks(rows, checks):
 
 
 class CallSpy:
-    """Wraps ``module.name`` for the block: each call's arguments and wall
-    seconds (with a synchronise after it) are kept in ``calls``."""
+    """Wraps ``module.name`` for the block: each call's record and wall
+    seconds (with a synchronise after it, unless ``sync`` is false: then
+    the seconds are the host's launch time) are kept in ``calls``."""
 
-    def __init__(self, module, name, record=None):
-        self.module, self.name, self.record = module, name, record
+    def __init__(self, module, name, record=None, sync=True):
+        self.module, self.name, self.record, self.sync = module, name, record, sync
         self.real, self.calls = getattr(module, name), []
 
     def __enter__(self):
@@ -1827,7 +1853,8 @@ class CallSpy:
         def spy(*args, **kw):
             t0 = time.time()
             out = self.real(*args, **kw)
-            torch.cuda.synchronize()
+            if self.sync:
+                torch.cuda.synchronize()
             self.calls.append((self.record(args, kw, out) if self.record else None,
                                time.time() - t0))
             return out
@@ -1902,17 +1929,17 @@ def stream_path(tts, conds, card):
     A first call with the launch counters set to 0 just before it and read
     just after: every chunk finite and whole tokens long; each stream's
     tokens equal to a one-shot ``t3_generate`` with the same inputs and
-    seed; K1c+d 30 times a decode step, K2b at the prefill and every 8
+    seed; K1c+d once a layer a decode step, K2b at the prefill and every 8
     slots, K3 and K4 in every tick at the lengths the kernel phase checked.
-    A second call timed: time to first audio per stream, ms a tick, T3's ms
-    a step and ``stream_aggregate_audio_sec_per_s_n4``. Then the
+    The same call timed: time to first audio per stream, ms a tick, T3's
+    ms a step and ``stream_aggregate_audio_sec_per_s_n4``. Then the
     exact-window call (one stream, ``STREAM_EXACT_TOKENS`` tokens, the
     window over the whole history) against ``generate_batch`` on the same
     seed, both with the vocoder's noise zeroed (the stream draws its own)
     and its magnitude gained by ``STREAM_EXACT_GAIN``: the whole wav and
     the last chunk held to ``STREAM_SNR_DB`` and ``STREAM_LAST_SNR_DB``
-    (``stream_window_sweep``, which also reads the other gains and a cut
-    window). Returns the first call's counts."""
+    (``stream_window_sweep``, which also reads a cut window). Returns the
+    first call's counts."""
     import numpy as np
     import torch
 
@@ -1933,8 +1960,8 @@ def stream_path(tts, conds, card):
             CallSpy(streaming, "t3_generate_resume",
                     lambda a, k, o: (o[1].tokens.clone(), o[1].steps)) as resume_spy, \
             CallSpy(streaming._ChunkSynthesizer, "_synth") as synth_spy, \
-            CallSpy(unet, "flash_self_attention_packed", shape2) as k3_spy, \
-            CallSpy(conformer, "flash_relpos_attention", shape2) as k4_spy:
+            CallSpy(unet, "flash_self_attention_packed", shape2, sync=False) as k3_spy, \
+            CallSpy(conformer, "flash_relpos_attention", shape2, sync=False) as k4_spy:
         chunks, ttfa, ticks, wall = stream_run(tts, conds, STREAM_TEXTS, st, **kw)
     counts = launch_counts()
     n_synth = len(synth_spy.calls)
@@ -1967,7 +1994,7 @@ def stream_path(tts, conds, card):
     k3_per_tick = unet_cfg.n_blocks * (2 + unet_cfg.num_mid_blocks) * tts.s3gen_cfg.flow.n_timesteps
     k4_per_tick = enc.num_blocks + enc.num_up_blocks
     check_launches("J", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
-                   {_K1C: T3_LAYERS * decode_steps, _K2B: 1 + merges,
+                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * decode_steps, _K2B: 1 + merges,
                     _K3: k3_per_tick * n_synth, _K4: k4_per_tick * n_synth})
     k3_t = sorted({s for s, _ in k3_spy.calls})
     k4_t = sorted({s for s, _ in k4_spy.calls})
@@ -1979,18 +2006,16 @@ def stream_path(tts, conds, card):
         fail(f"path J: K3/K4 ran at (rows, T) {k3_t} / {k4_t}, beyond the streaming tick's "
              f"lengths the kernel phase checked ({sorted(checked3)} / {sorted(checked4)})")
 
-    # a second call, timed: the streams as a user gets them
-    with CallSpy(streaming, "t3_generate_resume", lambda a, k, o: o[1].steps) as resume_spy:
-        chunks, ttfa, ticks, wall = stream_run(tts, conds, STREAM_TEXTS, st, **kw)
+    # the same call's times: the streams as a user gets them (the spies add
+    # a synchronise a T3 chunk and a tick, where the stream waits anyway)
     audio = [sum(len(c) for c in cs) / tts.sr for cs in chunks]
     t3_s = sum(s for _, s in resume_spy.calls)
-    t3_steps = resume_spy.calls[-1][0]
     print(f"path J: stream_aggregate_audio_sec_per_s_n{N_STREAMS} {sum(audio) / wall:.4f} "
           f"({sum(audio):.3f} s of audio in {wall:.3f} s); time to first audio per stream "
           f"{json.dumps([round(x, 4) for x in ttfa])} s; {len(ticks)} ticks, "
           f"{1e3 * wall / len(ticks):.2f} ms a tick (first {1e3 * ticks[0]:.2f}, median "
-          f"{1e3 * float(np.median(ticks)):.2f}); T3 {t3_s:.3f} s for {t3_steps} steps, "
-          f"{1e3 * t3_s / t3_steps:.3f} ms a step; synthesis {wall - t3_s:.3f} s, "
+          f"{1e3 * float(np.median(ticks)):.2f}); T3 {t3_s:.3f} s for {steps} steps, "
+          f"{1e3 * t3_s / steps:.3f} ms a step; synthesis {wall - t3_s:.3f} s, "
           f"{1e3 * (wall - t3_s) / len(ticks):.2f} ms a tick; per-stream audio "
           f"{json.dumps([round(a, 3) for a in audio])} s on {card}", flush=True)
 
@@ -2007,9 +2032,9 @@ def stream_window_sweep(tts, conds):
     """Path J's exact-window stream (``STREAM_EXACT_TOKENS`` tokens) against
     ``generate_batch`` on the same seed, both with the vocoder's noise
     zeroed, at each of ``STREAM_SWEEP``'s (magnitude gain, flow_ctx_tokens):
-    the gains the check's ``STREAM_EXACT_GAIN`` was chosen among, and a cut
-    window, whose last chunk must stay under ``STREAM_LAST_SNR_DB`` (else
-    that bound does not tell a cut window from a whole one). Prints each
+    the whole history, and a cut window, whose last chunk must stay under
+    ``STREAM_LAST_SNR_DB`` (else that bound does not tell a cut window from
+    a whole one). Prints each
     reading; returns (whole-wav SNR, per-chunk SNRs) at ``STREAM_EXACT_GAIN``
     with the whole history in the window."""
     import numpy as np
@@ -2107,7 +2132,7 @@ def preemptible_path(tts, conds, card):
     if not (same_tok and same_wav):
         fail("path K: generate_batch_preemptible differs from generate_batch on the same seed")
     check_launches("K", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
-                   {_K1A: T3_LAYERS * (MAX_NEW - 1)})
+                   {_K1A: tts.t3_cfg.llama.num_hidden_layers * (MAX_NEW - 1)})
     audio_s = sum(len(w) for w in w1) / tts.sr
     print(f"path K: {N_TEXTS} texts at {MAX_NEW} tokens, warm walls in turns: one-shot "
           f"{walls['one-shot'][0]:.3f} / {walls['one-shot'][1]:.3f} s, preemptible "
@@ -2317,13 +2342,17 @@ def main_path(card, ref_path, work_dir):
     import torch
 
     from chatterbox_tpu_torch import ChatterboxTTS
+    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig
+    from chatterbox_tpu_torch.models.t3.t3 import T3Config
     from chatterbox_tpu_torch.runtime.precision import apply_tts_precision
 
     t0 = time.time()
-    tts = ChatterboxTTS.from_random(seed=0)
+    tts = ChatterboxTTS.from_random(
+        seed=0, t3_cfg=T3Config(llama=LlamaConfig(num_hidden_layers=TTS_T3_LAYERS)))
     conds = random_conditionals(tts.device)
     torch.cuda.synchronize()
-    print(f"paths: from_random at full width in {time.time() - t0:.1f} s", flush=True)
+    print(f"paths: from_random at full width, T3 at {TTS_T3_LAYERS} of {T3_LAYERS} layers, in "
+          f"{time.time() - t0:.1f} s", flush=True)
     unet = tts.s3gen_cfg.flow.estimator
     blocks = unet.n_blocks * (2 + unet.num_mid_blocks)  # UNet transformer blocks: 56
     counts, tokens, lens = {}, {}, {}
@@ -2333,8 +2362,12 @@ def main_path(card, ref_path, work_dir):
             # paths H and I on the bf16 weights, before F converts them
             counts["H"] = split_path(tts, conds, card)
             print(f"path H: {time.time() - t0:.1f} s", flush=True)
+            # path I at T3's full depth: the cap is the memory of 30 layers
             t0 = time.time()
-            counts["I"], cap_checks = cap_path(tts, conds, card)
+            full = ChatterboxTTS.from_random(seed=0)
+            counts["I"], cap_checks = cap_path(full, conds, card)
+            del full
+            torch.cuda.empty_cache()
             print(f"path I: {time.time() - t0:.1f} s", flush=True)
             # paths J, K and L on the bf16 weights too
             for path, run in (("J", lambda: stream_path(tts, conds, card)),
@@ -2355,14 +2388,15 @@ def main_path(card, ref_path, work_dir):
         # K1: one launch a layer a decode step (budget - 1 steps: random
         # weights never stop every row early); path C's alignment layer takes K1b
         steps = PATHS[name][0].get("max_new_tokens", MAX_NEW_DEFAULT) - 1
-        exact = {"B": {_K1C: T3_LAYERS * steps},
-                 "C": {_K1A: (T3_LAYERS - 1) * steps, _K1B: steps}}.get(
-                     name, {_K1A: T3_LAYERS * steps})
+        exact = {"B": {_K1C: TTS_T3_LAYERS * steps},
+                 "C": {_K1A: (TTS_T3_LAYERS - 1) * steps, _K1B: steps}}.get(
+                     name, {_K1A: TTS_T3_LAYERS * steps})
         if name == "G":
             exact[_K3] = blocks * TURBO_STEPS
-        # a profile takes a call more: none on path D, path A's call on other
-        # conditionals
-        counts[name], tokens[name], lens[name] = run_path(tts, c, card, name, name != "D", exact)
+        # a profile takes a call more: on paths A (the bf16 weights) and F
+        # (the int8 weights) only, for the run's time limit
+        counts[name], tokens[name], lens[name] = run_path(tts, c, card, name,
+                                                          name in PROFILED_PATHS, exact)
         print(f"path {name}: {time.time() - t0:.1f} s", flush=True)
     # G changes only the flow: its T3 tokens and wav lengths are F's
     f, g = WQUANT_PATHS
@@ -2591,7 +2625,8 @@ class WatermarkSpy:
 
 def reference_set_path(card, ref_path, src_paths):
     """Path M: the reference checkpoint set. The ``from_random(seed=0)``
-    model of paths A and E is written in the reference format
+    model (path E's weights, and paths A-L's with T3's 30 layers) is
+    written in the reference format
     (``tests/torch_reference_format.py``: fp32 ``t3_cfg`` under a
     ``model.`` prefix, HiFT's weight-norm pairs spelled
     ``parametrizations.weight.*``, the ``tokenizer.`` subtree, a
@@ -2602,7 +2637,7 @@ def reference_set_path(card, ref_path, src_paths):
          the written model's bit for bit (load wall seconds, peak RSS);
       2. path A's call on the loaded model, counted (K1a x 30 x 249, K2, K3,
          K4; no K1b, K1c+d, K2b, K5): tokens and wavs (cuDNN deterministic)
-         equal to the written model's; then a warm call timed;
+         equal to the written model's, the call timed;
       3. ``save_native`` then ``from_native``: the same leaves, and a 2-text
          call's tokens equal to the loaded model's (step 5's first call);
       4. ``ChatterboxVC.from_local``: S3Gen equal, two of path E's sources
@@ -2688,18 +2723,11 @@ def reference_set_path(card, ref_path, src_paths):
             fail("path M: the loaded model's tokens differ from the written model's")
         if not all(np.array_equal(a, b) for a, b in zip(wavs, want_wavs)):
             fail("path M: the loaded model's wavs differ from the written model's")
-        print(f"path M: first call {first:.3f} s; tokens and wavs equal to the written "
-              f"model's (cuDNN deterministic)", flush=True)
+        audio_s = sum(len(w) for w in wavs) / tts.sr
+        print(f"path M: {N_TEXTS} texts, {json.dumps(kw)}: first call {first:.3f} s, audio "
+              f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / first:.4f}; tokens and "
+              f"wavs equal to the written model's (cuDNN deterministic) on {card}", flush=True)
         print("path M: kernel launches " + json.dumps(counts), flush=True)
-        t0 = time.time()
-        warm = tts.generate_batch(TEXTS, **kw)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        audio_s = sum(len(w) for w in warm) / tts.sr
-        print(f"path M: {N_TEXTS} texts, {json.dumps(kw)}: warm wall {wall:.3f} s, audio "
-              f"{audio_s:.3f} s, audio_sec_per_s_per_chip_b8 {audio_s / wall:.4f}, t3_s "
-              f"{tts.last_timings['t3_s']:.3f}, s3gen_s {tts.last_timings['s3gen_s']:.3f} on "
-              f"{card}", flush=True)
 
         # 3. save_native -> from_native
         t0 = time.time()
@@ -2836,6 +2864,400 @@ def reference_set_path(card, ref_path, src_paths):
     return counts
 
 
+# path N: T3 training at full width, and cfm_loss at the full flow width
+N_BATCH, N_TEXT, N_SPEECH = 8, 128, 512  # 20 s of speech at 25 Hz a row
+N_TEXT_LENS, N_SPEECH_LENS = (64, 128), (256, 512)
+N_WARM, N_TIMED, N_LR = 2, 4, 1e-4
+N_PARAMS = 532_397_056  # T3Config(): Llama-520M, the cond encoder, embeddings and heads
+N_SMALL_LAYERS = 4  # the card-against-CPU model: the main path's width, 4 layers
+N_SMALL_STEPS = 3
+N_LOSS_RTOL = 1e-4  # card against CPU, fp32 without TF32: summation order only
+N_GRAD_SHARE = 1e-4  # of each leaf's max, the same
+N_UPDATE_ATOL = 2.5e-7  # AdamW from the same gradients: two fp32 ulps at 1.0
+N_PARAM_ATOL = N_LR / 20  # after N_SMALL_STEPS steps, but for the outliers below
+N_PARAM_OUTLIERS = 1e-4  # the share of elements allowed over N_PARAM_ATOL
+N_PARAM_CAP = 3 * N_LR * N_SMALL_STEPS  # any element: ~1.5 lr a step, either sign
+CFM_ROWS, CFM_T = 8, 1000
+CFM_BLOCKS = 56  # UNet transformer blocks: 4 down + 12 x 4 mid + 4 up, one K3 each
+CFM_RTOL = 2.0 ** -7  # K3 against the dense path in bf16: one bf16 rounding of P and out
+
+
+def train_batch(seed, b=N_BATCH, tt=N_TEXT, ts=N_SPEECH, text_lens=N_TEXT_LENS,
+                speech_lens=N_SPEECH_LENS):
+    """A seeded T3 training batch (the JAX trainer's keys), right-padded."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "speaker_emb": rng.standard_normal((b, 256)).astype(np.float32),
+        "prompt_tokens": rng.integers(0, 6561, (b, 150)).astype(np.int32),
+        "emotion_adv": np.full((b,), 0.5, np.float32),
+        "text_tokens": rng.integers(0, 704, (b, tt)).astype(np.int32),
+        "text_lens": rng.integers(text_lens[0], text_lens[1] + 1, (b,)).astype(np.int32),
+        "speech_tokens": rng.integers(0, 6561, (b, ts)).astype(np.int32),
+        "speech_lens": rng.integers(speech_lens[0], speech_lens[1] + 1, (b,)).astype(np.int32),
+    }
+
+
+def train_step_flops(cfg, b, tt, ts):
+    """Operations of one train step (forward and backward, 3x the forward's
+    products): every Llama matrix product over the B x S positions, the two
+    heads over their spans, and the dense attention's full S x S products
+    (``core/layers.sdpa`` computes every key, the causal half included);
+    the cond encoder's perceiver is under 0.1% and left out."""
+    lc = cfg.llama
+    s = cfg.n_cond + tt + ts
+    hd = lc.num_attention_heads * lc.head_dim
+    kvd = lc.num_key_value_heads * lc.head_dim
+    c, f = lc.hidden_size, lc.intermediate_size
+    layer_w = c * hd + 2 * c * kvd + hd * c + 3 * c * f
+    fwd = (2 * lc.num_hidden_layers * layer_w * b * s
+           + 2 * c * cfg.text_tokens_dict_size * b * tt
+           + 2 * c * cfg.speech_tokens_dict_size * b * ts
+           + lc.num_hidden_layers * 4 * b * s * s * hd)
+    return 3 * fwd
+
+
+def check_train_grads(params, grads, batch):
+    """Every leaf the loss reaches has a finite gradient with a nonzero
+    element (each layer of a stacked Llama leaf on its own); each table's
+    rows of tokens at valid positions are nonzero, its rows that no position
+    reads exactly 0. The perceiver's key bias is only held finite: a bias
+    on every key shifts each query's logits by one constant, which the
+    softmax cancels, so its gradient is 0 in exact arithmetic."""
+    import torch
+
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+
+    def rows(key, lens=None, offset=0):
+        tok = torch.as_tensor(batch[key]).long()
+        if lens is None:
+            return set(tok.flatten().tolist()), set(tok.flatten().tolist())
+        valid = torch.arange(tok.shape[1])[None] < torch.as_tensor(batch[lens])[:, None]
+        return set(tok[valid].tolist()), set(tok.flatten().tolist())
+
+    pos = {"text_pos_emb": (set(range(int(max(batch["text_lens"])))), set(range(N_TEXT))),
+           "speech_pos_emb": (set(range(max(int(max(batch["speech_lens"])), 150))),
+                              set(range(max(N_SPEECH, 150))))}
+    prompt_rows, _ = rows("prompt_tokens")
+    speech_valid, speech_any = rows("speech_tokens", "speech_lens")
+    tables = {"text_emb": rows("text_tokens", "text_lens"),
+              "speech_emb": (speech_valid | prompt_rows, speech_any | prompt_rows), **pos}
+    n_checked = 0
+    for name, g in flatten(grads).items():
+        if not bool(torch.isfinite(g).all()):
+            fail(f"path N: the gradient of {name} is not finite")
+        table = name.split("/")[0]
+        if name == "cond_enc/perceiver/attn/to_k/b":
+            continue
+        if table in tables:
+            valid, used = tables[table]
+            nz = g.abs().amax(dim=-1) > 0
+            zero_rows = sorted(r for r in valid if not bool(nz[r]))
+            stray = [r for r in torch.nonzero(nz).flatten().tolist() if r not in used]
+            if zero_rows or stray:
+                fail(f"path N: {name}: rows read at valid positions with a zero gradient "
+                     f"{zero_rows[:5]}, rows never read with a nonzero one {stray[:5]}")
+        elif name.startswith("llama/layers/"):
+            per_layer = g.flatten(1).abs().amax(dim=1)
+            if not bool((per_layer > 0).all()):
+                dead = torch.nonzero(per_layer == 0).flatten().tolist()
+                fail(f"path N: {name}: layers {dead} have a zero gradient")
+        elif not float(g.abs().max()) > 0:
+            fail(f"path N: the gradient of {name} is 0: the loss does not reach it")
+        n_checked += 1
+    print(f"path N: gradients of {len(flatten(grads))} leaves finite; {n_checked} nonzero "
+          f"(stacked Llama leaves layer by layer, tables row by row: read rows nonzero, "
+          f"unread rows 0)", flush=True)
+
+
+def leaf_worst(got, want):
+    """Max over leaves of max |got - want| (the trees' leaves in order)."""
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+
+    return max(float((a.cpu() - b.cpu()).abs().max())
+               for a, b in zip(flatten(got).values(), flatten(want).values()))
+
+
+def train_small_against_cpu():
+    """T3 with N_SMALL_LAYERS layers at the main path's width, card against
+    CPU in fp32 from the same weights and batches:
+      1. the first gradients, leaf by leaf, within N_GRAD_SHARE of each
+         leaf's max (summation order is all that differs);
+      2. one AdamW update on the card from the CPU's gradients and state:
+         params, mu and nu within N_UPDATE_ATOL (the same elementwise ops);
+      3. N_SMALL_STEPS train steps: losses within N_LOSS_RTOL; params within
+         N_PARAM_ATOL except a share of at most N_PARAM_OUTLIERS of the
+         elements, all within N_PARAM_CAP. Adam divides each gradient
+         element by sqrt(nu) + 1e-8, so an element whose gradient is at the
+         two sides' rounding noise (~1e-9 against leaf maxima of ~0.1; a
+         few hundred of the 96 M on an H100) takes an update of either sign
+         on either side, up to ~1.5 lr a step."""
+    import torch
+
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten, unflatten
+    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig
+    from chatterbox_tpu_torch.models.t3.t3 import T3Config
+    from chatterbox_tpu_torch.train.train_step import (adamw_init, adamw_update,
+                                                       t3_loss_and_grads)
+    from chatterbox_tpu_torch.train.trainer import T3Trainer, _batch_to
+
+    cfg = T3Config(llama=LlamaConfig(num_hidden_layers=N_SMALL_LAYERS))
+    params = weights.init_t3(cfg, seed=1)
+    batches = [train_batch(20 + i, b=2, tt=32, ts=64, text_lens=(20, 32), speech_lens=(40, 64))
+               for i in range(N_SMALL_STEPS)]
+    t0 = time.time()
+    on_card = weights.tree_to(params, "cuda")
+    g_card = t3_loss_and_grads(on_card, cfg, _batch_to(batches[0], "cuda"))[3]
+    g_cpu = t3_loss_and_grads(params, cfg, _batch_to(batches[0], "cpu"))[3]
+    # the perceiver's key bias: 0 in exact arithmetic (see check_train_grads)
+    share = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for k, a, b in zip(flatten(g_cpu), flatten(g_card).values(),
+                                   flatten(g_cpu).values())
+                if k != "cond_enc/perceiver/attn/to_k/b")
+
+    # 2. the update alone, from the same gradients
+    p_cpu = unflatten({k: v.clone() for k, v in flatten(params).items()})
+    s_card, s_cpu = adamw_init(on_card), adamw_init(p_cpu)
+    s_card = adamw_update(on_card, s_card, weights.tree_to(g_cpu, "cuda"), N_LR)
+    s_cpu = adamw_update(p_cpu, s_cpu, g_cpu, N_LR)
+    upd = max(leaf_worst(on_card, p_cpu), leaf_worst(s_card.mu, s_cpu.mu),
+              leaf_worst(s_card.nu, s_cpu.nu))
+
+    # 3. train steps
+    card = T3Trainer(cfg, params, learning_rate=N_LR, donate=False)
+    cpu = T3Trainer(cfg, params, learning_rate=N_LR, donate=False, device="cpu")
+    worst_loss = 0.0
+    for b in batches:
+        mc, mp = card.step(b), cpu.step(b)
+        worst_loss = max(worst_loss, *(abs(mc[k] - mp[k]) / abs(mp[k]) for k in mp))
+    diffs = [(a.cpu() - b).abs() for a, b in zip(flatten(card.params).values(),
+                                                flatten(cpu.params).values())]
+    n = sum(d.numel() for d in diffs)
+    worst_p = max(float(d.max()) for d in diffs)
+    outliers = sum(int((d > N_PARAM_ATOL).sum()) for d in diffs)
+    print(f"path N: {N_SMALL_LAYERS}-layer T3 at width {cfg.dim} ({n} params), card against "
+          f"CPU: first gradients' worst leaf {share:.3e} of its max ({share / N_GRAD_SHARE:.3f} "
+          f"of {N_GRAD_SHARE:g}); AdamW from the same gradients {upd:.3e} "
+          f"({upd / N_UPDATE_ATOL:.3f} of {N_UPDATE_ATOL:g}); {N_SMALL_STEPS} steps: losses rel "
+          f"{worst_loss:.3e} ({worst_loss / N_LOSS_RTOL:.3f} of {N_LOSS_RTOL:g}), params: "
+          f"{outliers} elements ({outliers / n:.2e}, {outliers / n / N_PARAM_OUTLIERS:.3f} of "
+          f"the {N_PARAM_OUTLIERS:g} allowed) over lr/20, the worst {worst_p:.3e} "
+          f"({worst_p / N_PARAM_CAP:.3f} of {N_PARAM_CAP:g}); {time.time() - t0:.1f} s",
+          flush=True)
+    if not (share <= N_GRAD_SHARE and upd <= N_UPDATE_ATOL and worst_loss <= N_LOSS_RTOL
+            and outliers <= N_PARAM_OUTLIERS * n and worst_p <= N_PARAM_CAP):
+        fail("path N: the small T3's training on the card differs from the CPU's")
+
+
+def cfm_phase(counts_before_read):
+    """cfm_loss at the full flow width on CFM_ROWS rows of CFM_T frames, one
+    set of draws: with the kernel under no_grad (the launches counted:
+    K3 once a transformer block), against the dense path; the kernel under
+    autograd must raise; the dense path's gradient in fp32 must be finite.
+    ``counts_before_read`` is called right after the counted call."""
+    import torch
+
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+    from chatterbox_tpu_torch.models.s3gen.flow import FlowConfig
+    from chatterbox_tpu_torch.train.losses import cfm_draws, cfm_loss
+    from chatterbox_tpu_torch.train.train_step import _like
+
+    cfg = FlowConfig()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    flow = weights.init_flow(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    x1, mu, cond = (torch.randn((CFM_ROWS, CFM_T, 80), generator=g, device=dev) * 0.5
+                    for _ in range(3))
+    spks = torch.randn((CFM_ROWS, 80), generator=g, device=dev)
+    lens = torch.linspace(0.7 * CFM_T, CFM_T, CFM_ROWS, device=dev).long()
+    mask = torch.arange(CFM_T, device=dev)[None] < lens[:, None]
+    draws = cfm_draws(x1, g)
+    x1b, mub, spksb, condb = (a.to(torch.bfloat16) for a in (x1, mu, spks, cond))
+    bf = (x1b, mask, mub, spksb, condb)
+    with torch.no_grad():
+        t0 = time.time()
+        loss_k = cfm_loss(flow, cfg, *bf, draws=draws)
+        torch.cuda.synchronize()
+        k_s = time.time() - t0
+        counts = counts_before_read()
+        t0 = time.time()
+        loss_d = cfm_loss(flow, cfg, *bf, draws=draws, use_flash=False)
+        torch.cuda.synchronize()
+        d_s = time.time() - t0
+    rel = abs(float(loss_k) - float(loss_d)) / abs(float(loss_d))
+    print(f"path N: cfm_loss at {CFM_ROWS} x {CFM_T} frames, UNet {cfg.estimator.channels} "
+          f"channels, {cfg.estimator.num_heads} heads of {cfg.estimator.attention_head_dim}, bf16: "
+          f"with K3 {float(loss_k):.6f} ({k_s * 1e3:.1f} ms, first call), dense "
+          f"{float(loss_d):.6f} ({d_s * 1e3:.1f} ms); rel {rel:.3e} ({rel / CFM_RTOL:.3f} of "
+          f"2^-7)", flush=True)
+    if not (math.isfinite(float(loss_k)) and rel <= CFM_RTOL):
+        fail("path N: cfm_loss through K3 differs from the dense path")
+    est = flow["estimator"]
+    live = [x.detach().requires_grad_() for x in flatten(est).values()]
+    try:
+        cfm_loss({"estimator": _like(est, live)}, cfg, *bf, draws=draws)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"path N: cfm_loss through K3 under autograd raises: {e}", flush=True)
+    else:
+        fail("path N: cfm_loss through K3 under autograd did not raise")
+    est32 = {k: v.float() for k, v in flatten(est).items()}
+    live = [v.detach().requires_grad_() for v in est32.values()]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loss = cfm_loss({"estimator": _like(est, live)}, cfg, x1, mask, mu, spks, cond, draws=draws,
+                    use_flash=False)
+    grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in grads) or not any(
+            float(x.abs().max()) > 0 for x in grads):
+        fail("path N: cfm_loss's dense gradient is not finite or is all 0")
+    print(f"path N: cfm_loss dense in fp32 under autograd: loss {float(loss.detach()):.6f}, "
+          f"gradients of {len(grads)} UNet leaves finite in {time.time() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return counts
+
+
+def train_path(card):
+    """Path N: T3 training on the card at full width (``T3Config()``, fp32,
+    ``weights.init_t3(seed=0)``, batches of N_BATCH rows: 34 cond + 128
+    text + 512 speech positions), through ``train.trainer.T3Trainer``:
+      1. the gradient of the first batch: every leaf the loss reaches is
+         nonzero (``check_train_grads``);
+      2. N_WARM + N_TIMED steps on that one batch: losses finite and
+         falling; the timed steps by ``runtime.profiling.StageTimer`` (the
+         median step, its update stage), tokens/s, the share of the fp32
+         bound, peak memory; TF32 off, deterministic algorithms off;
+      3. resume under ``torch.use_deterministic_algorithms(True)``: 2 steps,
+         ``save``, 2 steps, against ``T3Trainer.resume`` of the file and 2
+         steps: losses and every leaf bit for bit;
+      4. a small T3 on the card against the CPU (``train_small_against_cpu``);
+      5. ``cfm_loss`` at the full flow width (``cfm_phase``).
+    The launch counters are set to 0 at the start and read after step 5's
+    kernel call: K3 CFM_BLOCKS times, nothing else. Returns those counts."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+    from chatterbox_tpu_torch.models.t3.t3 import T3Config
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.runtime.profiling import StageTimer
+    from chatterbox_tpu_torch.train.train_step import t3_loss_and_grads
+    from chatterbox_tpu_torch.train.trainer import T3Trainer, _batch_to
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"path N: {torch.cuda.memory_allocated() / 2**30:.2f} GiB held from earlier paths",
+          flush=True)
+    reset_launch_counts()
+    cfg = T3Config()
+    t0 = time.time()
+    trainer = T3Trainer(cfg, weights.init_t3(cfg, seed=0, device="cuda"), learning_rate=N_LR)
+    n_params = sum(x.numel() for x in flatten(trainer.params).values())
+    if n_params != N_PARAMS:
+        fail(f"path N: T3Config() has {n_params} parameters, not {N_PARAMS}")
+    batch = train_batch(0)
+    s = cfg.n_cond + N_TEXT + N_SPEECH
+    tokens = N_BATCH * s
+    print(f"path N: T3Config() {n_params} fp32 parameters on the card in {time.time() - t0:.1f} "
+          f"s; batch {N_BATCH} x {s} positions ({tokens} a step)", flush=True)
+
+    # 1. the first gradient reaches every leaf
+    check_train_grads(trainer.params, t3_loss_and_grads(
+        trainer.params, cfg, _batch_to(batch, trainer.device))[3], batch)
+
+    # 2. warm and timed steps on one batch
+    torch.cuda.reset_peak_memory_stats()
+    losses, timers = [], []
+    for i in range(N_WARM + N_TIMED):
+        timer = StageTimer()
+        with timer.stage("step", block_on=trainer.device):
+            losses.append(trainer.step(batch, timer=timer))
+        timers.append(timer)
+    peak_a = torch.cuda.max_memory_allocated() / 2**30
+    peak_r = torch.cuda.max_memory_reserved() / 2**30
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        fail(f"path N: a loss is not finite: {losses}")
+    if not losses[-1]["loss"] < losses[0]["loss"]:
+        fail(f"path N: the loss did not fall over {len(losses)} steps on one batch")
+    timed = timers[N_WARM:]
+    med = {k: float(np.median([t.totals[k] for t in timed])) * 1e3
+           for k in ("step", "loss_and_grads", "update")}
+    flops = train_step_flops(cfg, N_BATCH, N_TEXT, N_SPEECH)
+    bound_ms = flops / PEAK_FP32_FLOPS * 1e3
+    upd_bytes = 4 * n_params * 7  # read p, g, mu, nu; write p, mu, nu (fp32)
+    upd_bound = upd_bytes / PEAK_BYTES * 1e3
+    print(f"path N: losses over {len(losses)} steps on one batch: "
+          + ", ".join(f"{m['loss']:.4f}" for m in losses), flush=True)
+    print(f"path N: train step median of {N_TIMED}: {med['step']:.1f} ms (loss and gradients "
+          f"{med['loss_and_grads']:.1f} ms, AdamW update {med['update']:.2f} ms, bound "
+          f"{upd_bound:.2f} ms by bytes, {upd_bound / med['update']:.1%}); "
+          f"{tokens / med['step'] * 1e3:.0f} tokens/s; {flops:.4e} operations, fp32 bound "
+          f"{bound_ms:.1f} ms, {bound_ms / med['step']:.1%} of it; peak {peak_a:.2f} GiB "
+          f"allocated, {peak_r:.2f} GiB reserved; TF32 off, deterministic algorithms off; "
+          f"on {card}", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. bit-identical resume on the card
+    batches = [train_batch(1 + i) for i in range(4)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix=".smoke_train_", dir=HERE) as work:
+            path = os.path.join(work, "train_state.safetensors")
+            a = T3Trainer(cfg, weights.init_t3(cfg, seed=0, device="cuda"), learning_rate=N_LR)
+            straight = [a.step(b) for b in batches[:2]]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            a.save(path)
+            save_s = time.time() - t0
+            straight += [a.step(b) for b in batches[2:]]
+            t0 = time.time()
+            r = T3Trainer.resume(path, cfg, weights.init_t3(cfg, seed=1, device="cuda"),
+                                 learning_rate=N_LR)
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+            size = os.path.getsize(path)
+            resumed = [r.step(b) for b in batches[2:]]
+        if r.step_num != a.step_num or resumed != straight[2:]:
+            fail(f"path N: resumed losses {resumed} differ from {straight[2:]}")
+        n_leaves = 0
+        for x, y in ((a.params, r.params), (a.opt_state.mu, r.opt_state.mu),
+                     (a.opt_state.nu, r.opt_state.nu)):
+            for k, v in flatten(x).items():
+                if not torch.equal(v, flatten(y)[k]):
+                    fail(f"path N: after resume, {k} differs")
+                n_leaves += 1
+        if not torch.equal(a.opt_state.count, r.opt_state.count):
+            fail("path N: after resume, the optimizer count differs")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"path N: resume bit-identical under torch.use_deterministic_algorithms(True): 4 "
+          f"losses and {n_leaves + 1} leaves; the file {size} bytes, save {save_s:.1f} s, "
+          f"resume (load) {load_s:.1f} s", flush=True)
+    del a, r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the small model on the card against the CPU
+    train_small_against_cpu()
+
+    # 5. cfm_loss at the full flow width
+    counts = cfm_phase(launch_counts)
+    check_launches("N", counts, (_K3,), (_K1A, _K1B, _K1C, _K2, _K2B, _K4, _K5),
+                   {_K3: CFM_BLOCKS})
+    print("path N: kernel launches " + json.dumps(counts), flush=True)
+    return counts
+
+
 def write_audio(audio_dir):
     """The seeded reference (24 kHz) and sources (16 kHz) as WAV files ->
     (reference path, source paths, source lengths in samples)."""
@@ -2895,9 +3317,12 @@ def main():
         t5 = time.time()
         counts["M"] = reference_set_path(card, ref_path, src_paths)
         t6 = time.time()
+        counts["N"] = train_path(card)
+        t7 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
           f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s, "
-          f"reference set (path M) {t6 - t5:.1f} s", flush=True)
+          f"reference set (path M) {t6 - t5:.1f} s, training (path N) {t7 - t6:.1f} s",
+          flush=True)
     counts["E"] = {k: sum(c[k] for c in vc_counts.values()) for k in vc_counts["fused"]}
     counts["probes"] = probe_counts
     # path I's kernels at its batch: their errors count in the row's
@@ -2911,8 +3336,8 @@ def main():
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
     # under the two sets of names that readers of this line expect;
-    # "launches" sums the first calls of paths A-I (E: both layouts and the
-    # pipelined call) and the probe phase; a probe's row counts its probe's
+    # "launches" sums the first calls of paths A-N (E: both layouts and the
+    # pipelined call; N: cfm_loss's forward) and the probe phase; a probe's row counts its probe's
     # launches in that phase
     table = []
     for key, r in rows.items():

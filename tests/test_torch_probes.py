@@ -248,13 +248,13 @@ def test_boundary_chains_match_jax(mode, quant):
     """Two repetitions of each P1 chain on the tiny Llama (fused q/k/v, dense
     or int8): the port's ``boundary.chain`` within 1e-5 of the probe's JAX
     chain in fp32 (the products and sums differ in round-off only)."""
-    from chatterbox_tpu_torch.models.t3.llama import layer_params, rope_cos_sin
+    from chatterbox_tpu_torch.models.t3.llama import rope_cos_sin, unstack_layers
 
     jllama, pllama, cache_ds, tail, mb, cache_sd, x0, q0 = _p1_inputs(quant)
     cfg = P_T3.llama
     cos, sin = rope_cos_sin(cfg, torch.full((P1_ROWS, 1), P1_CUR))
     st = boundary.Setup(
-        cfg, [layer_params(pllama, i) for i in range(cfg.num_hidden_layers)], t(cache_sd),
+        cfg, unstack_layers(pllama), t(cache_sd),
         torch.full((P1_ROWS,), boundary.ROW_PREFIX, dtype=torch.int32), boundary.GAP_END,
         P1_CUR, cos, sin, t(x0), t(q0), torch.tensor(1e-6))
     want = _p1_jax_chain(jllama, mode, 2, j(cache_ds), j(tail), mb, j(x0), j(q0))

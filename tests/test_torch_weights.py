@@ -241,6 +241,9 @@ def test_port_sources_import_no_jax():
     sources = _port_sources()
     assert REPO / "chatterbox_tpu_torch" / "pipeline" / "streaming.py" in sources
     assert REPO / "chatterbox_tpu_torch" / "serve" / "server.py" in sources
+    for mod in ("train/losses.py", "train/train_step.py", "train/trainer.py",
+                "runtime/profiling.py"):
+        assert REPO / "chatterbox_tpu_torch" / mod in sources, mod
     hits = [f"{p}: {m.group(0).strip()}" for p in sources
             for m in bad.finditer(p.read_text())]
     assert not hits, hits
@@ -288,6 +291,8 @@ v = vc.generate(synthetic_voice(1, 0.5, 16000), target_voice_path=None if vc.set
     synthetic_voice(2, 0.8, 24000)) is None else None)
 assert v.shape == (1, 13 * 960), v.shape
 import chatterbox_tpu_torch.serve.server
+import chatterbox_tpu_torch.train.trainer, chatterbox_tpu_torch.train.losses
+import chatterbox_tpu_torch.runtime.profiling
 import tempfile
 sys.path.insert(0, "tests")
 import torch_reference_format as rf
@@ -328,13 +333,14 @@ print("OK")
 
 @pytest.mark.parametrize("entry", ["from_random", "from_native", "from_local", "from_pretrained",
                                    "vc_from_random", "vc_from_native", "vc_from_local",
-                                   "tts_service"])
+                                   "tts_service", "t3_trainer"])
 def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monkeypatch,
                                                         tmp_path):
     from chatterbox_tpu_torch.pipeline.tts import ChatterboxTTS
     from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
     from chatterbox_tpu_torch.serve.config import ServerConfig
     from chatterbox_tpu_torch.serve.service import TTSService
+    from chatterbox_tpu_torch.train.trainer import T3Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -352,6 +358,8 @@ def test_entry_points_raise_without_a_gpu_and_no_device(entry, native_dir, monke
             ChatterboxVC.from_native(native_dir)
         elif entry == "vc_from_local":
             ChatterboxVC.from_local(tmp_path)
+        elif entry == "t3_trainer":
+            T3Trainer(P_T3, weights.init_t3(P_T3, seed=0))
         else:  # the server's "auto" device is the card, never the CPU
             TTSService(ServerConfig(device="auto", voice_storage_path=str(tmp_path / "v"),
                                     config_storage_path=str(tmp_path / "c"),

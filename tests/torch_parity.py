@@ -131,6 +131,21 @@ def cond_params(seed=0):
     return jp, weights.from_jax_tree(jp)
 
 
+@lru_cache(maxsize=None)
+def _jax_flow(seed):
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: j_flow.init_flow(key, J_S3GEN.flow))
+    return _fill(shapes, np.random.default_rng(seed))
+
+
+def flow_params(seed=0):
+    """(JAX params, port params) of the tiny flow alone: the tree of
+    ``init_flow`` (``jax.eval_shape``; compiling the JAX init takes ~9 s
+    on the CPU) filled from a numpy seed by ``_fill``."""
+    jp = _jax_flow(seed)
+    return jp, weights.from_jax_tree(jp)
+
+
 def t3_params(seed=0):
     """(JAX params, port params) of the tiny T3 from ``init_t3``, as numpy
     arrays and CPU tensors."""
