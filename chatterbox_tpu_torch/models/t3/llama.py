@@ -4,6 +4,11 @@ Port of ``chatterbox_tpu/models/t3/llama.py`` (HF ``LlamaModel`` numerics
 with the Llama_520M config: hidden 1024, 30 layers, 16 heads of 64, FFN
 4096, RMSNorm eps 1e-5, rope_theta 5e5 with llama3 scaling).
 
+Under ``parallel.tensor_parallel.model_parallel(group)`` the layers run on
+this rank's heads and FFN columns (``cfg`` then holds the local counts,
+``parallel.sharding.local_t3_config``): the partial products of ``o`` and
+``down`` are all-reduced, and the watchdog's head mean sums over the group.
+
 Parameters keep the stacked layout (L, ...) of the JAX package, with linear
 weights as (L, Cout, Cin). Besides the canonical separate q/k/v, a layer
 may carry the runtime layouts of ``runtime/precision.py``: one fused
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 
 from ...checkpoint.torch_convert import as_numpy
 from ...core.layers import merge_heads, rms_norm, sdpa, split_heads
+from ...parallel.tensor_parallel import copy_to_model, model_size, reduce_from_model
 from ...ops.flash_decode import (
     TAIL_W,
     flash_decode_layer_attention,
@@ -202,6 +208,7 @@ def _qkv(lp, y, cfg: LlamaConfig):
     """y -> per-head q, k, v (B, H, T, D), from the fused ``qkv`` weight when
     the layer has one (llama.py:254-263)."""
     h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    y = copy_to_model(y)
     if "qkv" in lp:
         q, k, v = _wmat(y, lp["qkv"]).split([h * d, kvh * d, kvh * d], dim=-1)
     else:
@@ -210,7 +217,7 @@ def _qkv(lp, y, cfg: LlamaConfig):
 
 
 def _mlp(lp, y):
-    g, u = _wmat(y, lp["gate_up"]).chunk(2, dim=-1)
+    g, u = _wmat(copy_to_model(y), lp["gate_up"]).chunk(2, dim=-1)
     return F.silu(g) * u
 
 
@@ -258,9 +265,9 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
         if kvs is not None:
             kvs[i, 0, :, :, :t] = k
             kvs[i, 1, :, :, :t] = v
-        x = x + _wmat(merge_heads(sdpa(q, k, v, bias=bias)), lp["o"])
+        x = x + reduce_from_model(_wmat(merge_heads(sdpa(q, k, v, bias=bias)), lp["o"]))
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
-        x = x + _wmat(_mlp(lp, y), lp["down"])
+        x = x + reduce_from_model(_wmat(_mlp(lp, y), lp["down"]))
     hidden = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)
     if not cache_quant:
         return hidden, kvs
@@ -285,7 +292,9 @@ def _text_probs(cache, layer: int, q, m, l, text_slice: Tuple[int, int], row_pre
     p = torch.exp(logits - m[..., None]) / torch.clamp_min(l[..., None], 1e-30)
     pos = torch.arange(lo, hi, device=p.device)
     p = torch.where(pos[None, None, :] < row_prefix.long()[:, None, None], p, 0.0)
-    return p.mean(dim=1)
+    # the mean over every head: under tensor parallelism this rank holds
+    # H / model_size of them
+    return reduce_from_model(p.sum(dim=1)) / (p.shape[1] * model_size())
 
 
 def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positions,
@@ -344,9 +353,9 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
             attn = _text_probs(cache, i, q1, m, l, text_slice, row_prefix)
         else:
             a = flash_decode_layer_attention(cache, i, write_pos, row_prefix, gap_end, q1, k1, v1)
-        x = x + _wmat(a.reshape(b, 1, h * d), lp["o"])
+        x = x + reduce_from_model(_wmat(a.reshape(b, 1, h * d), lp["o"]))
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
-        x = x + _wmat(_mlp(lp, y), lp["down"])
+        x = x + reduce_from_model(_wmat(_mlp(lp, y), lp["down"]))
         new_kv[i, 0] = k1
         new_kv[i, 1] = v1
     kv_cache_write(cache, new_kv, write_pos)

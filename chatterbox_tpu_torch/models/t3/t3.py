@@ -16,14 +16,16 @@ package. ``t3_forward``/``t3_loss`` are the teacher-forced training pass.
 """
 
 from dataclasses import dataclass, field
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
+from ...parallel.tensor_parallel import copy_to_model, gather_vocab
 from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds, convert_cond_enc
 from .llama import (LLAMA_520M, LlamaConfig, convert_llama, llama_decode_step, llama_prefill,
@@ -73,6 +75,13 @@ def convert_t3(sd, cfg: T3Config = T3Config()):
         "text_head": tc.linear(sd, "text_head"),
         "speech_head": tc.linear(sd, "speech_head"),
     }
+
+
+def _head(p, name: str, x, vocab: int):
+    """A vocabulary head's logits over the whole vocabulary; under tensor
+    parallelism this rank's slice of the head, gathered
+    (``parallel/tensor_parallel.py``)."""
+    return gather_vocab(linear(p[name], copy_to_model(x)), vocab)
 
 
 def t3_cond_prefix(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv):
@@ -162,6 +171,10 @@ class GenCarry:
     gap_end: int  # first slot after the text bucket
     generator: Optional[torch.Generator] = None  # the draws, when no uniforms
     uniforms: Optional[torch.Tensor] = None  # (max_new, B) in [0, 1): step i's draw
+    # (lo, hi, total): these rows are rows [lo, hi) of a batch of ``total``
+    # split over data-parallel ranks; each step draws for all ``total`` rows
+    # (``uniforms``: (max_new, total)) and takes its own
+    draw_rows: Optional[Tuple[int, int, int]] = None
     align: Any = None  # the watchdog's AlignState, when alignment is on
     attn: Optional[torch.Tensor] = None  # (B, T_text) the last step's text attention
 
@@ -179,7 +192,7 @@ def _carry_result(cy: GenCarry, stop: int) -> GenResult:
 
 def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
            sampling: SamplingConfig, max_new_tokens: int, uniforms, generator, alignment: bool,
-           cache_quant: bool) -> GenCarry:
+           cache_quant: bool, draw_rows=None) -> GenCarry:
     """The prefill and the carry at step 0 (``t3_generate_start`` and
     ``t3_generate``; only the latter may ask for the watchdog)."""
     b, tmax = text_tokens.shape
@@ -199,7 +212,8 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
         cache_quant=cache_quant,
     )
     rows = torch.arange(hidden.shape[0], device=dev)
-    logits = linear(p["speech_head"], hidden[rows, pre.last_idx])  # (2B, vocab)
+    logits = _head(p, "speech_head", hidden[rows, pre.last_idx],
+                   cfg.speech_tokens_dict_size)  # (2B, vocab)
 
     # slot validity for the decode kernel: [cond; text] up to row_prefix,
     # then the text-padding gap, then [BOS; decoded] from gap_end on
@@ -216,7 +230,7 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
                           device=dev),
         seen=seen, done=torch.zeros((b,), dtype=torch.bool, device=dev), logits=logits,
         row_prefix=row_prefix.contiguous(), base_pos=base_pos, i=0, s0=s0,
-        gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms,
+        gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms, draw_rows=draw_rows,
     )
     if alignment:
         carry.align = init_align_state(b, tmax, dev)
@@ -281,10 +295,12 @@ def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
         if sampling.greedy:
             tok = torch.argmax(lg, dim=-1).to(torch.int32)
         else:
+            lo, hi, total = cy.draw_rows or (0, b, b)
             if cy.uniforms is not None:
                 u = cy.uniforms[i].to(device=dev, dtype=torch.float32)
             else:
-                u = torch.rand((b,), generator=cy.generator, device=dev)
+                u = torch.rand((total,), generator=cy.generator, device=dev)
+            u = u[lo:hi]
             tok = sample_from_logits(lg, u)
         tok = torch.where(cy.done, stop, tok)
         cy.tokens[:, i] = tok
@@ -305,7 +321,7 @@ def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
             cy.row_prefix, cy.gap_end, layers=layers, align_layer=align_layer,
             text_slice=text_slice,
         )
-        cy.logits = linear(p["speech_head"], h[:, 0])
+        cy.logits = _head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size)
         if alignment:
             cy.attn = attn_2b[:b]  # the conditional rows
     return cy, _carry_result(cy, stop)
@@ -325,6 +341,7 @@ def t3_generate(
     generator: Optional[torch.Generator] = None,
     alignment: bool = False,
     cache_quant: bool = False,
+    draw_rows: Optional[Tuple[int, int, int]] = None,
 ) -> GenResult:
     """Batched CFG speech-token generation: the prefill
     (``t3_generate_start``) and one ``t3_generate_resume`` over the whole
@@ -337,12 +354,15 @@ def t3_generate(
     exact tail (see ``llama.py``); ``alignment`` runs the watchdog on layer
     ``cfg.alignment_layer``'s text attention of the previous step, after the
     ``min_new_tokens`` floor and before the logits processors, and forces
-    ``cache_quant`` off (t3.py:244-279, 365-367). Returns EOS-padded tokens,
+    ``cache_quant`` off (t3.py:244-279, 365-367). ``draw_rows`` = (lo, hi,
+    total) makes these B rows rows [lo, hi) of a batch of ``total``: a
+    data-parallel rank's rows take their slice of the whole batch's draws
+    (``uniforms`` then (max_new, total)). Returns EOS-padded tokens,
     their lengths and the step count of the JAX loop (it stops once every
     row is done)."""
     carry = _start(p, cfg, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
                    sampling, max_new_tokens, uniforms, generator, alignment,
-                   cache_quant and not alignment)
+                   cache_quant and not alignment, draw_rows)
     _, res = t3_generate_resume(p, cfg, carry, text_lens, sampling, max_new_tokens)
     return res
 
@@ -376,30 +396,40 @@ def t3_forward(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv, text_t
     hidden, _ = llama_prefill(p["llama"], cfg.llama, embeds, positions, valid, None)
     text_latents = hidden[:, cfg.n_cond : cfg.n_cond + tt]
     speech_latents = hidden[:, cfg.n_cond + tt :]
-    return linear(p["text_head"], text_latents), linear(p["speech_head"], speech_latents)
+    return (_head(p, "text_head", text_latents, cfg.text_tokens_dict_size),
+            _head(p, "speech_head", speech_latents, cfg.speech_tokens_dict_size))
 
 
-def masked_ce(logits, targets, lens):
+def masked_ce(logits, targets, lens, data_group=None):
     """Mean over the first ``lens`` positions of each row of the cross
     entropy, from an fp32 log-softmax, of each position's logits against
     the token at the same position (no shift: the JAX package's arithmetic,
     whose docstring cites the reference's t3.py:167-201), divided by
     max(positions, 1). The per-position NLL picks one entry a position
     (``cross_entropy`` without reduction), so its backward writes each
-    logit's gradient once and adds nothing with atomics on the card."""
+    logit's gradient once and adds nothing with atomics on the card.
+
+    Under data parallelism (``data_group``) each rank holds some rows: the
+    divisor is the whole batch's count of positions (all-reduced), so that
+    the ranks' losses add up to the whole batch's loss."""
     dev = targets.device
     mask = torch.arange(targets.shape[1], device=dev)[None] < lens.to(dev)[:, None]
     nll = F.cross_entropy(logits.float().flatten(0, 1), targets.long().flatten(),
                           reduction="none").view(targets.shape)
-    return torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1)
+    count = mask.sum()
+    if data_group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=data_group)
+    return torch.sum(nll * mask) / torch.clamp_min(count, 1)
 
 
-def t3_loss(p, cfg: T3Config, batch):
+def t3_loss(p, cfg: T3Config, batch, data_group=None):
     """Masked CE losses (loss_text, loss_speech) of ``t3_forward`` on a batch
     dict with the JAX package's keys (speaker_emb, prompt_tokens,
-    emotion_adv, text_tokens, text_lens, speech_tokens, speech_lens)."""
+    emotion_adv, text_tokens, text_lens, speech_tokens, speech_lens); with
+    ``data_group`` this rank's share of the whole batch's (``masked_ce``)."""
     text_logits, speech_logits = t3_forward(
         p, cfg, batch["speaker_emb"], batch["prompt_tokens"], batch["emotion_adv"],
         batch["text_tokens"], batch["text_lens"], batch["speech_tokens"], batch["speech_lens"])
-    return (masked_ce(text_logits, batch["text_tokens"], batch["text_lens"]),
-            masked_ce(speech_logits, batch["speech_tokens"], batch["speech_lens"]))
+    return (masked_ce(text_logits, batch["text_tokens"], batch["text_lens"], data_group),
+            masked_ce(speech_logits, batch["speech_tokens"], batch["speech_lens"], data_group))

@@ -1,11 +1,20 @@
 """English text BPE tokenizer (vocab 704) reading the reference
-``tokenizer.json``: the port's own pure-Python copy of
-``chatterbox_tpu/models/tokenizer.py:25-138`` (greedy lowest-rank merges;
-space maps to the ``[SPACE]`` special token before encoding).
+``tokenizer.json``: port of ``chatterbox_tpu/models/tokenizer.py`` (greedy
+lowest-rank merges; space maps to the ``[SPACE]`` special token before
+encoding).
+
+Backends, as in the JAX package (``backend="auto"`` takes the first that
+loads): ``native``, the C++ BPE of ``chatterbox_tpu_torch/native``; ``hf``,
+the ``tokenizers`` package, where it is installed (``backend="hf"`` raises
+where it is not); and ``python``, the pure-Python BPE below, the same
+algorithm. ``backend`` names the one in use.
 """
 
 import json
+import logging
 from typing import List
+
+logger = logging.getLogger(__name__)
 
 SOT = "[START]"
 EOT = "[STOP]"
@@ -67,12 +76,36 @@ class PurePythonBPE:
 
 
 class EnTokenizer:
-    """The reference EnTokenizer on the pure-Python BPE."""
+    """The reference EnTokenizer over the native, ``tokenizers`` or
+    pure-Python BPE (see the module docstring)."""
 
-    def __init__(self, vocab_file_path: str):
+    def __init__(self, vocab_file_path: str, backend: str = "auto"):
+        if backend not in ("auto", "native", "hf", "python"):
+            raise ValueError(f"unknown tokenizer backend {backend!r}")
         with open(vocab_file_path) as f:
             self.spec = json.load(f)
+        self._native = self._hf = None
+        if backend in ("auto", "native"):
+            try:
+                from ..native import NativeBPE
+
+                self._native = NativeBPE(self.spec)
+            except Exception:
+                if backend == "native":
+                    raise
+        if backend in ("auto", "hf") and self._native is None:
+            try:
+                from tokenizers import Tokenizer
+
+                self._hf = Tokenizer.from_file(vocab_file_path)
+            except Exception:
+                if backend == "hf":
+                    raise
         self._py = PurePythonBPE(self.spec)
+        self.backend = "native" if self._native else "hf" if self._hf else "python"
+        if backend == "auto" and self.backend == "python":
+            logger.warning("tokenizer: neither the native library nor `tokenizers` loaded; "
+                           "the pure-Python BPE runs")
         voc = self._py.vocab
         if SOT not in voc or EOT not in voc:
             raise ValueError("tokenizer.json is missing [START]/[STOP]")
@@ -80,8 +113,17 @@ class EnTokenizer:
         self.eot_id = voc[EOT]
 
     def encode(self, txt: str) -> List[int]:
-        return self._py.encode(txt.replace(" ", SPACE))
+        txt = txt.replace(" ", SPACE)
+        if self._native is not None:
+            return self._native.encode(txt)
+        if self._hf is not None:
+            return self._hf.encode(txt).ids
+        return self._py.encode(txt)
 
     def decode(self, seq) -> str:
-        txt = self._py.decode([int(x) for x in seq])
+        seq = [int(x) for x in seq]
+        if self._hf is not None:
+            txt = self._hf.decode(seq, skip_special_tokens=False).replace(" ", "")
+        else:
+            txt = self._py.decode(seq)
         return txt.replace(SPACE, " ").replace(EOT, "").replace(UNK, "")

@@ -1,39 +1,80 @@
-"""Host-side audio I/O: WAV read and write with the stdlib ``wave`` module,
-resampling, and silence trimming.
+"""Host-side audio I/O: WAV read and write, resampling, and silence
+trimming.
 
-Port of ``chatterbox_tpu/pipeline/audio.py`` (its stdlib fallback: the port
-never uses the JAX package's C++ decoder). Resampling runs the port's
-windowed-sinc ``resample`` on the CPU.
+Port of ``chatterbox_tpu/pipeline/audio.py``. ``load_wav`` decodes with the
+native library (``chatterbox_tpu_torch/native``) first, as the JAX package
+does, and otherwise reads the RIFF chunks itself in numpy, with the same
+formats and arithmetic, so a machine without g++ loses no format.
+Resampling runs the port's windowed-sinc ``resample`` on the CPU.
 """
 
+import struct
 import wave
 
 import numpy as np
 import torch
 
 from ..core.resample import resample
+from ..native import wav_decode
+
+_PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
+
+
+def _pcm_to_float(raw: bytes, fmt: int, bits: int) -> np.ndarray:
+    """Interleaved samples -> float64 in [-1, 1] (the native decoder's
+    arithmetic: PCM over 2^(bits - 1), 8-bit offset by 128)."""
+    if fmt == _FLOAT and bits == 32:
+        return np.frombuffer(raw, "<f4").astype(np.float64)
+    if fmt != _PCM:
+        raise ValueError(f"unsupported WAV format {fmt} ({bits} bits)")
+    if bits == 8:
+        return (np.frombuffer(raw, np.uint8).astype(np.float64) - 128.0) / 128.0
+    if bits == 16:
+        return np.frombuffer(raw, "<i2") / 32768.0
+    if bits == 24:
+        b = np.frombuffer(raw, np.uint8).reshape(-1, 3).astype(np.int32)
+        return (((b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) << 8) >> 8) / 8388608.0
+    if bits == 32:
+        return np.frombuffer(raw, "<i4") / 2147483648.0
+    raise ValueError(f"unsupported PCM sample width of {bits} bits")
+
+
+def read_riff(data: bytes):
+    """RIFF/WAVE bytes -> (float32 mono, sample rate): PCM of 8, 16, 24 or
+    32 bits and 32-bit float (formats 1 and 3, also inside a
+    ``WAVE_FORMAT_EXTENSIBLE`` header), channels averaged in float64 as the
+    native decoder averages them. Raises ValueError on anything else."""
+    if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise ValueError("not a RIFF/WAVE file")
+    pos, fmt, pcm = 12, None, None
+    while pos + 8 <= len(data):
+        tag, size = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        body = data[pos + 8:min(pos + 8 + size, len(data))]
+        if tag == b"fmt " and len(body) >= 16:
+            fmt = struct.unpack_from("<HHIIHH", body)
+            if fmt[0] == _EXTENSIBLE and len(body) >= 26:  # the subformat GUID's first field
+                fmt = (struct.unpack_from("<H", body, 24)[0],) + fmt[1:]
+        elif tag == b"data":
+            pcm = body
+        pos += 8 + size + (size & 1)
+    if fmt is None or pcm is None:
+        raise ValueError("WAV file without a fmt or data chunk")
+    code, channels, sr, _, _, bits = fmt
+    if channels < 1 or bits < 8:
+        raise ValueError(f"WAV file with {channels} channels of {bits} bits")
+    frame = channels * (bits // 8)
+    x = _pcm_to_float(pcm[: len(pcm) // frame * frame], code, bits)
+    return x.reshape(-1, channels).mean(axis=1).astype(np.float32), sr
 
 
 def load_wav(path, target_sr: int = None) -> np.ndarray:
-    """A PCM WAV file (8, 16, 24 or 32 bits; channels averaged) -> float32
-    mono in [-1, 1], resampled to ``target_sr`` when given."""
-    with wave.open(str(path), "rb") as f:
-        sr, ch, width = f.getframerate(), f.getnchannels(), f.getsampwidth()
-        raw = f.readframes(f.getnframes())
-    if width == 2:
-        x = np.frombuffer(raw, np.int16).astype(np.float32) / 32768.0
-    elif width == 4:
-        x = np.frombuffer(raw, np.int32).astype(np.float32) / 2147483648.0
-    elif width == 1:
-        x = (np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0) / 128.0
-    elif width == 3:
-        b = np.frombuffer(raw, np.uint8).reshape(-1, 3).astype(np.int32)
-        x = (((b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)) << 8) >> 8).astype(np.float32)
-        x = x / 8388608.0
-    else:
-        raise ValueError(f"unsupported WAV sample width {width}")
-    if ch > 1:
-        x = x.reshape(-1, ch).mean(axis=1)
+    """A WAV file -> float32 mono in [-1, 1], resampled to ``target_sr``
+    when given: the native decoder when the library is there and takes the
+    file, else ``read_riff``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    res = wav_decode(data)
+    x, sr = res if res is not None else read_riff(data)
     if target_sr is not None and sr != target_sr:
         x = resample(torch.from_numpy(x), sr, target_sr).numpy()
     return x.astype(np.float32)

@@ -120,6 +120,7 @@ def stream_generate_batch(
     N single streams with the same seed."""
     b = len(texts)
     dev = tts.device
+    tts._no_mesh("streaming")
     inp = tts.prepare_call(texts, conds, exaggeration, stream.max_new_tokens, stream.flow_steps)
     n_cond_rows = int(inp.conds.t3.speaker_emb.shape[0])
     if n_cond_rows not in (1, b):

@@ -38,6 +38,11 @@ the device handle for ``collect``.
 resumable T3 carry, for the serving layer's admission control
 (``serve/batcher.py``); ``pipeline/streaming.py`` streams on that carry.
 ``CHATTERBOX_HIFT_BF16=1`` runs the vocoder's conv trunk in bf16.
+
+``with_mesh`` runs ``generate_batch`` over a ("data", "model") mesh of
+processes (``parallel/``): each rank its rows, T3 optionally split by heads.
+``from_random(..., synthetic=True)`` builds a benchmark's weights without a
+generator (``runtime/fast_init.py``).
 """
 
 import contextlib
@@ -71,6 +76,9 @@ from ..models.tokenizer import EnTokenizer
 from ..models.voice_encoder import (VoiceEncoderConfig, convert_voice_encoder, frame_step,
                                     num_wins, ve_embed_from_mels)
 from ..models.watermark import PerthImplicitWatermarker
+from ..parallel.sharding import data_rows, gather_rows
+from ..parallel.tensor_parallel import model_parallel
+from ..runtime.fast_init import synthetic_init
 from .audio import load_wav, trim_silence
 from .conditionals import Conditionals, T3CondData
 
@@ -242,18 +250,29 @@ def _tile(x, b):
 
 
 def synthesize(s3gen_params, s3gen_cfg, noise, watermarker, speech, speech_lens, ref: RefDict,
-               seed: int, hift_dtype=None):
+               seed: int, hift_dtype=None, draw_rows=None):
     """Speech tokens -> S3Gen (flow + HiFT + trim-fade) -> watermark ->
     (int16 wav (B, T), wav_lens (B,)). The CFM noise is the first 2*(P + T)
     frames of ``noise``; the vocoder draws from a generator seeded seed + 1
-    and runs its trunk in ``hift_dtype`` (None: fp32)."""
+    and runs its trunk in ``hift_dtype`` (None: fp32). ``draw_rows`` =
+    (lo, hi, total): these rows are rows [lo, hi) of a batch of ``total``
+    split over data-parallel ranks, and take their slice of the vocoder
+    noise drawn for all ``total`` rows (``hift_generate``'s draws)."""
     b = speech.shape[0]
     ref = RefDict(*(_tile(x, b) for x in ref))
     total = 2 * (ref.prompt_token.shape[1] + speech.shape[1])
+    gen = torch.Generator(device=speech.device).manual_seed(seed + 1)
+    phase = additive = None
+    if draw_rows is not None:
+        lo, hi, n = draw_rows
+        h = s3gen_cfg.hift.nb_harmonics + 1
+        t = 2 * speech.shape[1] * s3gen_cfg.hift.upsample_total
+        u = torch.rand((n, h), generator=gen, device=speech.device)
+        phase = (u * (2.0 * np.pi) - np.pi)[lo:hi]
+        additive = torch.randn((n, h, t), generator=gen, device=speech.device)[lo:hi]
     wav, wav_lens, _ = s3gen_wav(
         s3gen_params, s3gen_cfg, speech, speech_lens, ref, noise[:, :total].expand(b, total, 80),
-        generator=torch.Generator(device=speech.device).manual_seed(seed + 1),
-        hift_dtype=hift_dtype,
+        phase_noise=phase, additive_noise=additive, generator=gen, hift_dtype=hift_dtype,
     )
     y = watermarker.apply(wav)
     return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16), wav_lens
@@ -310,6 +329,11 @@ class ChatterboxTTS:
         # its compacted speech tokens, one array a text
         self.last_timings = {}
         self.last_speech_tokens = []
+        # with_mesh: the ("data", "model") mesh, and under model sharding
+        # T3's local config and the "model" group of its collectives
+        self.mesh = None
+        self._t3_local_cfg = None
+        self._tp_group = None
         # the neural Perth engine when a checkpoint is found, else
         # spread-spectrum (models/watermark.py's factory, tts.py:142)
         self.watermarker = PerthImplicitWatermarker()
@@ -340,23 +364,61 @@ class ChatterboxTTS:
             self.t3_params = {**self.t3_params, "llama": canonicalize_llama_params(
                 self.t3_params["llama"], self.t3_cfg.llama, dtype)}
 
+    def with_mesh(self, mesh, model_sharded: bool = False) -> "ChatterboxTTS":
+        """Run ``generate_batch`` over a ("data", "model") mesh
+        (``parallel/sharding.make_mesh``), as the JAX package's ``with_mesh``
+        (tts.py:174-189): every rank calls it with the same texts, each runs
+        its rows of the batch (a multiple of the data axis's size) and
+        returns the whole batch's wavs, in order. With ``model_sharded`` T3's
+        heads, FFN and vocabulary heads split over "model" (this rank keeps
+        its shards). The runtime layouts go first (``_unfuse_qkv``); under a
+        mesh the KV cache is the working dtype's, as the JAX package's
+        meshed T3 keeps it."""
+        from ..parallel.sharding import local_t3_config, shard_params, t3_param_specs
+
+        self._unfuse_qkv()  # the specs address the canonical q/k/v
+        self.mesh = mesh
+        if model_sharded:
+            size = mesh.size(1)
+            self._t3_local_cfg = local_t3_config(self.t3_cfg, size)
+            self.t3_params = shard_params(self.t3_params, mesh, t3_param_specs(self.t3_params))
+            self._tp_group = mesh.get_group("model") if size > 1 else None
+        return self
+
+    def _no_mesh(self, what: str):
+        if self.mesh is not None:
+            raise ValueError(f"{what} does not run under a mesh (with_mesh); generate_batch does")
+
     # ------------------------------------------------------------------ load
     @classmethod
     def from_random(cls, seed: int = 0, t3_cfg: T3Config = None, s3gen_cfg: S3GenConfig = None,
-                    device=None, ve_cfg: VoiceEncoderConfig = None) -> "ChatterboxTTS":
+                    synthetic: bool = False, *, device=None,
+                    ve_cfg: VoiceEncoderConfig = None) -> "ChatterboxTTS":
         """Seeded random weights built on the device by the port's own inits
         (T3 and flow in bf16 on the card and fp32 on the CPU; HiFT and the
-        conditioning modules fp32)."""
+        conditioning modules fp32). ``synthetic=True`` fills every leaf with
+        the generator-free pseudo-noise of ``runtime/fast_init.py`` instead
+        (the seed is not used), as the JAX package's ``synthetic=True``."""
         dev = resolve_device(device)
         t3_cfg = t3_cfg or T3Config()
         s3gen_cfg = s3gen_cfg or S3GenConfig()
         ve_cfg = ve_cfg or VoiceEncoderConfig()
-        return cls(weights.init_t3(t3_cfg, seed, dev, _default_dtype(dev)),
-                   random_s3gen(s3gen_cfg, seed, dev), dev, t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg,
-                   ve_params=weights.init_voice_encoder(ve_cfg, seed + 5, dev), ve_cfg=ve_cfg)
+        if synthetic:
+            t3 = synthetic_init(lambda d: weights.init_t3(t3_cfg, seed, d), _default_dtype(dev),
+                                device=dev)
+            s3gen = cast_s3gen(synthetic_init(lambda d: random_s3gen(s3gen_cfg, seed, d),
+                                              device=dev), dev)
+            ve = synthetic_init(lambda d: weights.init_voice_encoder(ve_cfg, seed + 5, d),
+                                device=dev)
+        else:
+            t3 = weights.init_t3(t3_cfg, seed, dev, _default_dtype(dev))
+            s3gen = random_s3gen(s3gen_cfg, seed, dev)
+            ve = weights.init_voice_encoder(ve_cfg, seed + 5, dev)
+        return cls(t3, s3gen, dev, t3_cfg=t3_cfg, s3gen_cfg=s3gen_cfg, ve_params=ve,
+                   ve_cfg=ve_cfg)
 
     @classmethod
-    def from_native(cls, ckpt_dir, device=None, tokenizer_json=None) -> "ChatterboxTTS":
+    def from_native(cls, ckpt_dir, tokenizer_json=None, *, device=None) -> "ChatterboxTTS":
         """Load a directory written by the JAX package's ``save_native``
         (cast as in ``from_random``; the voice encoder from
         ``ve.jax.safetensors`` when the directory has one)."""
@@ -382,7 +444,7 @@ class ChatterboxTTS:
                    ve_cfg=ve_cfg)
 
     @classmethod
-    def from_local(cls, ckpt_dir, conds_path: str = None, device=None) -> "ChatterboxTTS":
+    def from_local(cls, ckpt_dir, conds_path: str = None, *, device=None) -> "ChatterboxTTS":
         """Load the reference checkpoint set (``ve``, ``t3_cfg`` and
         ``s3gen.safetensors``, ``tokenizer.json``, and ``conds.pt`` or else
         ``conds.safetensors``), converting the torch layouts once, as the
@@ -420,7 +482,7 @@ class ChatterboxTTS:
                    s3gen_cfg=s3gen_cfg, conds=conds, ve_params=ve_params, ve_cfg=ve_cfg)
 
     @classmethod
-    def from_pretrained(cls, ckpt_dir=None, device=None) -> "ChatterboxTTS":
+    def from_pretrained(cls, ckpt_dir=None, *, device=None) -> "ChatterboxTTS":
         """``from_local`` of a directory that already holds the published
         set: no download (tts.py:226-235), so no directory raises."""
         if ckpt_dir is None:
@@ -581,6 +643,7 @@ class ChatterboxTTS:
         b = len(texts)
         tmax = inp.text_tokens.shape[1]
         if b > self._budget_batch_cap(max_new_tokens, False, tmax, alignment):
+            self._no_mesh("a batch over the one-shot cap")
             if defer_collect:
                 raise ValueError(f"defer_collect takes a batch under the one-shot cap; {b} texts "
                                  f"exceed it at {max_new_tokens} tokens")
@@ -600,28 +663,39 @@ class ChatterboxTTS:
             min_new_tokens=min_new_tokens, greedy=greedy,
         )
         t3c = inp.t3_cond
-        res = t3_generate(
-            self.t3_params, self.t3_cfg, torch.from_numpy(inp.text_tokens).to(self.device),
-            torch.from_numpy(inp.text_lens).to(self.device), t3c.speaker_emb, t3c.prompt_tokens,
-            t3c.emotion_adv, sampling, max_new_tokens,
-            generator=torch.Generator(device=self.device).manual_seed(seed),
-            alignment=alignment, cache_quant=inp.cache_quant,
-        )
+        # under a mesh this rank's rows, which take their slice of the whole
+        # batch's draws; the tokens and wavs are gathered over "data"
+        lo, hi = (0, b) if self.mesh is None else data_rows(self.mesh, b)
+        draw_rows = None if self.mesh is None else (lo, hi, b)
+        with model_parallel(self._tp_group):
+            res = t3_generate(
+                self.t3_params, self._t3_local_cfg or self.t3_cfg,
+                torch.from_numpy(inp.text_tokens[lo:hi]).to(self.device),
+                torch.from_numpy(inp.text_lens[lo:hi]).to(self.device), t3c.speaker_emb[lo:hi],
+                t3c.prompt_tokens[lo:hi], t3c.emotion_adv[lo:hi], sampling, max_new_tokens,
+                generator=torch.Generator(device=self.device).manual_seed(seed),
+                alignment=alignment, cache_quant=inp.cache_quant, draw_rows=draw_rows,
+            )
         t_t3 = time.perf_counter()
 
         if device_chain:
             speech, clean_lens = _compact_tokens(res.tokens, res.lengths)
             clean_rows = None
         else:
-            clean_rows = clean_token_rows(res.tokens.cpu().numpy(), res.lengths.cpu().numpy())
+            tokens, lengths = res.tokens, res.lengths
+            if self.mesh is not None:  # the whole batch's tokens fix its token bucket
+                tokens, lengths = (gather_rows(x, self.mesh, lo, b) for x in (tokens, lengths))
+            clean_rows = clean_token_rows(tokens.cpu().numpy(), lengths.cpu().numpy())
             speech, n_clean = pad_speech(clean_rows)
-            speech = torch.from_numpy(speech).to(self.device)
-            clean_lens = torch.from_numpy(n_clean).to(self.device)
+            speech = torch.from_numpy(speech[lo:hi]).to(self.device)
+            clean_lens = torch.from_numpy(n_clean[lo:hi]).to(self.device)
 
         handle = synthesize(
             self.s3gen_params, inp.s3gen_cfg, inp.noise, self.watermarker, speech, clean_lens,
-            inp.ref, seed, inp.hift_dtype,
+            RefDict(*(x[lo:hi] for x in inp.ref)), seed, inp.hift_dtype, draw_rows,
         )
+        if self.mesh is not None:
+            handle = tuple(gather_rows(x, self.mesh, lo, b) for x in handle)
         kv_cache = "int8" if inp.cache_quant else _DTYPE_NAMES[self.t3_params["speech_emb"]["w"].dtype]
         self.last_speech_tokens = clean_rows
         self.last_timings = {"t3_s": t_t3 - t_start, "t3_steps": res.steps,
@@ -710,6 +784,7 @@ class ChatterboxTTS:
         whole-batch ``generate_batch`` under the lock, as the JAX package
         does. With the same seed the tokens and wavs equal
         ``generate_batch``'s."""
+        self._no_mesh("generate_batch_preemptible")
         lock = lock if lock is not None else contextlib.nullcontext()
         if alignment:
             with lock:
@@ -793,7 +868,7 @@ class ChatterboxTTS:
             conds=conds, text_tokens=text_tokens, text_lens=lens,
             t3_cond=T3CondData(*(_tile(x, b) for x in conds.t3)),
             ref=RefDict(*(_tile(x, b) for x in conds.gen)),
-            cache_quant=self._kv_quant_for(max_new_tokens) and not alignment,
+            cache_quant=self._kv_quant_for(max_new_tokens) and not alignment and self.mesh is None,
             s3gen_cfg=s3gen_cfg, noise=self._cfm_noise,
             hift_dtype=torch.bfloat16 if self.hift_bf16 else None)
 
@@ -814,16 +889,20 @@ class ChatterboxTTS:
         ``max_device_batch`` (and ``max_pipelined_batch`` when
         ``pipelined``), with the budgets the card's (``card_batch_limits``).
         The cache is counted as the one the call uses: one byte a value on
-        the int8 cache, two on the bf16 one, which alignment forces (the
-        JAX package counts one byte there too)."""
-        itemsize = 1 if self._kv_quant_for(max_new_tokens) and not alignment else 2
-        per_row = _cache_row_bytes(self.t3_cfg.llama, max_new_tokens, text_bucket, itemsize)
+        the int8 cache, two on the bf16 one, which alignment and a mesh
+        force (the JAX package counts one byte there too). Under a mesh a
+        rank holds its rows' cache of its own heads: the cap counts those
+        and comes back for the whole batch."""
+        quant = self._kv_quant_for(max_new_tokens) and not alignment and self.mesh is None
+        llama = (self._t3_local_cfg or self.t3_cfg).llama
+        per_row = _cache_row_bytes(llama, max_new_tokens, text_bucket, 1 if quant else 2)
+        data = 1 if self.mesh is None else self.mesh.size(0)
         if pipelined:
             budget = self.pipelined_cache_budget_bytes
             hard = min(self.max_device_batch, self.max_pipelined_batch)
         else:
             budget, hard = self.cache_budget_bytes, self.max_device_batch
-        return max(1, int(min(hard, budget // max(per_row, 1))))
+        return max(1, int(min(hard, budget // max(per_row, 1)))) * data
 
     def _kv_quant_for(self, max_new_tokens: int) -> bool:
         """Whether T3 keeps its KV cache int8 at this token budget: the

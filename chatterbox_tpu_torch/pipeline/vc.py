@@ -4,7 +4,8 @@ Port of ``chatterbox_tpu/pipeline/vc.py`` (reference vc.py): the target
 voice becomes a RefDict (``embed_ref`` on its first 10 s); the sources are
 packed as int16 PCM into one batch bucketed by TOKEN_BUCKETS, tokenized by
 the S3 tokenizer with each row's pad region masked, re-synthesised by S3Gen
-with the target's RefDict, and watermarked. Entry points run on ``cuda``
+with the target's RefDict, and watermarked (``CHATTERBOX_HIFT_BF16=1`` runs
+the vocoder's conv trunk in bf16, as in TTS). Entry points run on ``cuda``
 unless the caller passes ``device``; without a GPU and without a device
 they raise.
 
@@ -18,9 +19,10 @@ thread packing batch c + 1 on the host while batch c computes, and batch
 c - 1 collected after batch c is dispatched. The sources' copies to the
 card (~1.5 MB a batch of 8) run on the caller's stream.
 
-Not in this slice: ``with_mesh``.
+``with_mesh`` splits a batch's sources over the "data" axis of a mesh.
 """
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -38,6 +40,7 @@ from ..models.s3gen.s3gen import (RefDict, S3GenConfig, convert_s3gen, embed_ref
                                   flow_steps_from_env, with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.watermark import PerthImplicitWatermarker
+from ..parallel.sharding import data_rows, gather_rows
 from .audio import load_wav
 from .conditionals import Conditionals
 from .tts import TOKEN_BUCKETS, _bucket, cast_s3gen, cfm_noise, collect, random_s3gen, synthesize
@@ -58,14 +61,28 @@ class ChatterboxVC:
         self.s3gen_cfg = flow_steps_from_env(s3gen_cfg)
         self.ref_dict = ref_dict
         self.sr = S3GEN_SR
+        # the vocoder's conv trunk in bf16: CHATTERBOX_HIFT_BF16=1, read at
+        # construction as the JAX package's field is (vc.py:41-43)
+        self.hift_bf16 = os.environ.get("CHATTERBOX_HIFT_BF16", "0") == "1"
+        self.mesh = None  # with_mesh
         self.watermarker = PerthImplicitWatermarker()
         self._cfm_noise = cfm_noise(self.device)
         # host seconds of the last generate_batch, ending in the int16 copy
         # (under defer_collect, in S3Gen's dispatch)
         self.last_timings = {}
 
+    def with_mesh(self, mesh) -> "ChatterboxVC":
+        """Data-parallel VC over a ("data", "model") mesh
+        (``parallel/sharding.make_mesh``), as the JAX package's
+        ``with_mesh`` (vc.py:59-66): every rank calls ``generate_batch`` with
+        the same sources, converts its rows (the batch a multiple of the data
+        axis's size; the weights replicated) and returns every source's wav,
+        in order."""
+        self.mesh = mesh
+        return self
+
     @classmethod
-    def from_random(cls, seed: int = 0, s3gen_cfg: S3GenConfig = None,
+    def from_random(cls, seed: int = 0, s3gen_cfg: S3GenConfig = None, *,
                     device=None) -> "ChatterboxVC":
         """Seeded random S3Gen weights from the port's own inits (as
         ``ChatterboxTTS.from_random`` builds them for the same seed)."""
@@ -74,7 +91,7 @@ class ChatterboxVC:
         return cls(random_s3gen(s3gen_cfg, seed, dev), dev, s3gen_cfg)
 
     @classmethod
-    def from_native(cls, ckpt_dir, device=None) -> "ChatterboxVC":
+    def from_native(cls, ckpt_dir, *, device=None) -> "ChatterboxVC":
         """Load S3Gen from a directory written by the JAX package's
         ``save_native`` (the flow in the working dtype, the rest fp32)."""
         dev = resolve_device(device)
@@ -86,7 +103,7 @@ class ChatterboxVC:
                    s3gen_cfg)
 
     @classmethod
-    def from_local(cls, ckpt_dir, device=None) -> "ChatterboxVC":
+    def from_local(cls, ckpt_dir, *, device=None) -> "ChatterboxVC":
         """S3Gen from the reference set's ``s3gen.safetensors`` at the default
         config, and the target voice from its ``conds.pt`` when there is
         one, as the JAX package's ``from_local`` (vc.py:69-80); cast as in
@@ -176,13 +193,20 @@ class ChatterboxVC:
         if _uploaded is None:
             _uploaded = self._upload_sources(self._pack_sources(audios))
         batch, lens, wav_bucket = _uploaded
+        b = batch.shape[0]
+        lo, hi = (0, b) if self.mesh is None else data_rows(self.mesh, b)
+        batch, lens = batch[lo:hi], lens[lo:hi]
         wav16 = batch.float() / 32768.0
         with full_fp32():
             # pad keys masked: a row's tokens must not depend on its batch-mates
             tokens, _ = s3_tokenize(self.s3gen_params["tokenizer"], self.s3gen_cfg.tokenizer,
                                     wav16, wav_lens=lens * _SAMPLES_PER_TOKEN)
         handle = synthesize(self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps),
-                            self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict, seed)
+                            self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict, seed,
+                            torch.bfloat16 if self.hift_bf16 else None,
+                            None if self.mesh is None else (lo, hi, b))
+        if self.mesh is not None:
+            handle = tuple(gather_rows(x, self.mesh, lo, b) for x in handle)
         if not defer_collect:
             handle = self.collect(handle)
         self.last_timings = {"vc_s": time.perf_counter() - t_start,

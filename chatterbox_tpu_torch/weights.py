@@ -121,6 +121,12 @@ def jax_layout_meta(params):
         torch.empty(t.shape, dtype=t.dtype, device="meta"), _layout(path, t.ndim)))
 
 
+def from_jax_layout(tree):
+    """Tensors in the JAX package's layouts (on any device) -> the port's
+    layouts, on the same device."""
+    return _map_tree(tree, lambda path, t: _to_port(t, _layout(path, t.ndim)))
+
+
 def to_jax_tree(params):
     """Inverse of ``from_jax_tree``: the port's parameters -> numpy arrays in
     the JAX package's layouts (bf16 tensors come back as float32)."""
@@ -149,8 +155,7 @@ def load_native(path):
     for name, a in arrays.items():
         t = torch.from_numpy(a.copy())
         flat[name] = t.view(torch.bfloat16) if name in bf16 else t
-    tree = unflatten(flat)
-    return _map_tree(tree, lambda path, t: _to_port(t, _layout(path, t.ndim)))
+    return from_jax_layout(unflatten(flat))
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +166,9 @@ def load_native(path):
 
 class _Init:
     def __init__(self, seed: int, device, dtype):
-        self.g = torch.Generator(device=device).manual_seed(int(seed))
+        # the meta device (shapes only, ``runtime/fast_init.py``) has no generator
+        self.g = (None if torch.device(device).type == "meta"
+                  else torch.Generator(device=device).manual_seed(int(seed)))
         self.device = device
         self.dtype = dtype
 

@@ -84,10 +84,11 @@ Phases (any failure exits non-zero before the last line):
      I: 30 x 999; C: 9 x 249 K1a and 249 K1b; H: 2 x 10 x 249; J: 10 x 999
      K1c+d; K: 10 x 249), K2b once at the prefill and once every 8 steps
      (I: 126);
-     after each first call a second, warm call is timed (audio seconds per
-     second, per stage), and on paths A and F (bf16 and int8 weights) a
-     third profiled (device time by kernel, the busy share); no TTS path
-     launches K5;
+     after the first call of paths A, D and F (``WARM_PATHS``) a second,
+     warm call is timed (audio seconds per second, per stage), and on paths
+     A and F (bf16 and int8 weights) a third profiled (device time by
+     kernel, the busy share); B, C and G time no warm call, and K makes one
+     call of each kind, for the run's time limit; no TTS path launches K5;
   7. the VC path E: ``ChatterboxVC.from_random(seed=0)`` (the same S3Gen
      weights), ``generate_batch`` of 8 seeded 3-12 s sources written as
      16 kHz WAVs, with ``target_voice_path`` the reference of path D: in
@@ -120,7 +121,16 @@ Phases (any failure exits non-zero before the last line):
      ``cfm_loss`` at the full flow width on 8 rows of 1000 frames (K3 56
      launches, against the dense path; autograd through K3 raises; the
      dense path's gradient finite);
- 10. prints the kernel table as one JSON line (K1a-K5 and one row for each
+ 10. the mesh, path O (``mesh_path``): O1, a world of one over NCCL and
+     ``with_mesh(make_mesh((1, 1)), model_sharded=True)`` on path A's
+     model, path A's call bit for bit; O2, two processes on the card over
+     ``gloo`` (``chip_smoke.py --mesh-worker``), T3 at full width split 8
+     heads a rank on a (1, 2) mesh, 4 layers, fp32, greedy, 50 tokens,
+     against the world of one (K1a and K2 on each rank's heads); O3,
+     ``dryrun_multichip(1)``; O4, ``from_random(synthetic=True)`` at full
+     width against the CPU's ``synthetic_like`` on three leaves, and the
+     native library (its build must succeed: the machine has g++);
+ 11. prints the kernel table as one JSON line (K1a-K5 and one row for each
      probe, its variants under it), the card line, and then
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1224,6 +1234,9 @@ PATHS = {
 }
 WQUANT_PATHS = ("F", "G")
 PROFILED_PATHS = ("A", "F")
+# the paths whose warm call is timed (the bf16 and int8 weights, and path D's
+# prepared voice); B, C and G time none, for the run's time limit
+WARM_PATHS = ("A", "D", "F")
 
 # path E: the reference and the sources, seeded synthetic speech
 REF_SECONDS = 10.0
@@ -1259,11 +1272,15 @@ def check_wavs(path, wavs, n, lens=None):
             fail(f"path {path}: wav {i}: non-finite samples")
 
 
+# each TTS path's first call: (speech tokens, wavs), for path O1
+FIRST_CALLS = {}
+
+
 def run_path(tts, conds, card, name, profile, exact=None):
     """One TTS path: a first call with the launch counters set to 0 just
     before it and read just after, its wavs, KV cache and launches checked
-    (``exact``: {kernel: launches} where the count is known); then a warm
-    call timed and, when asked, a third profiled. Returns the counts, the
+    (``exact``: {kernel: launches} where the count is known); then, on
+    ``WARM_PATHS``, a warm call timed and, when asked, a third profiled. Returns the counts, the
     speech tokens and the wav lengths of the first call."""
     import torch
 
@@ -1282,6 +1299,7 @@ def run_path(tts, conds, card, name, profile, exact=None):
     counts = launch_counts()
     tokens = [r.copy() for r in tts.last_speech_tokens]
     lens = [len(w) for w in wavs]
+    FIRST_CALLS[name] = (tokens, wavs)
 
     check_wavs(name, wavs, N_TEXTS)
     if tts.last_timings["kv_cache"] != kv_cache:
@@ -1291,6 +1309,8 @@ def run_path(tts, conds, card, name, profile, exact=None):
     print(f"path {name} ({json.dumps(kw)}): first call {wall:.3f} s for {audio_s:.3f} s of audio "
           f"(stages {json.dumps(tts.last_timings)})", flush=True)
     print(f"path {name}: kernel launches " + json.dumps(counts), flush=True)
+    if name not in WARM_PATHS:
+        return counts, tokens, lens
 
     # a second, warm call on the same inputs: the throughput of the port
     torch.cuda.reset_peak_memory_stats()
@@ -2091,10 +2111,10 @@ def preemptible_path(tts, conds, card):
     """Path K: ``generate_batch_preemptible`` of the 8 texts at MAX_NEW
     tokens, T3 in chunks of ``PREEMPT_CHUNK`` and S3Gen in one group,
     against ``generate_batch`` on the same seed: speech tokens and wavs
-    equal bit for bit, cuDNN deterministic. The calls run in turns
-    (one-shot, preemptible, preemptible, one-shot); the first preemptible
-    one with the launch counters set to 0 just before it and read just
-    after. Returns its counts."""
+    equal bit for bit, cuDNN deterministic. The one-shot call runs first,
+    warm; the preemptible one after it with the launch counters set to 0
+    just before it and read just after (one call of each, for the run's
+    time limit). Returns its counts."""
     import numpy as np
     import torch
 
@@ -2120,8 +2140,6 @@ def preemptible_path(tts, conds, card):
     with deterministic_cudnn():
         call("one-shot")
         counts = call("preemptible", count=True)
-        call("preemptible")
-        call("one-shot")
     (w1, t1), (w2, t2) = outs["one-shot"], outs["preemptible"]
     check_wavs("K", w2, N_TEXTS)
     same_tok = all(len(a) == len(b) and (a == b).all() for a, b in zip(t1, t2))
@@ -2134,12 +2152,11 @@ def preemptible_path(tts, conds, card):
     check_launches("K", counts, (_K1A, _K2, _K3, _K4), (_K1B, _K1C, _K2B, _K5),
                    {_K1A: tts.t3_cfg.llama.num_hidden_layers * (MAX_NEW - 1)})
     audio_s = sum(len(w) for w in w1) / tts.sr
-    print(f"path K: {N_TEXTS} texts at {MAX_NEW} tokens, warm walls in turns: one-shot "
-          f"{walls['one-shot'][0]:.3f} / {walls['one-shot'][1]:.3f} s, preemptible "
-          f"{walls['preemptible'][0]:.3f} / {walls['preemptible'][1]:.3f} s (the first "
-          f"preemptible call counted launches); audio {audio_s:.3f} s, audio_sec_per_s "
-          f"one-shot {2 * audio_s / sum(walls['one-shot']):.4f}, preemptible "
-          f"{2 * audio_s / sum(walls['preemptible']):.4f} on {card}", flush=True)
+    print(f"path K: {N_TEXTS} texts at {MAX_NEW} tokens, warm walls: one-shot "
+          f"{walls['one-shot'][0]:.3f} s, preemptible {walls['preemptible'][0]:.3f} s (it "
+          f"counted launches); audio {audio_s:.3f} s, audio_sec_per_s one-shot "
+          f"{audio_s / walls['one-shot'][0]:.4f}, preemptible "
+          f"{audio_s / walls['preemptible'][0]:.4f} on {card}", flush=True)
     print("path K: kernel launches " + json.dumps(counts), flush=True)
     return counts
 
@@ -3258,6 +3275,290 @@ def train_path(card):
     return counts
 
 
+
+# ---------------------------------------------------------------------------
+# path O: the mesh (data and tensor parallelism on the one card)
+# ---------------------------------------------------------------------------
+
+O2_WORLD = 2
+O2_LAYERS = 4  # T3 at full width (16 heads of 64, 8 a rank), cut to 4 layers
+O2_MAX_NEW = 50
+O2_GAP = 1e-4  # a row may part from the single call only at a near-tie of its top two logits
+O2_TIMEOUT_S = 300
+# O4: leaves of the full-width synthetic model held against the CPU's
+O4_LEAVES = (("t3", ("speech_head", "w")), ("s3gen", ("flow", "input_embedding", "w")),
+             ("s3gen", ("hift", "conv_pre", "w")))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def o2_inputs(dev):
+    """Path O2's T3 (full width, ``O2_LAYERS`` layers, fp32 from seed 0)
+    and its inputs: 8 texts of 64-token ids (SOT/EOT framed, 20-64 long)
+    and path A's conditionals broadcast to them."""
+    import numpy as np
+    import torch
+
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig
+    from chatterbox_tpu_torch.models.t3.t3 import T3Config
+
+    cfg = T3Config(llama=LlamaConfig(num_hidden_layers=O2_LAYERS))
+    params = weights.init_t3(cfg, 0, dev, torch.float32)
+    rng = np.random.default_rng(11)
+    lens = rng.integers(20, TEXT_BUCKET + 1, N_TEXTS).astype(np.int32)
+    text = np.zeros((N_TEXTS, TEXT_BUCKET), np.int32)
+    for i, n in enumerate(lens):
+        text[i, 1:n - 1] = rng.integers(1, 700, n - 2)
+        text[i, 0], text[i, n - 1] = cfg.start_text_token, cfg.stop_text_token
+    c = random_conditionals(dev).t3
+    inp = (torch.from_numpy(text).to(dev), torch.from_numpy(lens).to(dev),
+           *(x.expand((N_TEXTS,) + x.shape[1:]) for x in c))
+    return cfg, params, inp
+
+
+def mesh_worker(rank, world, port, out_dir):
+    """One of path O2's processes (``chip_smoke.py --mesh-worker``): T3's
+    heads split over a (1, world) mesh over ``gloo`` on the one card,
+    greedy, its tokens and launch counts written to ``out_dir``."""
+    import torch
+
+    from chatterbox_tpu_torch.core.sampling import SamplingConfig
+    from chatterbox_tpu_torch.models.t3.t3 import t3_generate
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.parallel.multihost import init_multihost
+    from chatterbox_tpu_torch.parallel.sharding import (local_t3_config, make_mesh,
+                                                        shard_params, t3_param_specs)
+    from chatterbox_tpu_torch.parallel.tensor_parallel import model_parallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo", timeout_s=O2_TIMEOUT_S)
+    mesh = make_mesh((1, world))
+    dev = torch.device("cuda")
+    cfg, params, inp = o2_inputs(dev)
+    local = shard_params(params, mesh, t3_param_specs(params))
+    del params
+    lcfg = local_t3_config(cfg, world)
+    group = mesh.get_group("model")
+    with torch.inference_mode(), model_parallel(group):
+        t3_generate(local, lcfg, *inp, SamplingConfig(greedy=True), 4)  # K1's workspace, the build
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        res = t3_generate(local, lcfg, *inp, SamplingConfig(greedy=True), O2_MAX_NEW)
+        torch.cuda.synchronize()
+    torch.save({"tokens": res.tokens.cpu(), "counts": launch_counts(), "seconds": time.time() - t0,
+                "heads": lcfg.llama.num_attention_heads},
+               os.path.join(out_dir, f"o2_{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def o2_logit_gap(params, cfg, inp, step, row):
+    """The single call's top-two gap of row ``row``'s processed logits at
+    decode step ``step`` (greedy takes the top one)."""
+    from chatterbox_tpu_torch.core.sampling import SamplingConfig, cfg_combine, process_logits
+    from chatterbox_tpu_torch.models.t3.t3 import t3_generate_resume, t3_generate_start
+
+    sampling = SamplingConfig(greedy=True)
+    carry = t3_generate_start(params, cfg, *inp, sampling, O2_MAX_NEW)
+    carry, _ = t3_generate_resume(params, cfg, carry, inp[1], sampling, step)
+    lg = carry.logits.float()
+    b = lg.shape[0] // 2
+    lg = process_logits(cfg_combine(lg[:b], lg[b:], sampling.cfg_weight), carry.seen, sampling)
+    top = lg[row].topk(2).values
+    return float(top[0] - top[1])
+
+
+def mesh_path(card):
+    """Path O, the mesh on the one card (the smoke machine has one; nothing
+    past a world of one on separate cards is claimed):
+      O1. a world of one over NCCL, ``make_mesh((1, 1))``, and
+          ``with_mesh(mesh, model_sharded=True)`` on path A's model: path
+          A's call, tokens and wavs equal to path A's bit for bit, K1a/K2/
+          K3/K4 launched as on path A;
+      O2. two processes on the card over ``gloo``, a (1, 2) mesh: T3 at full
+          width (8 heads a rank), ``O2_LAYERS`` layers, fp32, TF32 off,
+          greedy, 8 texts, ``O2_MAX_NEW`` tokens: the tokens equal the
+          world-of-one call's (a differing row passes only at a near-tie,
+          ``O2_GAP``), each process launching K1a and K2 on its heads;
+      O3. ``dryrun_multichip(1)`` on the card;
+      O4. ``from_random(synthetic=True)`` at full width: the seconds, every
+          leaf finite, the share of three leaves' elements equal to the
+          CPU's; ``native_available()`` (a failed native build fails the
+          run) and the tokenizer's backend.
+    Returns the launch counts of O1's call and O2's two ranks, summed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chatterbox_tpu_torch import ChatterboxTTS, weights
+    from chatterbox_tpu_torch.core.sampling import SamplingConfig
+    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig
+    from chatterbox_tpu_torch.models.t3.t3 import T3Config, t3_generate
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.parallel.dryrun import dryrun_multichip
+    from chatterbox_tpu_torch.parallel.multihost import init_multihost
+    from chatterbox_tpu_torch.parallel.sharding import make_mesh
+
+    # O1
+    t0 = time.time()
+    init_multihost(f"127.0.0.1:{_free_port()}", 1, 0)
+    print(f"path O1: a world of one over {dist.get_backend()}", flush=True)
+    tts = ChatterboxTTS.from_random(
+        seed=0, t3_cfg=T3Config(llama=LlamaConfig(num_hidden_layers=TTS_T3_LAYERS)))
+    conds = random_conditionals(tts.device)
+    kw, _, launched, not_launched = PATHS["A"]
+    # cuDNN picks its algorithms call by call (deterministic_cudnn): path A's
+    # call is made again on this model under deterministic cuDNN, then under
+    # the mesh, and the two wavs held bit for bit; the tokens also against
+    # path A's first call
+    with deterministic_cudnn():
+        wavs_a = tts.generate_batch(TEXTS, conds=conds, seed=0, **kw)
+        tts.with_mesh(make_mesh((1, 1)), model_sharded=True)
+        reset_launch_counts()
+        wavs = tts.generate_batch(TEXTS, conds=conds, seed=0, **kw)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    print("path O1: kernel launches " + json.dumps(counts), flush=True)
+    check_wavs("O1", wavs, N_TEXTS)
+    check_launches("O1", counts, launched, not_launched,
+                   {_K1A: TTS_T3_LAYERS * (MAX_NEW - 1)})
+    tokens_a, first_wavs = FIRST_CALLS["A"]
+    same_tokens = all(np.array_equal(a, b) for a, b in zip(tts.last_speech_tokens, tokens_a))
+    same_wavs = all(np.array_equal(a, b) for a, b in zip(wavs, wavs_a))
+    drift = max(float(np.abs(a - b).max()) for a, b in zip(wavs, first_wavs))
+    print(f"path O1: tokens equal to path A's: {same_tokens}; wavs bit for bit with path A's "
+          f"call under deterministic cuDNN: {same_wavs} (max |diff| from path A's first call, "
+          f"cuDNN free: {drift:.3e}) ({time.time() - t0:.1f} s)", flush=True)
+    if not (same_tokens and same_wavs):
+        fail("path O1: the world-of-one mesh changed path A's tokens or wavs")
+    del tts
+    torch.cuda.empty_cache()
+
+    # O2: the workers start while this process makes the single call
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix=".smoke_mesh_", dir=HERE) as out_dir:
+        port = _free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                   str(r), str(O2_WORLD), str(port), out_dir])
+                 for r in range(O2_WORLD)]
+        try:
+            cfg, params, inp = o2_inputs(torch.device("cuda"))
+            with torch.inference_mode():
+                single = t3_generate(params, cfg, *inp, SamplingConfig(greedy=True),
+                                     O2_MAX_NEW).tokens.cpu()
+            rcs = [p.wait(timeout=O2_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(rcs):
+            fail(f"path O2: the mesh workers exited {rcs}")
+        outs = [torch.load(os.path.join(out_dir, f"o2_{r}.pt")) for r in range(O2_WORLD)]
+    for r, out in enumerate(outs):
+        c = out["counts"]
+        print(f"path O2: rank {r}: {out['heads']} heads, {O2_MAX_NEW} tokens in "
+              f"{out['seconds']:.3f} s; launches " + json.dumps(c), flush=True)
+        check_launches(f"O2 rank {r}", c, (_K1A, _K2), (_K1B, _K1C, _K2B, _K3, _K4, _K5),
+                       {_K1A: O2_LAYERS * (O2_MAX_NEW - 1), _K2: O2_MAX_NEW - 1})
+        if not torch.equal(out["tokens"], outs[0]["tokens"]):
+            fail("path O2: the ranks' tokens differ")
+    got = outs[0]["tokens"]
+    for row in range(N_TEXTS):
+        diff = (got[row] != single[row]).nonzero()
+        if len(diff):
+            step = int(diff[0])
+            gap = o2_logit_gap(params, cfg, inp, step, row)
+            print(f"path O2: row {row} parts from the single call at step {step}, where the "
+                  f"single call's top-two logit gap is {gap:.3e}", flush=True)
+            if gap >= O2_GAP:
+                fail(f"path O2: row {row} differs at step {step} with a logit gap of {gap:.3e}")
+    print(f"path O2: tokens of {O2_WORLD} x {outs[0]['heads']} heads equal to the world of "
+          f"one's on "
+          f"{int((got == single).all(dim=1).sum())} of {N_TEXTS} rows ({time.time() - t0:.1f} s)",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    counts = {k: counts[k] + sum(out["counts"][k] for out in outs) for k in counts}
+
+    # O3
+    t0 = time.time()
+    line = dryrun_multichip(1)
+    print(f"path O3: {line} ({time.time() - t0:.1f} s)", flush=True)
+
+    # O4
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten
+    from chatterbox_tpu_torch.models.tokenizer import EnTokenizer
+    from chatterbox_tpu_torch.native import native_available
+    from chatterbox_tpu_torch.pipeline.tts import random_s3gen
+    from chatterbox_tpu_torch.runtime.fast_init import synthetic_leaf
+
+    t0 = time.time()
+    syn = ChatterboxTTS.from_random(seed=0, synthetic=True)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    trees = {"t3": syn.t3_params, "s3gen": syn.s3gen_params, "ve": syn.ve_params}
+    bad, n_leaves = [], 0
+    for name, tree in trees.items():
+        for key, leaf in flatten(tree).items():
+            n_leaves += 1
+            if not bool(torch.isfinite(torch.as_tensor(leaf).float()).all()):
+                bad.append(f"{name}/{key}")
+    print(f"path O4: from_random(synthetic=True) at full width in {secs:.2f} s, {n_leaves} "
+          f"leaves, non-finite: {bad or 'none'}", flush=True)
+    if bad:
+        fail(f"path O4: non-finite synthetic leaves {bad}")
+    inits = {"t3": lambda d: weights.init_t3(T3Config(), 0, d),
+             "s3gen": lambda d: random_s3gen(syn.s3gen_cfg, 0, d)}
+    for name, path in O4_LEAVES:
+        shapes = weights.jax_layout_meta(inits[name](torch.device("meta")))
+        want = synthetic_leaf(shapes, path, device="cpu")
+        got = _jax_leaf(trees[name], path)
+        share = float((got.float().cpu() == want.to(got.dtype).float()).float().mean())
+        print(f"path O4: {name}/{'/'.join(path)} {tuple(want.shape)} {got.dtype}: share of "
+              f"elements equal to the CPU's synthetic_like {share:.6f}", flush=True)
+    del syn, trees
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_reference_format as rf
+
+    with tempfile.TemporaryDirectory(prefix=".smoke_mesh_", dir=HERE) as d:
+        tok_path = os.path.join(d, "tokenizer.json")
+        with open(tok_path, "w") as f:
+            json.dump(rf.tokenizer_spec(), f)
+        backend = EnTokenizer(tok_path).backend
+    print(f"path O4: native_available() {native_available()}; the tokenizer's backend "
+          f"{backend}", flush=True)
+    if not native_available() or backend != "native":
+        fail("path O4: the native library did not build or load (g++ is on this machine)")
+    dist.destroy_process_group()
+    return counts
+
+
+def _jax_leaf(tree, path):
+    """One leaf of a port tree, in the JAX package's layout (its path
+    decides the layout, so it is mapped inside a tree of that one path)."""
+    from chatterbox_tpu_torch import weights
+
+    leaf = tree
+    for p in path:
+        leaf = leaf[p]
+    for p in reversed(path):
+        leaf = {p: leaf}
+    leaf = weights.jax_layout(leaf)
+    for p in path:
+        leaf = leaf[p]
+    return leaf
+
+
 def write_audio(audio_dir):
     """The seeded reference (24 kHz) and sources (16 kHz) as WAV files ->
     (reference path, source paths, source lengths in samples)."""
@@ -3319,10 +3620,12 @@ def main():
         t6 = time.time()
         counts["N"] = train_path(card)
         t7 = time.time()
+        counts["O"] = mesh_path(card)
+        t8 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
           f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s, "
-          f"reference set (path M) {t6 - t5:.1f} s, training (path N) {t7 - t6:.1f} s",
-          flush=True)
+          f"reference set (path M) {t6 - t5:.1f} s, training (path N) {t7 - t6:.1f} s, "
+          f"mesh (path O) {t8 - t7:.1f} s", flush=True)
     counts["E"] = {k: sum(c[k] for c in vc_counts.values()) for k in vc_counts["fused"]}
     counts["probes"] = probe_counts
     # path I's kernels at its batch: their errors count in the row's
@@ -3336,9 +3639,10 @@ def main():
 
     # "max_abs_err"/"ms" and "max_err"/"kernel_ms" carry the same numbers
     # under the two sets of names that readers of this line expect;
-    # "launches" sums the first calls of paths A-N (E: both layouts and the
-    # pipelined call; N: cfm_loss's forward) and the probe phase; a probe's row counts its probe's
-    # launches in that phase
+    # "launches" sums the first calls of paths A-O (E: both layouts and the
+    # pipelined call; N: cfm_loss's forward; O: O1's call and O2's two ranks)
+    # and the probe phase; a probe's row counts its probe's launches in that
+    # phase
     table = []
     for key, r in rows.items():
         src, replaces = KERNEL_INFO[key]
@@ -3380,4 +3684,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    else:
+        main()

@@ -281,17 +281,37 @@ def _params(fn):
     return inspect.signature(fn).parameters
 
 
+# the keyword-only parameters a port method may add to the JAX list: TTS
+# ``generate``'s ``conds``, and a loader's ``device`` (and ``ve_cfg`` where
+# the port builds the voice encoder's config)
+_EXTRA = {("ChatterboxTTS", "generate"): ["conds"],
+          ("ChatterboxTTS", "from_random"): ["device", "ve_cfg"],
+          ("ChatterboxTTS", "from_local"): ["device"],
+          ("ChatterboxTTS", "from_pretrained"): ["device"],
+          ("ChatterboxTTS", "from_native"): ["device"],
+          ("ChatterboxVC", "from_local"): ["device"],
+          ("ChatterboxVC", "from_random"): ["device"]}
+
+
 @pytest.mark.parametrize("cls,method", [("ChatterboxTTS", "generate"),
                                         ("ChatterboxTTS", "generate_batch"),
                                         ("ChatterboxTTS", "generate_batch_preemptible"),
                                         ("ChatterboxVC", "generate"),
-                                        ("ChatterboxVC", "generate_batch")])
+                                        ("ChatterboxVC", "generate_batch"),
+                                        ("ChatterboxTTS", "from_local"),
+                                        ("ChatterboxTTS", "from_pretrained"),
+                                        ("ChatterboxTTS", "from_random"),
+                                        ("ChatterboxTTS", "from_native"),
+                                        ("ChatterboxTTS", "with_mesh"),
+                                        ("ChatterboxVC", "from_local"),
+                                        ("ChatterboxVC", "from_random"),
+                                        ("ChatterboxVC", "with_mesh")])
 def test_public_methods_take_positional_arguments_in_jax_order(cls, method):
-    """The pipelines' public methods take the JAX package's whole parameter
-    list in its order, every default the JAX one; ``generate_batch`` (TTS
-    and VC) takes exactly that list, with no keyword-only remainder, and
-    TTS ``generate`` adds only a keyword-only ``conds``. So
-    ``generate("Hi", 1.3)`` is a repetition penalty on both sides."""
+    """The pipelines' public methods and loaders take the JAX package's
+    whole parameter list in its order, every default the JAX one, and add
+    only keyword-only parameters (``_EXTRA``). So ``generate("Hi", 1.3)`` is
+    a repetition penalty and ``from_native(d, "tok.json")`` a tokenizer
+    path on both sides."""
     import importlib
 
     from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxVC
@@ -308,7 +328,7 @@ def test_public_methods_take_positional_arguments_in_jax_order(cls, method):
     for n, p in want.items():
         assert got[n].default == p.default, n
     extra = [n for n in got if n not in want]
-    assert extra == (["conds"] if (cls, method) == ("ChatterboxTTS", "generate") else [])
+    assert extra == _EXTRA.get((cls, method), [])
     for n in extra:
         assert got[n].kind.name == "KEYWORD_ONLY", n
     if method == "generate" and cls == "ChatterboxTTS":

@@ -138,3 +138,41 @@ def test_vc_per_call_flow_steps_matches_jax(jax_vc_wavs, target_wav, zero_port_n
         np.testing.assert_allclose(g, w, atol=5e-3)  # test_hifigan.py's full-inference limit
     with pytest.raises(ValueError, match="flow_steps"):
         vc.generate(SOURCES[0], seed=3, flow_steps=0)
+
+
+def test_hift_bf16_env_matches_jax_vc(jax_vc_wavs, target_wav, zero_port_noise, monkeypatch):
+    """``CHATTERBOX_HIFT_BF16=1`` (read at construction, as the JAX VC's
+    field): the port's VC runs its vocoder trunk in bf16, as the JAX VC does
+    with the flag. The two bf16 trunks round differently, so the wavs are
+    held by SNR (over 20 dB, ``test_hift_bf16_trunk_against_fp32``'s bound)
+    against the JAX VC's with the flag, and differ from the JAX VC's fp32
+    wavs (the trunk really ran bf16)."""
+    from chatterbox_tpu.models.s3gen import s3gen as js
+    from chatterbox_tpu.pipeline.vc import ChatterboxVC as JVC
+    from chatterbox_tpu_torch.models.s3gen import s3gen as ps
+    from chatterbox_tpu_torch.pipeline.vc import ChatterboxVC
+
+    jvc0, fp32 = jax_vc_wavs
+    monkeypatch.setenv("CHATTERBOX_HIFT_BF16", "1")
+    jvc = JVC(s3gen_params=jvc0.s3gen_params, s3gen_cfg=J_S3GEN)
+    assert jvc.hift_bf16
+    real = js.hift_generate
+    js.hift_generate = zero_vocoder_noise(real, jnp.zeros)
+    try:
+        want = jvc.generate_batch(SOURCES, target_voice_path=str(target_wav), seed=3)
+    finally:
+        js.hift_generate = real
+    vc = ChatterboxVC(s3gen_with_conditioning()[1], "cpu", P_S3GEN)
+    assert vc.hift_bf16
+    seen = []
+    inner = ps.hift_generate
+    monkeypatch.setattr(ps, "hift_generate", lambda *a, **kw: seen.append(kw["compute_dtype"])
+                        or inner(*a, **kw))
+    got = vc.generate_batch(SOURCES, target_voice_path=target_wav, seed=3)
+    assert seen == [torch.bfloat16]
+    for g, w, f in zip(got, want, fp32):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        snr = 10 * np.log10(float((w.astype(np.float64) ** 2).mean())
+                            / float(((g - w).astype(np.float64) ** 2).mean()))
+        assert snr > 20.0, snr
+        assert not np.array_equal(g, f)

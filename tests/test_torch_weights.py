@@ -227,7 +227,7 @@ def _port_sources():
     """The port, chip_smoke.py and the test helpers chip_smoke.py imports."""
     return sorted((REPO / "chatterbox_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "torch_reference_format.py",
-        REPO / "tests" / "torch_perth_ref.py"]
+        REPO / "tests" / "torch_perth_ref.py", REPO / "tests" / "torch_parallel_worker.py"]
 
 
 def test_port_sources_import_no_jax():
@@ -242,7 +242,9 @@ def test_port_sources_import_no_jax():
     assert REPO / "chatterbox_tpu_torch" / "pipeline" / "streaming.py" in sources
     assert REPO / "chatterbox_tpu_torch" / "serve" / "server.py" in sources
     for mod in ("train/losses.py", "train/train_step.py", "train/trainer.py",
-                "runtime/profiling.py"):
+                "runtime/profiling.py", "runtime/fast_init.py", "native/loader.py",
+                "parallel/sharding.py", "parallel/multihost.py", "parallel/tensor_parallel.py",
+                "parallel/dryrun.py"):
         assert REPO / "chatterbox_tpu_torch" / mod in sources, mod
     hits = [f"{p}: {m.group(0).strip()}" for p in sources
             for m in bad.finditer(p.read_text())]
@@ -292,7 +294,9 @@ v = vc.generate(synthetic_voice(1, 0.5, 16000), target_voice_path=None if vc.set
 assert v.shape == (1, 13 * 960), v.shape
 import chatterbox_tpu_torch.serve.server
 import chatterbox_tpu_torch.train.trainer, chatterbox_tpu_torch.train.losses
-import chatterbox_tpu_torch.runtime.profiling
+import chatterbox_tpu_torch.runtime.profiling, chatterbox_tpu_torch.runtime.fast_init
+import chatterbox_tpu_torch.parallel.dryrun, chatterbox_tpu_torch.parallel.multihost
+import chatterbox_tpu_torch.native
 import tempfile
 sys.path.insert(0, "tests")
 import torch_reference_format as rf
