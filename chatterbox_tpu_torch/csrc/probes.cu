@@ -13,21 +13,29 @@
 //    probe_cache_write3.py::make_col (:27-59, call :48) and ::make_rmw
 //    (:62-97, call :86): one K/V column new (L, 2, B, H, D) written at slot
 //    `pos` of a (L, 2, B, H, D, S) bf16 cache, in place (the function of
-//    lax.dynamic_update_slice). The Pallas variants differ in the work of
-//    one grid cell, and so do these kernels' blocks:
-//      cache_column_kernel: one block per (layer, group of b_blk rows),
-//        writing that group's 2 * b_blk * H * D values of the column only
-//        (P2/P3 "col", b_blk 16 or 4);
-//      cache_rmw_kernel: one block per (layer, [k/v unless folded], group of
-//        b_blk rows), reading the s_blk-slot segment that holds `pos` of
-//        every (k/v, row, head, dim) line it owns and writing it back with
-//        slot pos replaced (P2 "rmw", b_blk 8/16, K/V folded or not,
-//        s_blk 128; P3 "rmw" b_blk 8, s_blk 64).
-//    What bounds them: bytes. The column is 2 * L * B * H * D values, but
-//    in the (D, S) layout each lies S * 2 bytes from the next, so every
-//    2-byte store dirties its own 32-byte sector; the RMW variants move
-//    the whole s_blk segment twice (0.5 GB at s_blk 128 at full width).
-//    Both are copies: the result is bit for bit the slice assignment.
+//    lax.dynamic_update_slice). The Pallas variants differ only in the work
+//    of one grid cell (b_blk rows, an s_blk-slot segment rewritten around
+//    pos, K/V folded or not): a TPU moves whole (D, s_blk) blocks, the
+//    smallest unit its DMA and (8, 128) tiling allow. The card writes 32-byte
+//    sectors, so every variant launches one kernel, cache_column_kernel,
+//    whose grid follows the column alone.
+//    What bounds it: sectors. The column's n = L * 2 * B * H * D values lie
+//    S * 2 bytes apart (768 B at S = 384), so each 2-byte store dirties its
+//    own 32-byte sector: 16x the column's bytes (31.5 MB at the probes'
+//    shape, 9.4 us of HBM time against the 1.17 us bound of the column read
+//    and written once), and no kernel on this layout reaches half the bound.
+//    Nor do the sectors stay in L2 between writes: L2 allocates 128-byte
+//    lines, and the column touches 983,040 of them (126 MB against 50 MB),
+//    so each write likely reaches HBM as a partial sector, read and written
+//    (63 MB, 19 us at 3.35 TB/s; measured ~72 us, PERF.md). TMA cannot help:
+//    a box's innermost extent spans a multiple of 16 bytes.
+//    Design: memory-level parallelism over the whole card, the grid sized
+//    from the column: one thread a line, a coalesced 2-byte load of new and
+//    one 2-byte store at line * S + pos (3840 blocks of 256 threads at the
+//    probes' shape, all resident on 132 SMs); threads past n return. 8 and
+//    16 values a thread (16-byte loads), and a read of the 4-byte word or
+//    the 32-byte sector before the store, were measured and were slower
+//    (PERF.md, PR 12). The result is bit for bit the slice assignment.
 //
 // P4 replaces scripts/probe_int8_cache.py::run_case (pallas_call :41-52)
 //    with its six cases (:61-97): int8 fragments of an int8 KV-cache read
@@ -63,44 +71,12 @@ __global__ void noop_copy_kernel(const uint4* __restrict__ src, uint4* __restric
     dst[i] = src[i];
 }
 
-// cache (L, 2, B, H, D, S) and new (L, 2, B, H, D), 2-byte elements. Block
-// (layer l, row group g) writes rows [g * b_blk, (g + 1) * b_blk) of both
-// planes at slot pos.
+// cache: n lines of S 2-byte slots; nw: n values. cache[line * S + pos] =
+// nw[line], one line a thread.
 __global__ void cache_column_kernel(uint16_t* __restrict__ cache, const uint16_t* __restrict__ nw,
-                                    int B, int H, int D, int S, int pos, int b_blk) {
-  const int l = blockIdx.x, g = blockIdx.y;
-  const int per_plane = b_blk * H * D;
-  for (int i = threadIdx.x; i < 2 * per_plane; i += blockDim.x) {
-    const int kv = i / per_plane, j = i % per_plane;
-    const long long line = ((long long)(l * 2 + kv) * B + (long long)g * b_blk) * H * D + j;
-    cache[line * S + pos] = nw[line];
-  }
-}
-
-// Block (layer l, plane group y, row group g) owns n_kv planes (2 if
-// folded, else plane y) of rows [g * b_blk, (g + 1) * b_blk): it reads the
-// s_blk-slot segment holding pos of each of those lines, 8 slots (16 bytes)
-// at a time, replaces slot pos and writes the segment back.
-__global__ void cache_rmw_kernel(uint16_t* __restrict__ cache, const uint16_t* __restrict__ nw,
-                                 int B, int H, int D, int S, int pos, int b_blk, int s_blk,
-                                 int n_kv) {
-  const int l = blockIdx.x, g = blockIdx.z;
-  const int kv0 = n_kv == 2 ? 0 : blockIdx.y;
-  const int s0 = pos / s_blk * s_blk;
-  const int vecs = s_blk / 8;
-  const int per_plane = b_blk * H * D;
-  const long long total = (long long)n_kv * per_plane * vecs;
-  for (long long i = threadIdx.x; i < total; i += blockDim.x) {
-    const int c = (int)(i % vecs);
-    const long long lj = i / vecs;
-    const int kv = kv0 + (int)(lj / per_plane), j = (int)(lj % per_plane);
-    const long long line = ((long long)(l * 2 + kv) * B + (long long)g * b_blk) * H * D + j;
-    uint4* seg = reinterpret_cast<uint4*>(cache + line * S + s0) + c;
-    uint4 v = *seg;
-    const int off = pos - (s0 + 8 * c);
-    if (off >= 0 && off < 8) reinterpret_cast<uint16_t*>(&v)[off] = nw[line];
-    *seg = v;
-  }
+                                    long long n, int S, int pos) {
+  const long long line = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (line < n) cache[line * S + pos] = nw[line];
 }
 
 // P4: k8 (PD, SB) int8, sc (8, SB) f32, q (8, PD) f32, t8 (8, PD) int8.
@@ -265,29 +241,15 @@ int cbx_noop_copy(const void* src, void* dst, long long bytes, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// P2/P3 "col". cache (L, 2, B, H, D, S), new (L, 2, B, H, D), 2-byte
-// elements; b_blk divides B.
-int cbx_cache_column_write(void* cache, const void* new_kv, int L, int B, int H, int D, int S,
-                           int pos, int b_blk, void* stream) {
-  if (b_blk <= 0 || B % b_blk != 0 || pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
-  cache_column_kernel<<<dim3(L, B / b_blk), 256, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(cache), static_cast<const uint16_t*>(new_kv), B, H, D, S, pos,
-      b_blk);
-  return (int)cudaGetLastError();
-}
-
-// P2/P3 "rmw". As above, with s_blk a multiple of 8 dividing S (the cache
-// 16-byte aligned); fold_kv puts both planes in one block.
-int cbx_cache_block_rmw(void* cache, const void* new_kv, int L, int B, int H, int D, int S,
-                        int pos, int b_blk, int s_blk, int fold_kv, void* stream) {
-  if (b_blk <= 0 || B % b_blk != 0 || pos < 0 || pos >= S || s_blk <= 0 || s_blk % 8 != 0 ||
-      S % s_blk != 0)
-    return (int)cudaErrorInvalidValue;
-  const int n_kv = fold_kv ? 2 : 1;
-  cache_rmw_kernel<<<dim3(L, 2 / n_kv, B / b_blk), 256, 0,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(cache), static_cast<const uint16_t*>(new_kv), B, H, D, S, pos,
-      b_blk, s_blk, n_kv);
+// P2/P3. cache (n, S) and new (n,), 2-byte elements: cache[:, pos] = new.
+int cbx_cache_column_write(void* cache, const void* new_kv, long long n, int S, int pos,
+                           void* stream) {
+  if (n < 0 || pos < 0 || pos >= S) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long long blocks = n == 0 ? 1 : (n + threads - 1) / threads;
+  cache_column_kernel<<<(unsigned int)blocks, threads, 0,
+                        reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint16_t*>(cache), static_cast<const uint16_t*>(new_kv), n, S, pos);
   return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,11 @@ beside its plain PyTorch version. ``probes/`` drives them.
 - P2/P3 ``cache_column_write`` and ``cache_block_rmw``
   (``scripts/probe_cache_write2.py``, ``probe_cache_write3.py``): one K/V
   column written at slot ``pos`` of an (L, 2, B, H, D, S) cache, in place
-  (the function of ``lax.dynamic_update_slice``), as a column-only write or
-  as a read-modify-write of the ``s_blk``-slot segment that holds ``pos``;
-  ``b_blk`` rows (and both K/V planes when ``fold_kv``) make one block's
-  work, as they make one Pallas grid cell's;
+  (the function of ``lax.dynamic_update_slice``). The scripts' variants
+  (a column-only write, or a read-modify-write of the ``s_blk``-slot
+  segment that holds ``pos``; ``b_blk`` rows and ``fold_kv`` for the work
+  of one Pallas grid cell) all launch one kernel, one thread a line of
+  the column;
 - P4 ``int8_probe`` (``scripts/probe_int8_cache.py``): the six int8
   fragments ``INT8_CASES``;
 - P5 ``softmax_probe`` (``scripts/probe_ops.py``): the nine online-softmax
@@ -39,8 +40,7 @@ SOFTMAX_CASES = ("A_round1_seq", "B_sum_bcast_store", "C_sum_via_dot", "D_max_fu
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {
     "cbx_noop_copy": [_P, _P, _LL, _P],
-    "cbx_cache_column_write": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "cbx_cache_block_rmw": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cbx_cache_column_write": [_P, _P, _LL, _I, _I, _P],
     "cbx_int8_probe": [_I, _P, _P, _P, _P, _P, _P],
     "cbx_softmax_probe": [_I, _P, _P, _P, _P, _P],
 }
@@ -183,36 +183,40 @@ def _check_cache(cache, new):
 
 def cache_column_write(cache, new, pos: int, b_blk: int):
     """P2/P3 "col": the column ``new`` written at slot ``pos`` of every
-    (layer, k/v, row, head, dim) line of ``cache``, in place; one block per
-    (layer, ``b_blk`` rows). Returns the cache."""
+    (layer, k/v, row, head, dim) line of ``cache``, in place. ``b_blk``, the
+    rows of one Pallas grid cell, must divide B; the kernel's grid follows
+    the column, not ``b_blk``. Returns the cache."""
     _build.refuse_autograd("cache_column_write", cache, new)
     if cache.device.type == "cpu":
         return cache_column_write_plain(cache, new, pos)
-    n_layers, _, b, h, d, s = _check_cache(cache, new)
+    _, _, b, _, _, s = _check_cache(cache, new)
     require(b % b_blk == 0 and 0 <= pos < s, f"b_blk {b_blk} must divide B {b}; pos < {s}")
     _build.check(_lib().cbx_cache_column_write(
-        cache.data_ptr(), new.data_ptr(), n_layers, b, h, d, s, int(pos), int(b_blk),
-        _build.stream_ptr(cache)), "cache_column_write")
+        cache.data_ptr(), new.data_ptr(), new.numel(), s, int(pos), _build.stream_ptr(cache)),
+        "cache_column_write")
     cache_column_write.launches += 1
     return cache
 
 
 def cache_block_rmw(cache, new, pos: int, b_blk: int, s_blk: int, fold_kv: bool):
-    """P2/P3 "rmw": the same write as ``cache_column_write``, made by reading
-    and rewriting the ``s_blk``-slot segment that holds ``pos``; one block
-    per (layer, k/v plane unless ``fold_kv``, ``b_blk`` rows). Returns the
-    cache."""
+    """P2/P3 "rmw": the same write as ``cache_column_write``, by the same
+    kernel. On the TPU this variant reads and rewrites the ``s_blk``-slot
+    segment that holds ``pos``, one grid cell per (layer, k/v plane unless
+    ``fold_kv``, ``b_blk`` rows): whole (D, s_blk) blocks are the smallest
+    unit its DMA moves. The card writes 32-byte sectors, so that rewrite has
+    no counterpart here; the arguments are checked as the Pallas variant
+    takes them. Returns the cache."""
     _build.refuse_autograd("cache_block_rmw", cache, new)
     if cache.device.type == "cpu":
         return cache_column_write_plain(cache, new, pos)
-    n_layers, _, b, h, d, s = _check_cache(cache, new)
+    _, _, b, _, _, s = _check_cache(cache, new)
     require(b % b_blk == 0 and 0 <= pos < s and s_blk % 8 == 0 and s % s_blk == 0
             and cache.data_ptr() % 16 == 0,
             f"b_blk {b_blk} must divide B {b}, s_blk {s_blk} a multiple of 8 dividing S {s}, "
             f"pos < S, and the cache 16-byte aligned")
-    _build.check(_lib().cbx_cache_block_rmw(
-        cache.data_ptr(), new.data_ptr(), n_layers, b, h, d, s, int(pos), int(b_blk), int(s_blk),
-        int(bool(fold_kv)), _build.stream_ptr(cache)), "cache_block_rmw")
+    _build.check(_lib().cbx_cache_column_write(
+        cache.data_ptr(), new.data_ptr(), new.numel(), s, int(pos), _build.stream_ptr(cache)),
+        "cache_block_rmw")
     cache_block_rmw.launches += 1
     return cache
 

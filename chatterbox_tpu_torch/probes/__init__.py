@@ -42,6 +42,31 @@ def graph_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_ms(fn) -> tuple[float, float, float]:
+    """Device milliseconds of one ``fn()`` that finds the L2 cold, as
+    (median, least, most) over 50 calls. Before each call: a read of 128 MiB
+    (2.5x an H100's 50 MB L2), which leaves the L2 holding clean lines of
+    another buffer (a write would leave dirty ones, whose write-back the
+    timed call would pay for), then a spin of the stream for 2e6 clock
+    cycles (about 1 ms), long enough for the host to queue the call, so that
+    the card does not wait on the host between the start event and the
+    call. CUDA events around the call alone."""
+    flush = torch.ones(32 << 20, device="cuda")
+    fn()
+    times = []
+    for _ in range(50):
+        flush.sum()
+        torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[25], times[0], times[-1]
+
+
 def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 

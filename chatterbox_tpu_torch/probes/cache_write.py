@@ -7,19 +7,23 @@ append (K2, ``kv_cache_append``) on its (S, D) cache.
 Each variant writes one column (L, 2, B, H, D) at slot ``POS`` of an
 (L, 2, B, H, D, S) bf16 cache (the TPU layout), in place; it must equal the
 plain slice assignment bit for bit, and is timed as a chain of 30 writes in
-a CUDA graph, as the scripts time it. K2 writes the same column into an
-(L, 2, B, H, S, D) cache, the layout the port chose (ROADMAP C3).
+a CUDA graph, as the scripts time it, and once with the L2 flushed first.
+The variants differ in the work of one Pallas grid cell; on the card they
+all launch one column-write kernel, so each moves the column read and
+written once and dirties one 32-byte sector per value. K2 writes the same
+column into an (L, 2, B, H, S, D) cache, the layout the port chose
+(ROADMAP C3).
 """
 
 import torch
 
 from ..ops.flash_decode import kv_cache_append, kv_cache_append_plain
 from ..ops.probes import cache_block_rmw, cache_column_write, cache_column_write_plain
-from . import device_name, graph_ms, main
+from . import cold_ms, device_name, graph_ms, main
 
 L, B, H, D, S, POS = 30, 16, 16, 64, 384, 200  # the scripts' shapes and slot
 CHAIN = 30
-# (script, variant): the arguments of the kernel that makes that grid cell's work
+# (script, variant): the arguments of the wrapper, as the Pallas variant takes them
 VARIANTS = {
     ("P2", "rmw b_blk=8 kvsep"): dict(kind="rmw", b_blk=8, s_blk=128, fold_kv=False),
     ("P2", "rmw b_blk=8 kvfold"): dict(kind="rmw", b_blk=8, s_blk=128, fold_kv=True),
@@ -40,13 +44,15 @@ def write(cache, new, pos, variant):
                            variant["fold_kv"])
 
 
-def moved_bytes(variant, shape):
-    """Bytes the variant moves: the column read and written for "col"; the
-    s_blk segment read and written, and the column read, for "rmw"."""
-    n_col = 2 * shape[0] * 2 * shape[2] * shape[3] * shape[4]  # bf16 column
-    if variant["kind"] == "col":
-        return 2 * n_col
-    return n_col * (2 * variant["s_blk"] + 1)
+def moved_bytes(shape):
+    """Bytes every variant moves: the bf16 column read and written once."""
+    return 2 * 2 * sectors_written(shape)
+
+
+def sectors_written(shape):
+    """32-byte sectors the column's stores dirty: one a value, since each
+    value lies S * 2 bytes from the next (at least a sector for S >= 16)."""
+    return shape[0] * 2 * shape[2] * shape[3] * shape[4]
 
 
 def make_inputs(device, l=L, b=B, h=H, d=D, s=S, seed=0):
@@ -64,7 +70,8 @@ def _launches():
 def run(device, l=L, b=B, h=H, d=D, s=S, pos=POS):
     """Every variant, then K2: checked bit for bit against the plain slice
     assignment (raises otherwise), then timed per write over a chain of 30
-    (CUDA only). Returns the results, with each variant's kernel launches."""
+    and once cold (CUDA only). Returns the results, with each variant's
+    kernel launches."""
     cache, new = make_inputs(device, l, b, h, d, s)
     want = cache_column_write_plain(cache.clone(), new, pos)
     out = {"probe": "P2/P3 cache column writes", "device": device_name(device),
@@ -73,9 +80,12 @@ def run(device, l=L, b=B, h=H, d=D, s=S, pos=POS):
         before = _launches()
         if not torch.equal(write(cache.clone(), new, pos, variant), want):
             raise AssertionError(f"{script} {name}: the write differs from the slice assignment")
-        r = {"exact": True, "moved_bytes": moved_bytes(variant, cache.shape)}
+        r = {"exact": True, "moved_bytes": moved_bytes(cache.shape),
+             "sectors_written": sectors_written(cache.shape)}
         if device.type == "cuda":
             r["ms"] = graph_ms(lambda v=variant: write(cache, new, pos, v), CHAIN)
+            cold, least, most = cold_ms(lambda v=variant: write(cache, new, pos, v))
+            r.update(cold_ms=cold, cold_spread_ms=[least, most])
         r["launches"] = _launches() - before
         out["variants"][f"{script} {name}"] = r
     # K2 on the port's (S, D) layout, same column

@@ -21,8 +21,8 @@ Phases (any failure exits non-zero before the last line):
      each as device time from a replayed CUDA graph, and prints each
      kernel's share of its bound; then the probe kernels
      P1-P5 at the probes' own shapes, each against its plain version and
-     timed the same way (``probe_kernel_phase``), K2 beside the P2/P3
-     column writes;
+     timed the same way (``probe_kernel_phase``; the P2/P3 column writes
+     also once with the L2 flushed, with K2 and ``index_copy_`` beside them);
   4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
      launch counters set to 0 just before and read just after: P1's four
      chains of ``P1_LAYERS`` (10) layers at full width, eager and as a CUDA graph, with bf16
@@ -731,15 +731,16 @@ def probe_kernel_phase():
     each kernel against its plain version (the copies and P4's store bit
     for bit, the sums within the probes' stated limits), then timed with
     its plain version and, where one PyTorch call computes the same
-    function, that call. P2 and P3 time each variant as the scripts do: a
-    chain of 30 writes at slot 200, here in one CUDA graph; K2 writes the
-    same column into the port's (S, D) cache beside them. Returns one row
-    per probe, its variants under it."""
+    function, that call. P2 and P3 hold each variant bit for bit at four
+    slots and time it as the scripts do: a chain of 30 writes at slot 200,
+    here in one CUDA graph, and once cold; K2 writes the same column into
+    the port's (S, D) cache beside them. Returns one row per probe, its
+    variants under it."""
     import torch
 
     from chatterbox_tpu_torch.ops import flash_decode as fd
     from chatterbox_tpu_torch.ops import probes as pk
-    from chatterbox_tpu_torch.probes import cache_write, int8_cache, ops
+    from chatterbox_tpu_torch.probes import cache_write, cold_ms, int8_cache, ops
 
     dev = torch.device("cuda")
     rows = {}
@@ -757,15 +758,20 @@ def probe_kernel_phase():
         bound=bound(2 * q.numel() * 2, 0),
     )
 
-    # ---- P2, P3: one column into the (30, 2, 16, 16, 64, 384) bf16 cache
+    # ---- P2, P3: one column into the (30, 2, 16, 16, 64, 384) bf16 cache.
+    # Every variant launches one column-write kernel; each is held bit for
+    # bit at slots 0, 7 (not 8-aligned), 200 and S - 1, timed as a chain of
+    # 30 writes at slot 200 and once with the L2 flushed (``cold_ms``)
     cache, new = cache_write.make_inputs(dev)
     pos = cache_write.POS
+    slots = (0, 7, pos, cache.shape[-1] - 1)
     want = pk.cache_column_write_plain(cache.clone(), new, pos)
     pos_idx = torch.tensor([pos], device=dev)
     lib_err = library_err("cache column write", cache.clone().index_copy_(5, pos_idx, new), want)
-    col_bound = bound(2 * new.numel() * 2, 0)  # the column read once and written once
+    col_bound = bound(cache_write.moved_bytes(cache.shape), 0)  # the column read and written once
     plain_ms = timed(lambda: pk.cache_column_write_plain(cache, new, pos), cache_write.CHAIN)
     library_ms = timed(lambda: cache.index_copy_(5, pos_idx, new), cache_write.CHAIN)
+    library_cold = cold_ms(lambda: cache.index_copy_(5, pos_idx, new))
     sd = cache.transpose(-1, -2).contiguous()
     new_sd = new[..., 0].contiguous()
     got = fd.kv_cache_append(sd.clone(), new_sd, pos)
@@ -775,25 +781,45 @@ def probe_kernel_phase():
                                            cache_write.CHAIN),
           "bound_ms": col_bound[0], "max_abs_err": k2_err}
     del sd, got
+
+    def measured(label, write):
+        # the timed writes leave new at slot pos: each check starts from the
+        # cache as it is
+        for s in slots:
+            want_s = pk.cache_column_write_plain(cache.clone(), new, s)
+            got = write(cache.clone(), s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want_s):
+                err = float((got.float() - want_s.float()).abs().max())
+                fail(f"{label}: slot {s} differs from the slice assignment (max |err| {err:.3e})")
+            del got, want_s
+        cold, least, most = cold_ms(lambda: write(cache, pos))
+        r = {"ms": timed(lambda: write(cache, pos), cache_write.CHAIN),
+             "cold_ms": cold, "cold_spread_ms": [least, most],
+             "max_abs_err": 0.0, "slots_exact": list(slots),
+             "moved_bytes": cache_write.moved_bytes(cache.shape),
+             "sectors_written": cache_write.sectors_written(cache.shape)}
+        print(f"kernel {label}: bit for bit at slots {list(slots)}; chain {r['ms']:.5f} ms, "
+              f"cold {cold:.5f} ms ({least:.5f}-{most:.5f}; index_copy_ {library_ms:.5f}, "
+              f"cold {library_cold[0]:.5f} ({library_cold[1]:.5f}-{library_cold[2]:.5f}))",
+              flush=True)
+        return r
+
     for script, headline in (("P2", "rmw b_blk=8 kvsep"), ("P3", "col b_blk=16")):
-        variants = {}
-        for (sc, name), var in cache_write.VARIANTS.items():
-            if sc != script:
-                continue
-            err, _, _ = check_kernel(f"{script} {name}",
-                                     cache_write.write(cache.clone(), new, pos, var), want,
-                                     exact=True)
-            variants[name] = {
-                "ms": timed(lambda v=var: cache_write.write(cache, new, pos, v), cache_write.CHAIN),
-                "max_abs_err": err, "moved_bytes": cache_write.moved_bytes(var, cache.shape)}
+        variants = {name: measured(f"{script} {name}",
+                                   lambda c, s, v=var: cache_write.write(c, new, s, v))
+                    for (sc, name), var in cache_write.VARIANTS.items() if sc == script}
         variants["K2 kv_cache_append on (S, D), beside"] = k2
         h = variants[headline]
         rows[script] = dict(
             name="cache_column_write" if headline.startswith("col") else "cache_block_rmw",
             headline_variant=headline, err=max(v["max_abs_err"] for v in variants.values()),
-            tol="exact", share=0.0, library_err=lib_err, ms=h["ms"], plain_ms=plain_ms,
-            library_ms=library_ms, library_note="index_copy_ of the column",
-            bound=col_bound, variants=variants)
+            tol="exact", share=0.0, library_err=lib_err,
+            ms=h["ms"], plain_ms=plain_ms, library_ms=library_ms,
+            library_note="index_copy_ of the column", bound=col_bound, variants=variants,
+            extra={"cold_ms": h["cold_ms"], "cold_spread_ms": h["cold_spread_ms"],
+                   "library_cold_ms": library_cold[0],
+                   "library_cold_spread_ms": list(library_cold[1:])})
     del cache, new, want
     torch.cuda.empty_cache()
 

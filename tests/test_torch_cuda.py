@@ -530,17 +530,34 @@ def test_noop_copy_matches_plain(cuda):
     assert torch.equal(got, q) and got.data_ptr() != q.data_ptr()
 
 
+# the probes' widths with fewer layers; 1440 lines, which leave the last
+# block of 256 threads part idle (B 16, so that every variant's b_blk divides
+# it, makes every line count a multiple of 32)
+VARIANT_SHAPES = ((3, 2, 16, 16, 64, 384), (3, 2, 16, 3, 5, 128))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("key", list(cache_write.VARIANTS), ids=" ".join)
 def test_cache_writes_match_plain(cuda, key):
-    """P2/P3: every variant bit for bit against the slice assignment, at the
-    probes' widths with fewer layers and a slot inside the third segment."""
-    cache = _randn(cuda, 3, 2, 16, 16, 64, 384, seed=31)
-    new = _randn(cuda, 3, 2, 16, 16, 64, 1, seed=32)
-    want = probes.cache_column_write_plain(cache.clone(), new, 263)
-    got = cache_write.write(cache.clone(), new, 263, cache_write.VARIANTS[key])
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    """P2/P3: every variant bit for bit against the slice assignment on each
+    of ``VARIANT_SHAPES``, at slots 0, 7 (not 8-aligned), 263 where S allows
+    and S - 1, with ``new`` aligned and one value past an aligned start, and
+    its wrapper's launch counter moving by one a call."""
+    variant = cache_write.VARIANTS[key]
+    wrapper = probes.cache_column_write if variant["kind"] == "col" else probes.cache_block_rmw
+    for i, shape in enumerate(VARIANT_SHAPES):
+        s = shape[-1]
+        cache = _randn(cuda, *shape, seed=31 + i)
+        n = cache[..., 0].numel()
+        for new in (_randn(cuda, *shape[:5], 1, seed=41 + i),
+                    _randn(cuda, n + 1, seed=51 + i)[1:].view(*shape[:5], 1)):
+            for pos in (p for p in (0, 7, 263, s - 1) if p < s):
+                want = probes.cache_column_write_plain(cache.clone(), new, pos)
+                before = wrapper.launches
+                got = cache_write.write(cache.clone(), new, pos, variant)
+                assert wrapper.launches == before + 1
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (shape, new.data_ptr() % 16, pos)
 
 
 @pytest.mark.cuda

@@ -149,13 +149,13 @@ def test_cache_write_plain_matches_dynamic_update_slice(key):
 
 
 def test_cache_write_moved_bytes():
-    """Bytes each variant moves: the column read and written ("col"), the
-    s_blk segment read and written and the column read ("rmw")."""
+    """Every variant launches the one column-write kernel: it moves the
+    column read and written once, and dirties one 32-byte sector a value
+    (each lies S * 2 = 768 bytes from the next)."""
     shape = (30, 2, 16, 16, 64, 384)
     col = 30 * 2 * 16 * 16 * 64 * 2
-    assert cache_write.moved_bytes({"kind": "col", "b_blk": 4}, shape) == 2 * col
-    assert cache_write.moved_bytes({"kind": "rmw", "b_blk": 8, "s_blk": 128, "fold_kv": True},
-                                   shape) == col * 257
+    assert cache_write.moved_bytes(shape) == 2 * col
+    assert cache_write.sectors_written(shape) == col // 2 == 983040
 
 
 # ---------------------------------------------------------------- P1
