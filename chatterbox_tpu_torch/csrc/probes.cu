@@ -4,9 +4,17 @@
 // P1 replaces scripts/probe_boundary.py::_noop (pallas_call :120-122), a
 //    kernel whose only cost is its launch: noop_copy_kernel copies q
 //    (rows, H, D). What bounds it: its launch (2 * 32 KB at full width is
-//    ~0.02 us of HBM time). Design: one thread per 16-byte vector, grid-
-//    stride. The boundary probe (probes/boundary.py) puts it in the
-//    attention slot of each of T3's 30 layers.
+//    ~0.02 us of HBM time; a launch is ~50x that). A grid-stride loop
+//    launched with <<<>>> lost to clone's memcpy node in a CUDA graph
+//    (0.00132 against 0.00116 ms, PERF.md). Design: programmatic dependent launch
+//    (launch_pdl below): the kernel may be scheduled while the previous
+//    kernel on the stream runs, waits (griddepcontrol.wait) before it
+//    touches memory, and at once lets the next PDL-launched kernel be
+//    scheduled, so that chained launches overlap their set-up. One 16-byte
+//    vector a thread, no loop, 32-bit indices, P1_THREADS a block (16
+//    blocks at 32 KB; the geometries tried are in PERF.md). The
+//    boundary probe (probes/boundary.py) puts it in the attention slot of
+//    each of T3's layers.
 //
 // P2 and P3 replace scripts/probe_cache_write2.py::make_rmw (:30-78, call
 //    :67) and ::make_col (:81-114, call :103), and scripts/
@@ -47,13 +55,28 @@
 // P5 replaces scripts/probe_ops.py::run_case (pallas_call :26-36) with its
 //    nine online-softmax fragments A-I (:45-144) on x (8, 128) f32, v (128,
 //    64) f32 and a (1, 64) f32 scratch that persists across the probe's two
-//    grid steps. softmax_probe_kernel<CASE> runs both steps in order in one
-//    block over one shared-memory scratch, initialised from the caller's
-//    scr0 (case H reads the scratch before writing it on the first step, so
-//    its initial value is an input).
+//    grid steps. Both steps read the same x and v blocks (both index maps are
+//    (0, 0)), so scores, max, exps, sums and e @ v are the same in both:
+//    only case H reads the scratch (its m_prev) before writing it, and its
+//    update is applied twice; every other case writes the same output on
+//    both steps. The scratch's initial value is the caller's scr0.
+//    What bounds it: the launch, and before this design the block's
+//    dependent chains (each case copied v by 64 scalar loads a thread, ran e @ v as a
+//    128-long FMA chain on 64 of 128 threads, H and I's q.k^T with a 32-way
+//    bank conflict, and all of it twice; 1.3-7.2 us a launch). Design,
+//    softmax_probe_kernel<CASE>: one block of NT threads (the work is ~16 K
+//    FMAs; a split over SMs would need a second pass), launched by
+//    launch_pdl; the step-invariant work computed once; v (for A, E, G, H
+//    and I only) by one 32 KB bulk copy into shared memory completing on an
+//    mbarrier, issued by one thread while the others read row 0 of x;
+//    q.k^T (H, I) a key row a thread in 16-byte vectors whose column is
+//    rotated by the row (no bank conflicts, four 16-long chains); e @ v
+//    over all four warps (32 slots a warp, two output dims a lane, the
+//    warps' sums added through shared memory: 32-long chains); C's sum the
+//    block reduction that B uses.
 //
-// P4 and P5: what bounds them is the launch (a few KB in, at most 16 KB
-// out). Design: one block of 128 threads (one per slot of the 128-wide
+// P4: what bounds it is the launch (a few KB in, at most 16 KB out).
+// Design: one block of 128 threads (one per slot of the 128-wide
 // block), reductions through common.cuh's block_max/block_sum.
 
 #include "common.cuh"
@@ -63,12 +86,86 @@ namespace {
 constexpr int SB = 128;  // the probes' slot block
 constexpr int PD = 64;   // the probes' head dim
 constexpr int NT = 128;  // threads of the P4/P5 blocks
+constexpr int P1_THREADS = 128;
 
-__global__ void noop_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst,
-                                 long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    dst[i] = src[i];
+// ---- programmatic dependent launch (PDL) -----------------------------------
+// A kernel launched by launch_pdl may be scheduled while the previous kernel
+// on the stream still runs. It calls pdl_wait() before it touches global
+// memory: griddepcontrol.wait returns once the grids it depends on have
+// completed and their writes are visible. pdl_trigger() lets the next
+// PDL-launched kernel be scheduled at once; that kernel waits in turn, so
+// the trigger needs nothing of this grid's work to be done.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+int launch_pdl(void (*kernel)(Params...), unsigned int blocks, unsigned int threads,
+               cudaStream_t st, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// ---- mbarrier and bulk copy (P5's load of v) --------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0: a barrier that completes when ``bytes`` have landed at ``dst``,
+// and the copy of ``src`` (both 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void bulk_load_start(void* dst, const void* src, uint32_t bytes,
+                                                uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Every thread: wait for the copy (the barrier's first phase). A copy that
+// never lands would spin forever: after 2^33 cycles (seconds) the kernel
+// traps, and the launch reports an error.
+__device__ __forceinline__ void bulk_load_wait(uint64_t* bar) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 33)) __trap();
+  }
+}
+
+// P1: n 16-byte vectors, one a thread.
+__global__ void __launch_bounds__(P1_THREADS)
+    noop_copy_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, int n) {
+  pdl_wait();
+  pdl_trigger();
+  const int i = blockIdx.x * P1_THREADS + threadIdx.x;
+  if (i < n) dst[i] = src[i];
 }
 
 // cache: n lines of S 2-byte slots; nw: n values. cache[line * S + pos] =
@@ -123,86 +220,108 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// P5: x (8, SB) f32 (row 0 used), v (SB, PD) f32, scr0 (PD,) f32 the
-// scratch's initial value; out (1, PD) f32. Thread t owns slot t; threads
-// t < PD own output dim t.
+// P5: x (8, SB) f32 (row 0 used), v (SB, PD) f32 (16-byte aligned), scr0
+// (PD,) f32 the scratch's initial value; out (1, PD) f32. Thread t owns slot
+// t (p = x[0, t]; for H and I the score of key row t); threads t < PD own
+// output dim t. The two grid steps' shared work is done once (see the note).
 template <int CASE>
-__global__ void softmax_probe_kernel(const float* __restrict__ x, const float* __restrict__ v,
-                                     const float* __restrict__ scr0, float* __restrict__ out) {
-  __shared__ float vs[SB * PD];
-  __shared__ float e_s[SB];
-  __shared__ float scr[PD];
+__global__ void __launch_bounds__(NT)
+    softmax_probe_kernel(const float* __restrict__ x, const float* __restrict__ v,
+                         const float* __restrict__ scr0, float* __restrict__ out) {
+  static_assert(NT == SB && PD == 64 && NT / 32 == 4, "a thread a slot, four warps");
+  constexpr bool kReadsV = CASE == 0 || CASE == 4 || CASE == 6 || CASE == 7 || CASE == 8;
+  constexpr bool kScores = CASE == 7 || CASE == 8;  // H, I: q.k^T with q = x[0, :PD]
+  __shared__ __align__(16) float vs[kReadsV ? SB * PD : 4];
+  __shared__ __align__(16) float qs[PD];
+  __shared__ __align__(16) float part[NT / 32][PD];  // each warp's share of e @ v
   __shared__ float red[NT / 32];
-  const int t = threadIdx.x;
-  for (int i = t; i < SB * PD; i += NT) vs[i] = v[i];
-  if (t < PD) scr[t] = scr0[t];
-  __syncthreads();
+  __shared__ __align__(8) uint64_t bar;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+
+  pdl_wait();
+  pdl_trigger();
+  if constexpr (kReadsV) {
+    if (t == 0) bulk_load_start(vs, v, SB * PD * sizeof(float), &bar);
+  }
   const float p = x[t];  // x[0, t]
-  for (int step = 0; step < 2; ++step) {
-    if constexpr (CASE == 1 || CASE == 5) {  // B, F: sum(p) broadcast-stored
-      const float s = block_sum<NT>(p, red);
-      if (t < PD) { scr[t] = 0.f + s; out[t] = scr[t]; }
-    } else if constexpr (CASE == 2) {  // C: p @ ones(SB, PD), stored, then * 2
-      if (t < PD) {
-        float acc = 0.f;
-        for (int s = 0; s < SB; ++s) acc += x[s] * 1.f;
-        scr[t] = acc;
-        out[t] = scr[t] * 2.f;
-      }
-    } else if constexpr (CASE == 3) {  // D: max(p) broadcast-stored
-      const float m = block_max<NT>(p, red);
-      if (t < PD) { scr[t] = m; out[t] = scr[t]; }
-    } else if constexpr (CASE == 7) {  // H: q.k^T, softmax pieces, online update of scr
-      float sc = 0.f;
-      for (int d = 0; d < PD; ++d) sc += x[d] * vs[t * PD + d];
-      const float m = block_max<NT>(sc, red);
-      const float e = expf(sc - m);
-      const float l = block_sum<NT>(e, red);
-      e_s[t] = e;
-      __syncthreads();
-      if (t < PD) {
-        float pv = 0.f;
-        for (int s = 0; s < SB; ++s) pv += e_s[s] * vs[s * PD + t];
-        const float m_prev = scr[t];
-        // the NaN-propagating max of jnp.maximum (fmaxf would drop a NaN)
-        const float m_new = (m_prev != m_prev || m_prev > m) ? m_prev : m;
-        const float alpha = expf(m_prev - m_new), beta = expf(m - m_new);
-        scr[t] = scr[t] * alpha + pv * beta + l;
-        out[t] = scr[t];
-      }
-    } else if constexpr (CASE == 8) {  // I: bf16 q.k^T and bf16 e.v, fp32 sums
-      float sc = 0.f;
-      for (int d = 0; d < PD; ++d) sc += bf16_round(x[d]) * bf16_round(vs[t * PD + d]);
-      const float m = block_max<NT>(sc, red);
-      e_s[t] = bf16_round(expf(sc - m));
-      __syncthreads();
-      if (t < PD) {
-        float pv = 0.f;
-        for (int s = 0; s < SB; ++s) pv += e_s[s] * bf16_round(vs[s * PD + t]);
-        out[t] = pv;
-      }
-    } else {  // A (0), E (4), G (6): softmax pieces of p, then e @ v
-      const float m = block_max<NT>(p, red);
-      const float e = expf(p - m);
-      float l = 0.f;
-      if constexpr (CASE != 4) l = block_sum<NT>(e, red);
-      e_s[t] = CASE == 0 ? e / l : e;  // A: the probabilities
-      __syncthreads();
-      if (t < PD) {
-        float acc = 0.f;
-        for (int s = 0; s < SB; ++s) acc += e_s[s] * vs[s * PD + t];
-        if constexpr (CASE == 0) {
-          out[t] = acc;
-        } else if constexpr (CASE == 4) {
-          scr[t] = 0.f + m;
-          out[t] = acc + scr[t];
+  if constexpr (kScores) {
+    if (t < PD) qs[t] = CASE == 8 ? bf16_round(p) : p;
+  }
+  if constexpr (kReadsV) __syncthreads();  // the barrier is initialised (and qs written)
+
+  if constexpr (CASE == 1 || CASE == 5) {  // B, F: sum(p) broadcast-stored
+    const float s = block_sum<NT>(p, red);
+    if (t < PD) out[t] = 0.f + s;
+  } else if constexpr (CASE == 2) {  // C: p @ ones(SB, PD), stored, then * 2
+    const float s = block_sum<NT>(p, red);
+    if (t < PD) out[t] = s * 2.f;
+  } else if constexpr (CASE == 3) {  // D: max(p) broadcast-stored
+    const float m = block_max<NT>(p, red);
+    if (t < PD) out[t] = m;
+  } else {  // A, E, G, H, I: softmax pieces of a row of 128, then e @ v
+    float sc = p;
+    if constexpr (kScores) {
+      bulk_load_wait(&bar);
+      // key row t: its 16-byte column block j + t (mod 16), so that the 8
+      // threads of a quarter warp read 8 different bank quads of vs and qs
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < PD / 4; ++j) {
+        const int c = ((j + t) & (PD / 4 - 1)) * 4;
+        const float4 k4 = *reinterpret_cast<const float4*>(&vs[t * PD + c]);
+        const float4 q4 = *reinterpret_cast<const float4*>(&qs[c]);
+        if constexpr (CASE == 8) {
+          a[0] = fmaf(q4.x, bf16_round(k4.x), a[0]);
+          a[1] = fmaf(q4.y, bf16_round(k4.y), a[1]);
+          a[2] = fmaf(q4.z, bf16_round(k4.z), a[2]);
+          a[3] = fmaf(q4.w, bf16_round(k4.w), a[3]);
         } else {
-          scr[t] = 0.f + m + l;
-          out[t] = acc / (0.f + l);
+          a[0] = fmaf(q4.x, k4.x, a[0]);
+          a[1] = fmaf(q4.y, k4.y, a[1]);
+          a[2] = fmaf(q4.z, k4.z, a[2]);
+          a[3] = fmaf(q4.w, k4.w, a[3]);
         }
       }
+      sc = (a[0] + a[1]) + (a[2] + a[3]);
     }
+    const float m = block_max<NT>(sc, red);
+    float e = expf(sc - m), l = 0.f;
+    if constexpr (CASE != 4 && CASE != 8) l = block_sum<NT>(e, red);
+    if constexpr (CASE == 0) e = e / l;  // A: the probabilities
+    if constexpr (CASE == 8) e = bf16_round(e);
+    if constexpr (!kScores) bulk_load_wait(&bar);
+    // e @ v: warp w takes slots 32w..32w+31 (their e from the owning lane),
+    // lane takes output dims 2 lane and 2 lane + 1
+    float2 acc = make_float2(0.f, 0.f);
+#pragma unroll 8
+    for (int k = 0; k < 32; ++k) {
+      const float ek = __shfl_sync(0xffffffffu, e, k);
+      float2 v2 = *reinterpret_cast<const float2*>(&vs[(32 * w + k) * PD + 2 * lane]);
+      if constexpr (CASE == 8) v2 = make_float2(bf16_round(v2.x), bf16_round(v2.y));
+      acc.x = fmaf(ek, v2.x, acc.x);
+      acc.y = fmaf(ek, v2.y, acc.y);
+    }
+    *reinterpret_cast<float2*>(&part[w][2 * lane]) = acc;
     __syncthreads();
+    if (t < PD) {
+      const float pv = (part[0][t] + part[1][t]) + (part[2][t] + part[3][t]);
+      if constexpr (CASE == 0 || CASE == 8) {  // A, I
+        out[t] = pv;
+      } else if constexpr (CASE == 4) {  // E: the scratch holds m
+        out[t] = pv + (0.f + m);
+      } else if constexpr (CASE == 6) {  // G
+        out[t] = pv / (0.f + l);
+      } else {  // H: the online update of the scratch, once a grid step
+        float s = scr0[t];
+#pragma unroll
+        for (int step = 0; step < 2; ++step) {
+          // the NaN-propagating max of jnp.maximum (fmaxf would drop a NaN)
+          const float m_new = (s != s || s > m) ? s : m;
+          s = s * expf(s - m_new) + pv * expf(m - m_new) + l;
+        }
+        out[t] = s;
+      }
+    }
   }
 }
 
@@ -218,27 +337,29 @@ int launch_int8(const void* k8, const void* sc, const void* q, const void* t8, v
 
 template <int CASE>
 int launch_softmax(const void* x, const void* v, const void* scr0, void* out, cudaStream_t st) {
-  softmax_probe_kernel<CASE><<<1, NT, 0, st>>>(static_cast<const float*>(x),
-                                               static_cast<const float*>(v),
-                                               static_cast<const float*>(scr0),
-                                               static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return launch_pdl(softmax_probe_kernel<CASE>, 1, NT, st, x, v, scr0, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// P1. Copies `bytes` (a multiple of 16; both pointers 16-byte aligned).
+// P1. Copies `bytes` (a multiple of 16, under 2^35; both pointers 16-byte
+// aligned).
 int cbx_noop_copy(const void* src, void* dst, long long bytes, void* stream) {
-  if (bytes % 16 != 0) return (int)cudaErrorInvalidValue;
-  const long long n = bytes / 16;
-  const int threads = 256;
-  const long long blocks = n == 0 ? 1 : (n + threads - 1) / threads;
-  noop_copy_kernel<<<(unsigned int)(blocks < 1024 ? blocks : 1024), threads, 0,
-                     reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(src), static_cast<uint4*>(dst), n);
-  return (int)cudaGetLastError();
+  if (bytes < 0 || bytes % 16 != 0 || bytes / 16 > (1LL << 31) - P1_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const int n = (int)(bytes / 16);
+  const int blocks = n == 0 ? 1 : (n + P1_THREADS - 1) / P1_THREADS;
+  return launch_pdl(noop_copy_kernel, blocks, P1_THREADS, reinterpret_cast<cudaStream_t>(stream),
+                    src, dst, n);
+}
+
+// The CUDA runtime this library was built with and the driver's version
+// (1000 * major + 10 * minor): PDL in a captured CUDA graph needs 12.3.
+int cbx_cuda_versions(int* runtime, int* driver) {
+  const cudaError_t err = cudaRuntimeGetVersion(runtime);
+  return (int)(err != cudaSuccess ? err : cudaDriverGetVersion(driver));
 }
 
 // P2/P3. cache (n, S) and new (n,), 2-byte elements: cache[:, pos] = new.

@@ -2,7 +2,8 @@
 beside its plain PyTorch version. ``probes/`` drives them.
 
 - P1 ``noop_copy`` (``scripts/probe_boundary.py::_noop``): a copy of q, a
-  kernel whose only cost is its launch;
+  kernel whose only cost is its launch, launched with programmatic
+  dependent launch so that chained launches overlap their set-up;
 - P2/P3 ``cache_column_write`` and ``cache_block_rmw``
   (``scripts/probe_cache_write2.py``, ``probe_cache_write3.py``): one K/V
   column written at slot ``pos`` of an (L, 2, B, H, D, S) cache, in place
@@ -16,7 +17,10 @@ beside its plain PyTorch version. ``probes/`` drives them.
 - P5 ``softmax_probe`` (``scripts/probe_ops.py``): the nine online-softmax
   fragments ``SOFTMAX_CASES``, over the probe's two grid steps and one
   persistent (1, D) fp32 scratch whose initial value is an argument (case H
-  reads it before writing it).
+  reads it before writing it). Both steps see the same x and v, so the
+  kernel computes their shared work once and applies H's scratch update
+  twice; ``softmax_probe_plain`` runs the two steps as the probe does and
+  stays the specification.
 
 What bounds each kernel and its design: the note in ``csrc/probes.cu``. A
 wrapper takes its plain version only for CPU tensors; for CUDA tensors it
@@ -43,11 +47,23 @@ _SIG = {
     "cbx_cache_column_write": [_P, _P, _LL, _I, _I, _P],
     "cbx_int8_probe": [_I, _P, _P, _P, _P, _P, _P],
     "cbx_softmax_probe": [_I, _P, _P, _P, _P, _P],
+    "cbx_cuda_versions": [_P, _P],
 }
 
 
 def _lib():
     return _build.load("probes", _SIG)
+
+
+def cuda_versions() -> dict:
+    """The CUDA runtime that the probes' library was built with and the
+    driver's version, as "major.minor" (PDL inside a captured CUDA graph
+    needs 12.3)."""
+    runtime, driver = ctypes.c_int(), ctypes.c_int()
+    _build.check(_lib().cbx_cuda_versions(ctypes.byref(runtime), ctypes.byref(driver)),
+                 "cuda_versions")
+    return {k: f"{n.value // 1000}.{n.value % 1000 // 10}"
+            for k, n in (("runtime", runtime), ("driver", driver))}
 
 
 # ---------------------------------------------------------------------------
@@ -247,7 +263,8 @@ def int8_probe(case: str, k8, sc, q, t8):
 
 def softmax_probe(case: str, x, v, scr0):
     """P5: one of ``SOFTMAX_CASES`` over the probe's two grid steps (see
-    ``softmax_probe_plain``); returns (1, 64) f32."""
+    ``softmax_probe_plain``); returns (1, 64) f32. The kernel copies v into
+    shared memory in one bulk copy, so v must be 16-byte aligned."""
     _build.refuse_autograd("softmax_probe", x, v, scr0)
     if x.device.type == "cpu":
         return softmax_probe_plain(case, x, v, scr0)
@@ -255,6 +272,7 @@ def softmax_probe(case: str, x, v, scr0):
     for name, t, shape in (("x", x, (8, SB)), ("v", v, (SB, PD)), ("scr0", scr0, (1, PD))):
         require(tuple(t.shape) == shape and t.dtype == torch.float32 and t.is_contiguous(),
                 f"{name} must be a contiguous {shape} float32")
+    require(v.data_ptr() % 16 == 0, "v must be 16-byte aligned")
     require(case in SOFTMAX_CASES, f"unknown P5 case {case!r}")
     out = torch.empty((1, PD), dtype=torch.float32, device=x.device)
     _build.check(_lib().cbx_softmax_probe(

@@ -8,7 +8,10 @@ decode kernel's online softmax (max, sum and exp of a 128-slot row,
 broadcast stores into a (1, 64) scratch, q.k^T, bf16 dots) on the probe's
 inputs: x (8, 128) and v (128, 64) f32 from ``numpy.random.default_rng(0)``
 and ``default_rng(1)``. Each runs the probe's two grid steps over one
-persistent scratch, which starts at zero here (``scr0``).
+persistent scratch, which starts at zero here (``scr0``). The kernel
+computes the work the two steps share once (both read the same x and v)
+and applies case H's scratch update twice; the plain version runs the two
+steps as the probe does.
 """
 
 import numpy as np

@@ -22,7 +22,11 @@ Phases (any failure exits non-zero before the last line):
      kernel's share of its bound; then the probe kernels
      P1-P5 at the probes' own shapes, each against its plain version and
      timed the same way (``probe_kernel_phase``; the P2/P3 column writes
-     also once with the L2 flushed, with K2 and ``index_copy_`` beside them);
+     also once with the L2 flushed, with K2 and ``index_copy_`` beside them;
+     P5 also from a random scratch; the launch floor, an empty kernel timed
+     the same way, beside P1, P4 and P5, and the CUDA runtime and driver
+     versions on P1's line, since P1 and P5 launch with programmatic
+     dependent launch);
   4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
      launch counters set to 0 just before and read just after: P1's four
      chains of ``P1_LAYERS`` (10) layers at full width, eager and as a CUDA graph, with bf16
@@ -744,19 +748,29 @@ def probe_kernel_phase():
 
     dev = torch.device("cuda")
     rows = {}
+    # the launch floor: an empty kernel (one thread, no memory) timed as the
+    # probes are; every probe's bound is far below it
+    floor_ms = timed(lambda: torch.cuda._sleep(0), 500)
 
     # ---- P1: the copy of q (16 CFG rows x 16 heads x 64) in each layer's
-    # attention slot
+    # attention slot, launched with programmatic dependent launch (PDL)
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn((ROWS, T3_HEADS, HEAD_DIM), generator=g, device=dev).to(torch.bfloat16)
     err, tol, share = check_kernel("noop_copy", pk.noop_copy(q), pk.noop_copy_plain(q), exact=True)
+    versions = pk.cuda_versions()
     rows["P1"] = dict(
         name="noop_copy", err=err, tol=tol, share=share, library_err=0.0,
         ms=timed(lambda: pk.noop_copy(q), 500), plain_ms=timed(lambda: pk.noop_copy_plain(q), 500),
         library_ms=timed(lambda: q.clone(), 500),
         library_note="q.clone(), which is also the plain version",
         bound=bound(2 * q.numel() * 2, 0),
+        extra={"floor_ms": floor_ms, "cuda_runtime": versions["runtime"],
+               "cuda_driver": versions["driver"]},
     )
+    p1 = rows["P1"]
+    print(f"kernel noop_copy: {p1['ms']:.5f} ms chained (PDL), clone {p1['library_ms']:.5f} ms, "
+          f"launch floor {floor_ms:.5f} ms; CUDA runtime {versions['runtime']}, driver "
+          f"{versions['driver']}", flush=True)
 
     # ---- P2, P3: one column into the (30, 2, 16, 16, 64, 384) bf16 cache.
     # Every variant launches one column-write kernel; each is held bit for
@@ -850,11 +864,16 @@ def probe_kernel_phase():
             "plain_ms": timed(lambda c=case: pk.int8_probe_plain(c, *ins), 200),
             "bound_ms": bound(sum(io_bytes[case]), flops[case], PEAK_FP32_FLOPS)[0],
             "max_abs_err": err, "tol": tol, "err_share_of_tol": share}
-    rows["P4"] = _case_row("int8_probe", "i8_dequant_matmul", variants, io_bytes, flops)
+    rows["P4"] = _case_row("int8_probe", "i8_dequant_matmul", variants, io_bytes, flops,
+                           floor_ms)
 
-    # ---- P5: the nine online-softmax fragments from a zero scratch
+    # ---- P5: the nine online-softmax fragments, held from a zero scratch
+    # and from a seeded random one on the scale of H's largest score (the
+    # only inputs on which H's twice-applied update moves the result), timed
+    # from the zero one
     x, v = ops.inputs(dev)
     scr0 = torch.zeros((1, pd), device=dev)
+    scr_rand = 16 * torch.randn((1, pd), generator=g, device=dev)
     io_bytes, flops = {}, {}
     for case in pk.SOFTMAX_CASES:
         x_bytes = 4 * (pd if case[0] in "HI" else sb)  # row 0 of x, or its first 64
@@ -863,26 +882,36 @@ def probe_kernel_phase():
         flops[case] = 2 * 2 * sb * pd * (2 if case[0] in "HI" else 1 if v_bytes else 0) + 4 * sb
     variants = {}
     for case in pk.SOFTMAX_CASES:
-        got, want = pk.softmax_probe(case, x, v, scr0), pk.softmax_probe_plain(case, x, v, scr0)
-        lim, tol = ops.limit(case, x, v, scr0)
-        torch.cuda.synchronize()
-        err, share = float((got - want).abs().max()), _share(got, want, lim)
-        print(f"kernel softmax_probe {case}: max_abs_err={err:.3e}, worst element at "
-              f"{share:.3f} of its limit |err| <= {tol}", flush=True)
-        if not (bool(torch.isfinite(got).all()) and share <= 1.0):
-            fail(f"softmax_probe {case}: an element exceeds its limit ({tol}) by {share:.3f}x")
+        errs, shares = [], []
+        for label, s0 in (("zero", scr0), ("random", scr_rand)):
+            got, want = pk.softmax_probe(case, x, v, s0), pk.softmax_probe_plain(case, x, v, s0)
+            lim, tol = ops.limit(case, x, v, s0)
+            torch.cuda.synchronize()
+            errs.append(float((got - want).abs().max()))
+            shares.append(_share(got, want, lim))
+            print(f"kernel softmax_probe {case} ({label} scratch): max_abs_err={errs[-1]:.3e}, "
+                  f"worst element at {shares[-1]:.3f} of its limit |err| <= {tol}", flush=True)
+            if not (bool(torch.isfinite(got).all()) and shares[-1] <= 1.0):
+                fail(f"softmax_probe {case} ({label} scratch): an element exceeds its limit "
+                     f"({tol}) by {shares[-1]:.3f}x")
         variants[case] = {
             "ms": timed(lambda c=case: pk.softmax_probe(c, x, v, scr0), 200),
             "plain_ms": timed(lambda c=case: pk.softmax_probe_plain(c, x, v, scr0), 200),
             "bound_ms": bound(sum(io_bytes[case]), flops[case], PEAK_FP32_FLOPS)[0],
-            "max_abs_err": err, "tol": tol, "err_share_of_tol": share}
-    rows["P5"] = _case_row("softmax_probe", "H_dotgen_transpose_rhs", variants, io_bytes, flops)
+            "max_abs_err": max(errs), "tol": tol, "err_share_of_tol": max(shares),
+            "max_abs_err_random_scratch": errs[1]}
+    rows["P5"] = _case_row("softmax_probe", "H_dotgen_transpose_rhs", variants, io_bytes, flops,
+                           floor_ms)
+    print("kernel softmax_probe: ms a case " + json.dumps(
+        {c[0]: round(r["ms"], 6) for c, r in variants.items()}) + f", launch floor "
+        f"{floor_ms:.5f} ms", flush=True)
     torch.cuda.synchronize()
     return rows
 
 
-def _case_row(name, headline, variants, io_bytes, flops):
-    """A P4/P5 row: the headline case's numbers, every case under it."""
+def _case_row(name, headline, variants, io_bytes, flops, floor_ms):
+    """A P4/P5 row: the headline case's numbers, every case under it, and
+    the launch floor."""
     h = variants[headline]
     return dict(name=name, headline_variant=headline,
                 err=max(c["max_abs_err"] for c in variants.values()),
@@ -890,7 +919,7 @@ def _case_row(name, headline, variants, io_bytes, flops):
                 library_err=None, ms=h["ms"], plain_ms=h["plain_ms"], library_ms=None,
                 library_note="no single PyTorch call computes a case",
                 bound=bound(sum(io_bytes[headline]), flops[headline], PEAK_FP32_FLOPS),
-                variants=variants)
+                variants=variants, extra={"floor_ms": floor_ms})
 
 
 def probe_phase(card):

@@ -522,12 +522,38 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.cuda
 def test_noop_copy_matches_plain(cuda):
-    q = _randn(cuda, 16, 16, 64, seed=30)
-    before = probes.noop_copy.launches
+    """P1 bit for bit on the probe's (16, 16, 64), one 16-byte vector and
+    two shapes that leave the last block part full, its counter moving by
+    one a call; then ordered after what writes q (a kernel, a memcpy), eager
+    and in a captured and replayed CUDA graph with two copies back to back:
+    the kernel is launched with programmatic dependent launch, and must
+    still see every earlier write."""
+    for i, shape in enumerate(((16, 16, 64), (8,), (3, 5, 8), (3, 5, 72))):
+        q = _randn(cuda, *shape, seed=30 + i)
+        before = probes.noop_copy.launches
+        got = probes.noop_copy(q)
+        assert probes.noop_copy.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, q) and got.data_ptr() != q.data_ptr(), shape
+    src = _randn(cuda, 16, 16, 64, seed=34)
+    q = src.clone()
+    q.mul_(2)
     got = probes.noop_copy(q)
-    assert probes.noop_copy.launches == before + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, q) and got.data_ptr() != q.data_ptr()
+    assert torch.equal(got, src * 2)
+    graph = torch.cuda.CUDAGraph()
+    before = probes.noop_copy.launches
+    with torch.cuda.graph(graph):
+        q.copy_(src)
+        q.mul_(2)
+        a = probes.noop_copy(q)
+        b = probes.noop_copy(a)
+    assert probes.noop_copy.launches == before + 2
+    for _ in range(3):
+        src.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, src * 2) and torch.equal(b, src * 2)
 
 
 # the probes' widths with fewer layers; 1440 lines, which leave the last
@@ -579,6 +605,47 @@ def test_int8_and_softmax_probes_match_plain(cuda):
         torch.cuda.synchronize()
         lim, _ = ops.limit(case, x, v, scr0)
         assert bool(((got - want).abs() <= lim).all()), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", probes.SOFTMAX_CASES)
+def test_softmax_probe_scratches_and_graph(cuda, case):
+    """P5 within ``probes.ops.limit`` from a seeded random scratch and, for
+    H, from one holding a NaN, which must propagate as in the plain version
+    (the kernel applies H's update twice: only these scratches check that on
+    the card; the random one is on the scale of H's largest score, ~15.6, so
+    that H's result depends on it); its counter moves by one a call. Then
+    the same call captured in a CUDA graph after a memcpy and a kernel that
+    write x, replayed."""
+    x, v = ops.inputs(cuda)
+    scr = _randn(cuda, 1, 64, seed=36, scale=16.0, dtype=torch.float32)
+    scrs = [scr]
+    if case.startswith("H"):
+        nan = scr.clone()
+        nan[0, 5] = float("nan")
+        scrs.append(nan)
+    for scr0 in scrs:
+        before = probes.softmax_probe.launches
+        got = probes.softmax_probe(case, x, v, scr0)
+        assert probes.softmax_probe.launches == before + 1
+        want = probes.softmax_probe_plain(case, x, v, scr0)
+        lim, _ = ops.limit(case, x, v, scr0)
+        torch.cuda.synchronize()
+        nan_want = want.isnan()
+        assert torch.equal(got.isnan(), nan_want), case
+        assert bool(((got - want).abs() <= lim)[~nan_want].all()), case
+    x0 = x.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.copy_(x0)
+        x.mul_(2)
+        got = probes.softmax_probe(case, x, v, scr)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = probes.softmax_probe_plain(case, x, v, scr)
+    lim, _ = ops.limit(case, x, v, scr)
+    assert torch.equal(x, x0 * 2)
+    assert bool(((got - want).abs() <= lim).all()), case
 
 
 @pytest.mark.cuda

@@ -131,6 +131,110 @@ def test_softmax_probe_h_from_a_zero_scratch_is_finite():
     assert bool(torch.isnan(out[0, :32]).all()) and bool(torch.isfinite(out[0, 32:]).all())
 
 
+def _fma(a, b, c):
+    """fp32 a * b + c rounded once (the product is exact in fp64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _block_sum(vals):
+    """common.cuh's block_sum over 128 fp32 values: each warp's xor
+    butterfly, then 0 + warp 0 + warp 1 + warp 2 + warp 3."""
+    w = vals.reshape(4, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[:, torch.arange(32) ^ o]
+    r = torch.zeros((), dtype=torch.float32)
+    for k in range(4):
+        r = r + w[k, 0]
+    return r
+
+
+def _softmax_kernel_walk(case, x, v, scr0):
+    """P5's kernel (``csrc/probes.cu`` ``softmax_probe_kernel``) in its own
+    order, in fp32 on the CPU: the two grid steps' shared work once; q.k^T
+    (H, I) a key row a thread in four partial sums over 16-byte column blocks
+    that start at the row's index (mod 16), added pairwise; e @ v by four
+    warps, each over its 32 slots, their sums added pairwise; H's update
+    applied twice with the NaN-propagating max."""
+    bf = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    p, scr0 = x[0], scr0.reshape(-1)
+    if case in ("B_sum_bcast_store", "F_keepdims_sum"):
+        return (0.0 + _block_sum(p)).expand(1, 64)
+    if case == "C_sum_via_dot":
+        return (_block_sum(p) * 2.0).expand(1, 64)
+    if case == "D_max_full_store":
+        return p.max().expand(1, 64)
+    sc = p
+    if case in ("H_dotgen_transpose_rhs", "I_bf16_dots"):
+        q = bf(p[:64]) if case == "I_bf16_dots" else p[:64]
+        k = bf(v) if case == "I_bf16_dots" else v
+        rows = torch.arange(128)
+        a = torch.zeros((4, 128), dtype=torch.float32)
+        for j in range(16):
+            c = ((j + rows) & 15) * 4
+            for i in range(4):
+                a[i] = _fma(q[c + i], k[rows, c + i], a[i])
+        sc = (a[0] + a[1]) + (a[2] + a[3])
+    m = sc.max()
+    e = torch.exp(sc - m)
+    l = _block_sum(e)
+    if case == "A_round1_seq":
+        e = e / l
+    vv = v
+    if case == "I_bf16_dots":
+        e, vv = bf(e), bf(v)
+    part = torch.zeros((4, 64), dtype=torch.float32)
+    for kk in range(32):
+        s_idx = 32 * torch.arange(4) + kk
+        part = _fma(e[s_idx][:, None], vv[s_idx], part)
+    pv = (part[0] + part[1]) + (part[2] + part[3])
+    if case in ("A_round1_seq", "I_bf16_dots"):
+        return pv[None]
+    if case == "E_dual_consumer":
+        return (pv + (0.0 + m))[None]
+    if case == "G_keepdims_softmax":
+        return (pv / (0.0 + l))[None]
+    s = scr0.clone()
+    for _ in range(2):
+        m_new = torch.where(torch.isnan(s) | (s > m), s, m)
+        s = s * torch.exp(s - m_new) + pv * torch.exp(m - m_new) + l
+    return s[None]
+
+
+_SCRATCHES = [(c, "zero") for c in probes.SOFTMAX_CASES] + \
+    [(c, "random") for c in probes.SOFTMAX_CASES] + [("H_dotgen_transpose_rhs", "nan")]
+
+
+@pytest.mark.parametrize("case,scratch", _SCRATCHES)
+def test_softmax_kernel_walk_within_limit(case, scratch):
+    """The card's kernel sums in another order than the plain version and
+    computes the two grid steps' shared work once: its walk, emulated in
+    fp32, stays within ``ops.limit`` of the plain version from a zero, a
+    random and (H) a NaN-holding scratch, with the NaN where the plain
+    version has it. The random scratch is on the scale of H's largest score
+    (~15.6), so that H's result depends on it and on its update being
+    applied twice: one application alone is far outside the limit."""
+    x, v = ops.inputs(CPU)
+    scr0 = torch.zeros((1, 64))
+    if scratch != "zero":
+        scr0 = torch.from_numpy(16 * np.random.default_rng(2).standard_normal((1, 64)).astype(
+            np.float32))
+    if scratch == "nan":
+        scr0[0, 5] = float("nan")
+    if case == "H_dotgen_transpose_rhs" and scratch == "random":
+        once, _ = probes._softmax_step(case, x, v, scr0)
+        lim, _ = ops.limit(case, x, v, scr0)
+        assert not bool(((once - probes.softmax_probe_plain(case, x, v, scr0)).abs()
+                         <= lim).all())
+    got = _softmax_kernel_walk(case, x, v, scr0)
+    want = probes.softmax_probe_plain(case, x, v, scr0)
+    lim, _ = ops.limit(case, x, v, scr0)
+    assert got.shape == want.shape == (1, 64)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert bool(((got - want).abs() <= lim)[~nan].all())
+    assert scratch != "nan" or bool(nan[0, 5]) and int(nan.sum()) == 1
+
+
 # ---------------------------------------------------------------- P2, P3
 
 @pytest.mark.parametrize("key", list(cache_write.VARIANTS), ids=" ".join)
