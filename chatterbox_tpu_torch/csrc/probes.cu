@@ -49,9 +49,35 @@
 //    with its six cases (:61-97): int8 fragments of an int8 KV-cache read
 //    (load + convert, dequant.q.K, p.V, int8 x f32 dot, f32 -> int8 store by
 //    truncation, the (8, D) int8 tail . q) on K8 (64, 128) int8, SC (8, 128)
-//    f32, Q (8, 64) f32 and KSD8 (8, 64) int8. int8_probe_kernel<CASE> runs
-//    the probe's two grid steps in order, each writing the one output block.
-//
+//    f32, Q (8, 64) f32 and KSD8 (8, 64) int8. The probe's two grid steps
+//    read the same blocks and write the same output block with the same
+//    values, so the kernel computes it once.
+//    What bounds it: the launch (at most 8.6 KB in and 16 KB out, ~24 K
+//    operations, nanoseconds of the card's rates), then one round trip to
+//    L2, and the work that one SM does. The kernel this one replaced ran
+//    both steps, launched without PDL, and read K8 a byte a load in 64- and
+//    128-long dependent chains (pv on 64 of 128 threads): 1.5-14.4 us a case.
+//    Design, int8_probe_kernel<CASE>, launched by launch_pdl: every input
+//    read in coalesced 16-byte vectors (the convert in 4-byte words), the
+//    int8 values summed in 16-long chains over a vector. store (one block) and sd_tail (one warp:
+//    KSD8's 32 vectors, one warp_sum, no barrier) sit at the PDL launch.
+//    The convert (8 blocks, a word in and a float4 out a thread) and pv (4
+//    blocks, a K8 vector a thread, a row's 8 lanes added by shuffles) spread
+//    over SMs: on one block they took 0.5-0.8 us more. dequant_matmul and
+//    matmul_direct sum all of K8 into one value, so they stay on one block
+//    (4 vectors a thread, then common.cuh's block_sum): matmul_direct sums a
+//    vector's 16 bytes exactly with dp4a, but dequant_matmul converts and
+//    multiplies 8192 values on one SM, which bounds it (~0.6 us over the
+//    launch, unmoved by 512 threads or by a byte-permute convert). Measured
+//    and dropped (PERF.md): the four blocks of a cluster adding their
+//    sums through distributed shared memory (0.75-1.0 us slower); a bulk
+//    copy of a block's K8 bytes into shared memory, as P5 loads v (equal in
+//    dequant_matmul and pv, 0.14-0.2 us slower in the convert and
+//    matmul_direct).
+//    The sums are taken in another order than the plain version's (dequant
+//    as q (sum k sc)), within probes/int8_cache.py's limit; the convert and
+//    the store are exact.
+
 // P5 replaces scripts/probe_ops.py::run_case (pallas_call :26-36) with its
 //    nine online-softmax fragments A-I (:45-144) on x (8, 128) f32, v (128,
 //    64) f32 and a (1, 64) f32 scratch that persists across the probe's two
@@ -74,10 +100,6 @@
 //    over all four warps (32 slots a warp, two output dims a lane, the
 //    warps' sums added through shared memory: 32-long chains); C's sum the
 //    block reduction that B uses.
-//
-// P4: what bounds it is the launch (a few KB in, at most 16 KB out).
-// Design: one block of 128 threads (one per slot of the 128-wide
-// block), reductions through common.cuh's block_max/block_sum.
 
 #include "common.cuh"
 
@@ -176,43 +198,141 @@ __global__ void cache_column_kernel(uint16_t* __restrict__ cache, const uint16_t
   if (line < n) cache[line * S + pos] = nw[line];
 }
 
-// P4: k8 (PD, SB) int8, sc (8, SB) f32, q (8, PD) f32, t8 (8, PD) int8.
-// Outputs: case 0 (PD, PD) f32; cases 1, 2, 3, 5 (1, PD) f32; case 4 (8, SB)
-// int8.
+// P4: k8 (PD, SB) int8, sc (8, SB) f32, q (8, PD) f32, t8 (8, PD) int8, each
+// 16-byte aligned. Outputs: case 0 (PD, PD) f32; cases 1, 2, 3, 5 (1, PD)
+// f32; case 4 (8, SB) int8. k8 is 512 16-byte vectors, row d the 8 vectors
+// 8 d .. 8 d + 7. Cases 1 and 3: one block, thread t holds vectors t + NT r
+// (r < P4_VECS: row t / 8 + 16 r, slots 16 (t % 8) .. + 15), so it needs
+// sc[0, 16 (t % 8) ..] and q[0, t / 8 + 16 r] only. Case 2: block r holds
+// the same vectors NT r + t (rows 16 r .. 16 r + 15). Case 0: block b holds
+// rows 8 b .. 8 b + 7, a thread a 4-byte word of k8[:, :PD] and a float4 of
+// the output. Case 5: one warp, lane l t8's vector l (row l / 4, dims
+// 16 (l % 4) .. + 15). Case 4: sc's float4 t + NT r, r < 2.
+constexpr int P4_VECS = PD * SB / 16 / NT;           // 4 k8 vectors a thread (cases 1, 3)
+constexpr int P4_CONVERT_BLOCKS = PD * PD / 4 / NT;  // 8: an output float4 a thread
+constexpr int P4_TAIL_THREADS = 8 * PD / 16;         // 32: a t8 vector a lane
+
 template <int CASE>
-__global__ void int8_probe_kernel(const int8_t* __restrict__ k8, const float* __restrict__ sc,
-                                  const float* __restrict__ q, const int8_t* __restrict__ t8,
-                                  void* __restrict__ out) {
+__host__ __device__ constexpr int p4_blocks() {
+  return CASE == 0 ? P4_CONVERT_BLOCKS : CASE == 2 ? P4_VECS : 1;
+}
+
+template <int CASE>
+__host__ __device__ constexpr int p4_threads() {
+  return CASE == 5 ? P4_TAIL_THREADS : NT;
+}
+
+// byte j of w as a signed integer, in f32
+__device__ __forceinline__ float i8_at(uint32_t w, int j) {
+  return (float)((int32_t)(w << (24 - 8 * j)) >> 24);
+}
+
+__device__ __forceinline__ float i8_at(const uint4& v, int k) {
+  const uint32_t w = k < 4 ? v.x : k < 8 ? v.y : k < 12 ? v.z : v.w;
+  return i8_at(w, k & 3);
+}
+
+// f32 -> int8 by truncation toward zero, as the plain version converts
+// in-range values; out-of-range values saturate
+__device__ __forceinline__ uint32_t i8_store_byte(float x) {
+  return (uint32_t)(uint8_t)(int8_t)fminf(fmaxf(truncf(x * 100.f), -128.f), 127.f);
+}
+
+// sc[0, 16 c .. 16 c + 15]
+__device__ __forceinline__ void load_sc16(const float* __restrict__ sc, int c, float s[16]) {
+  const float4* s4 = reinterpret_cast<const float4*>(sc) + 4 * c;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 f = s4[m];
+    s[4 * m] = f.x, s[4 * m + 1] = f.y, s[4 * m + 2] = f.z, s[4 * m + 3] = f.w;
+  }
+}
+
+// sum_k s[k] b_k over a vector's 16 int8 values b, one chain
+__device__ __forceinline__ float dot16(const float s[16], const uint4& v) {
+  float a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) a = fmaf(s[k], i8_at(v, k), a);
+  return a;
+}
+
+// the sum of a vector's 16 int8 values, exact in int32
+__device__ __forceinline__ float sum16(const uint4& v) {
+  const int ones = 0x01010101;
+  return (float)__dp4a((int)v.w, ones, __dp4a((int)v.z, ones,
+                       __dp4a((int)v.y, ones, __dp4a((int)v.x, ones, 0))));
+}
+
+template <int CASE>
+__global__ void __launch_bounds__(p4_threads<CASE>())
+    int8_probe_kernel(const int8_t* __restrict__ k8, const float* __restrict__ sc,
+                      const float* __restrict__ q, const int8_t* __restrict__ t8,
+                      void* __restrict__ out) {
+  static_assert(NT == SB && PD == 64 && P4_VECS == 4 && P4_CONVERT_BLOCKS == 8 &&
+                    P4_TAIL_THREADS == 32,
+                "the layout above");
+  constexpr int kBytes = PD * SB / p4_blocks<CASE>();  // the k8 bytes a block reads
   __shared__ float red[NT / 32];
-  const int t = threadIdx.x;
-  for (int step = 0; step < 2; ++step) {  // the probe's grid (2,), one output block
-    if constexpr (CASE == 0) {  // i8_load_convert: k8[:, :PD] * 0.5
-      float* o = static_cast<float*>(out);
-      for (int i = t; i < PD * PD; i += NT) o[i] = (float)k8[(i / PD) * SB + i % PD] * 0.5f;
-    } else if constexpr (CASE == 4) {  // i8_store: (sc * 100) -> int8, truncated
-      int8_t* o = static_cast<int8_t*>(out);
-      for (int i = t; i < 8 * SB; i += NT)
-        o[i] = (int8_t)fminf(fmaxf(truncf(sc[i] * 100.f), -128.f), 127.f);
-    } else if constexpr (CASE == 2) {  // i8_pv: out[d] = sum_s sc[0, s] * k8[d, s]
-      if (t < PD) {
-        float acc = 0.f;
-        for (int s = 0; s < SB; ++s) acc += sc[s] * (float)k8[t * SB + s];
-        static_cast<float*>(out)[t] = acc;
-      }
-    } else {  // cases 1, 3, 5: a dot per slot, summed over the slots, broadcast
-      float qk = 0.f;
-      if constexpr (CASE == 1) {  // i8_dequant_matmul: q[0] . (k8[:, t] * sc[0, t])
-        for (int d = 0; d < PD; ++d) qk += q[d] * ((float)k8[d * SB + t] * sc[t]);
-      } else if constexpr (CASE == 3) {  // i8_matmul_direct: q[0] . k8[:, t]
-        for (int d = 0; d < PD; ++d) qk += q[d] * (float)k8[d * SB + t];
-      } else {  // i8_sd_tail: q[0] . t8[t, :] for the 8 tail rows
-        if (t < 8)
-          for (int d = 0; d < PD; ++d) qk += q[d] * (float)t8[t * PD + d];
-      }
-      const float total = block_sum<NT>(qk, red);
-      if (t < PD) static_cast<float*>(out)[t] = 0.f + total;
+  const int t = threadIdx.x, b = blockIdx.x;
+  const uint4* k4 = reinterpret_cast<const uint4*>(k8 + kBytes * b);  // this block's
+
+  pdl_wait();
+  pdl_trigger();
+
+  if constexpr (CASE == 0) {  // i8_load_convert: k8[:, :PD] * 0.5, a word a thread
+    const uint32_t w = reinterpret_cast<const uint32_t*>(k4)[(t / 16) * (SB / 4) + t % 16];
+    static_cast<float4*>(out)[NT * b + t] =
+        make_float4(i8_at(w, 0) * 0.5f, i8_at(w, 1) * 0.5f, i8_at(w, 2) * 0.5f,
+                    i8_at(w, 3) * 0.5f);
+  } else if constexpr (CASE == 4) {  // i8_store: (sc * 100) -> int8, four a store
+    const float4* s4 = reinterpret_cast<const float4*>(sc);
+    uint32_t* o = static_cast<uint32_t*>(out);
+    float4 x[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) x[r] = s4[t + NT * r];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      o[t + NT * r] = i8_store_byte(x[r].x) | i8_store_byte(x[r].y) << 8 |
+                      i8_store_byte(x[r].z) << 16 | i8_store_byte(x[r].w) << 24;
+  } else if constexpr (CASE == 5) {  // i8_sd_tail: q[0] . t8[row, :], summed over the rows
+    const uint4 v = reinterpret_cast<const uint4*>(t8)[t];
+    float qd[16];
+    load_sc16(q, t % 4, qd);  // q[0, 16 (t % 4) ..]
+    const float total = 0.f + warp_sum(dot16(qd, v));
+    if (t < PD / 4) static_cast<float4*>(out)[t] = make_float4(total, total, total, total);
+  } else if constexpr (CASE == 2) {  // i8_pv: out[d] = sum_s sc[0, s] k8[d, s]
+    float s[16];
+    load_sc16(sc, t % 8, s);
+    float p = dot16(s, k4[t]);
+    // the 8 lanes that hold row d add their partials
+    p += __shfl_xor_sync(0xffffffffu, p, 4);
+    p += __shfl_xor_sync(0xffffffffu, p, 2);
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    if (t % 8 == 0) static_cast<float*>(out)[16 * b + t / 8] = p;
+  } else {  // cases 1, 3: sum_d q[0, d] (row d's partial), summed over the block
+    float s[16];
+    if constexpr (CASE == 1) load_sc16(sc, t % 8, s);
+    float qd[P4_VECS];
+#pragma unroll
+    for (int r = 0; r < P4_VECS; ++r) qd[r] = q[t / 8 + 16 * r];
+    uint4 v[P4_VECS];
+#pragma unroll
+    for (int r = 0; r < P4_VECS; ++r) v[r] = k4[t + NT * r];
+    // dequant_matmul: sum_s sc[0, s] k8[d, s] (q (k sc) reassociated as
+    // q (sum k sc)); matmul_direct: sum_s k8[d, s], exact
+    float a[P4_VECS];
+#pragma unroll
+    for (int r = 0; r < P4_VECS; ++r) {
+      float p;
+      if constexpr (CASE == 1)
+        p = dot16(s, v[r]);
+      else
+        p = sum16(v[r]);
+      a[r] = __fmul_rn(qd[r], p);
     }
-    __syncthreads();
+    const float total = 0.f + block_sum<NT>(__fadd_rn(__fadd_rn(a[0], a[1]),
+                                                      __fadd_rn(a[2], a[3])), red);
+    if (t < PD / 4) static_cast<float4*>(out)[t] = make_float4(total, total, total, total);
   }
 }
 
@@ -328,11 +448,8 @@ __global__ void __launch_bounds__(NT)
 template <int CASE>
 int launch_int8(const void* k8, const void* sc, const void* q, const void* t8, void* out,
                 cudaStream_t st) {
-  int8_probe_kernel<CASE><<<1, NT, 0, st>>>(static_cast<const int8_t*>(k8),
-                                            static_cast<const float*>(sc),
-                                            static_cast<const float*>(q),
-                                            static_cast<const int8_t*>(t8), out);
-  return (int)cudaGetLastError();
+  return launch_pdl(int8_probe_kernel<CASE>, p4_blocks<CASE>(), p4_threads<CASE>(), st,
+                    k8, sc, q, t8, out);
 }
 
 template <int CASE>
@@ -375,7 +492,7 @@ int cbx_cache_column_write(void* cache, const void* new_kv, long long n, int S, 
 }
 
 // P4. which: 0 load_convert, 1 dequant_matmul, 2 pv, 3 matmul_direct,
-// 4 store, 5 sd_tail.
+// 4 store, 5 sd_tail. All four inputs 16-byte aligned.
 int cbx_int8_probe(int which, const void* k8, const void* sc, const void* q, const void* t8,
                    void* out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -13,7 +13,9 @@ beside its plain PyTorch version. ``probes/`` drives them.
   of one Pallas grid cell) all launch one kernel, one thread a line of
   the column;
 - P4 ``int8_probe`` (``scripts/probe_int8_cache.py``): the six int8
-  fragments ``INT8_CASES``;
+  fragments ``INT8_CASES``. The probe's two grid steps write the same
+  block with the same values, so the kernel, like the plain version,
+  computes it once;
 - P5 ``softmax_probe`` (``scripts/probe_ops.py``): the nine online-softmax
   fragments ``SOFTMAX_CASES``, over the probe's two grid steps and one
   persistent (1, D) fp32 scratch whose initial value is an argument (case H
@@ -239,7 +241,8 @@ def cache_block_rmw(cache, new, pos: int, b_blk: int, s_blk: int, fold_kv: bool)
 
 def int8_probe(case: str, k8, sc, q, t8):
     """P4: one of ``INT8_CASES`` on the probe's inputs (see
-    ``int8_probe_plain``)."""
+    ``int8_probe_plain``). The kernel reads every input in 16-byte vectors,
+    so all four must be 16-byte aligned."""
     _build.refuse_autograd("int8_probe", sc, q)
     if k8.device.type == "cpu":
         return int8_probe_plain(case, k8, sc, q, t8)
@@ -248,8 +251,9 @@ def int8_probe(case: str, k8, sc, q, t8):
                                   ("sc", sc, (8, SB), torch.float32),
                                   ("q", q, (8, PD), torch.float32),
                                   ("t8", t8, (8, PD), torch.int8)):
-        require(tuple(x.shape) == shape and x.dtype == dtype and x.is_contiguous(),
-                f"{name} must be a contiguous {shape} {dtype}")
+        require(tuple(x.shape) == shape and x.dtype == dtype and x.is_contiguous()
+                and x.data_ptr() % 16 == 0, f"{name} must be a contiguous, 16-byte aligned "
+                f"{shape} {dtype}")
     require(case in INT8_CASES, f"unknown P4 case {case!r}")
     shape, dtype = {"i8_load_convert": ((PD, PD), torch.float32),
                     "i8_store": ((8, SB), torch.int8)}.get(case, ((1, PD), torch.float32))

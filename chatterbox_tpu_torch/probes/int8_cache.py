@@ -7,7 +7,14 @@ The six cases (``ops.probes.INT8_CASES``) are the operations an int8 cache
 read needs (load + convert, dequantize and q.K, p.V, an int8 x f32 dot, the
 f32 -> int8 store, the (8, D) tail . q), on the probe's inputs: K8 (64, 128)
 int8, SC (8, 128) f32, Q (8, 64) f32 and KSD8 (8, 64) int8 from
-``numpy.random.default_rng(0)`` in the script's order.
+``numpy.random.default_rng(0)`` in the script's order; ``wide_inputs`` is
+a second set over the int8 range and signed scales.
+
+On the card each case is one launch with programmatic dependent launch,
+its inputs read in coalesced 16-byte vectors, and the probe's two grid
+steps (which write the same block) computed once: what bounds it is the
+launch, one round trip to L2 and, for dequant_matmul, the work of the one
+SM that sums all of K8 (``csrc/probes.cu``).
 """
 
 import numpy as np
@@ -28,6 +35,18 @@ def inputs(device):
     sc = rng.uniform(0.01, 0.02, (8, SB)).astype(np.float32)
     q = rng.standard_normal((8, PD)).astype(np.float32)
     t8 = rng.integers(-127, 128, (8, PD)).astype(np.int8)
+    return tuple(torch.from_numpy(a).to(device) for a in (k8, sc, q, t8))
+
+
+def wide_inputs(device):
+    """A second (K8, SC, Q, KSD8), from ``numpy.random.default_rng(7)``: K8
+    and KSD8 over the whole int8 range and SC signed, |SC * 100| < 127, so
+    that the store truncates toward zero on both signs and stays in range."""
+    rng = np.random.default_rng(7)
+    k8 = rng.integers(-128, 128, (PD, SB)).astype(np.int8)
+    sc = rng.uniform(-1.26, 1.26, (8, SB)).astype(np.float32)
+    q = rng.standard_normal((8, PD)).astype(np.float32)
+    t8 = rng.integers(-128, 128, (8, PD)).astype(np.int8)
     return tuple(torch.from_numpy(a).to(device) for a in (k8, sc, q, t8))
 
 

@@ -23,10 +23,11 @@ Phases (any failure exits non-zero before the last line):
      P1-P5 at the probes' own shapes, each against its plain version and
      timed the same way (``probe_kernel_phase``; the P2/P3 column writes
      also once with the L2 flushed, with K2 and ``index_copy_`` beside them;
-     P5 also from a random scratch; the launch floor, an empty kernel timed
-     the same way, beside P1, P4 and P5, and the CUDA runtime and driver
-     versions on P1's line, since P1 and P5 launch with programmatic
-     dependent launch);
+     P4 also on a second seeded input set over the whole int8 range, its
+     convert beside ``k8[:, :64] * 0.5``; P5 also from a random scratch; the
+     launch floor, an empty kernel timed the same way, beside P1, P4 and P5,
+     and the CUDA runtime and driver versions on P1's line, since P1, P4 and
+     P5 launch with programmatic dependent launch);
   4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
      launch counters set to 0 just before and read just after: P1's four
      chains of ``P1_LAYERS`` (10) layers at full width, eager and as a CUDA graph, with bf16
@@ -846,26 +847,46 @@ def probe_kernel_phase():
                 "i8_store": (4 * 8 * sb, 8 * sb), "i8_sd_tail": (8 * pd + 4 * pd, 4 * pd)}
     flops = {"i8_load_convert": pd * pd, "i8_dequant_matmul": 3 * pd * sb, "i8_pv": 2 * pd * sb,
              "i8_matmul_direct": 2 * pd * sb, "i8_store": 8 * sb, "i8_sd_tail": 2 * 8 * pd}
+    # each case held on the probe's inputs and on a second seeded set over
+    # the whole int8 range with signed scales; timed on the probe's inputs
+    wide = int8_cache.wide_inputs(dev)
     variants = {}
     for case in pk.INT8_CASES:
-        got, want = pk.int8_probe(case, *ins), pk.int8_probe_plain(case, *ins)
-        lim, tol = int8_cache.limit(case, ins)
-        if lim is None:
-            err, tol, share = check_kernel(f"int8_probe {case}", got, want, exact=True)
-        else:
-            torch.cuda.synchronize()
-            err, share = float((got - want).abs().max()), _share(got, want, lim)
-            print(f"kernel int8_probe {case}: max_abs_err={err:.3e}, worst element at "
-                  f"{share:.3f} of its limit |err| <= {tol}", flush=True)
-            if not share <= 1.0:
-                fail(f"int8_probe {case}: an element exceeds its limit ({tol}) by {share:.3f}x")
-        variants[case] = {
+        errs, shares = [], []
+        for label, xs in (("probe", ins), ("wide", wide)):
+            got, want = pk.int8_probe(case, *xs), pk.int8_probe_plain(case, *xs)
+            lim, tol = int8_cache.limit(case, xs)
+            if lim is None:
+                err, tol, share = check_kernel(f"int8_probe {case} ({label} inputs)", got, want,
+                                               exact=True)
+            else:
+                torch.cuda.synchronize()
+                err, share = float((got - want).abs().max()), _share(got, want, lim)
+                print(f"kernel int8_probe {case} ({label} inputs): max_abs_err={err:.3e}, worst "
+                      f"element at {share:.3f} of its limit |err| <= {tol}", flush=True)
+                if not share <= 1.0:
+                    fail(f"int8_probe {case} ({label} inputs): an element exceeds its limit "
+                         f"({tol}) by {share:.3f}x")
+            errs.append(err)
+            shares.append(share)
+        r = variants[case] = {
             "ms": timed(lambda c=case: pk.int8_probe(c, *ins), 200),
             "plain_ms": timed(lambda c=case: pk.int8_probe_plain(c, *ins), 200),
             "bound_ms": bound(sum(io_bytes[case]), flops[case], PEAK_FP32_FLOPS)[0],
-            "max_abs_err": err, "tol": tol, "err_share_of_tol": share}
+            "max_abs_err": max(errs), "tol": tol, "err_share_of_tol": max(shares),
+            "max_abs_err_wide_inputs": errs[1]}
+        if case == "i8_load_convert":  # the one case that one PyTorch call computes
+            r["library_err"] = library_err(f"int8_probe {case}", ins[0][:, :pd] * 0.5,
+                                           pk.int8_probe_plain(case, *ins))
+            r["library_ms"] = timed(lambda: ins[0][:, :pd] * 0.5, 200)
+            r["library_note"] = "k8[:, :64] * 0.5"
+        lib = f", k8[:, :64] * 0.5 {r['library_ms']:.6f} ms" if "library_ms" in r else ""
+        print(f"kernel int8_probe {case}: max_abs_err {max(errs):.3e} ({max(shares):.3f} of its "
+              f"limit, {tol}); graphed {r['ms']:.6f} ms{lib}; launch floor "
+              f"{floor_ms:.6f} ms", flush=True)
     rows["P4"] = _case_row("int8_probe", "i8_dequant_matmul", variants, io_bytes, flops,
-                           floor_ms)
+                           floor_ms, "only i8_load_convert has one call, k8[:, :64] * 0.5: "
+                           "its case's library_ms")
 
     # ---- P5: the nine online-softmax fragments, held from a zero scratch
     # and from a seeded random one on the scale of H's largest score (the
@@ -909,15 +930,17 @@ def probe_kernel_phase():
     return rows
 
 
-def _case_row(name, headline, variants, io_bytes, flops, floor_ms):
+def _case_row(name, headline, variants, io_bytes, flops, floor_ms,
+              library_note="no single PyTorch call computes a case"):
     """A P4/P5 row: the headline case's numbers, every case under it, and
-    the launch floor."""
+    the launch floor. A case that one PyTorch call computes carries that
+    call's time in its own line."""
     h = variants[headline]
     return dict(name=name, headline_variant=headline,
                 err=max(c["max_abs_err"] for c in variants.values()),
                 tol=h["tol"], share=max(c["err_share_of_tol"] for c in variants.values()),
                 library_err=None, ms=h["ms"], plain_ms=h["plain_ms"], library_ms=None,
-                library_note="no single PyTorch call computes a case",
+                library_note=library_note,
                 bound=bound(sum(io_bytes[headline]), flops[headline], PEAK_FP32_FLOPS),
                 variants=variants, extra={"floor_ms": floor_ms})
 

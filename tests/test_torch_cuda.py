@@ -518,6 +518,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     cache8_32 = torch.zeros((1, 2, 2, 2, 128, 32), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         fd.kv_cache_quantize_write(cache8_32, scales, _randn(cuda, 1, 2, 2, 2, 8, 32, seed=17), 16)
+    # P4 reads k8, sc, q and t8 in 16-byte vectors: a contiguous k8 view at an
+    # offset of one element is refused
+    ins = int8_cache.inputs(cuda)
+    odd8 = torch.zeros(64 * 128 + 1, dtype=torch.int8, device=cuda)[1:].view(64, 128)
+    odd8.copy_(ins[0])
+    assert odd8.is_contiguous() and odd8.data_ptr() % 16 != 0
+    for case in probes.INT8_CASES:
+        with pytest.raises(ValueError):
+            probes.int8_probe(case, odd8, *ins[1:])
 
 
 @pytest.mark.cuda
@@ -589,14 +598,16 @@ def test_cache_writes_match_plain(cuda, key):
 @pytest.mark.cuda
 def test_int8_and_softmax_probes_match_plain(cuda):
     """P4 (the store and the convert exact, the sums within (n + 2) 2^-24
-    sum|terms|) and P5 (within the limit of ``probes.ops.limit``) on the
-    probes' inputs."""
-    ins = int8_cache.inputs(cuda)
-    for case in probes.INT8_CASES:
-        got, want = probes.int8_probe(case, *ins), probes.int8_probe_plain(case, *ins)
-        torch.cuda.synchronize()
-        lim, _ = int8_cache.limit(case, ins)
-        assert torch.equal(got, want) if lim is None else bool(((got - want).abs() <= lim).all())
+    sum|terms|) on the probe's inputs and on ``int8_cache.wide_inputs`` (the
+    whole int8 range, signed scales: the store truncates on both signs);
+    P5 (within the limit of ``probes.ops.limit``) on the probes' inputs."""
+    for ins in (int8_cache.inputs(cuda), int8_cache.wide_inputs(cuda)):
+        for case in probes.INT8_CASES:
+            got, want = probes.int8_probe(case, *ins), probes.int8_probe_plain(case, *ins)
+            torch.cuda.synchronize()
+            lim, _ = int8_cache.limit(case, ins)
+            assert torch.equal(got, want) if lim is None else \
+                bool(((got - want).abs() <= lim).all()), case
     x, v = ops.inputs(cuda)
     scr0 = torch.zeros((1, 64), device=cuda)
     for case in probes.SOFTMAX_CASES:
@@ -605,6 +616,39 @@ def test_int8_and_softmax_probes_match_plain(cuda):
         torch.cuda.synchronize()
         lim, _ = ops.limit(case, x, v, scr0)
         assert bool(((got - want).abs() <= lim).all()), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", probes.INT8_CASES)
+def test_int8_probe_graph_after_writes(cuda, case):
+    """P4 launches with programmatic dependent launch: captured in a CUDA
+    graph after a memcpy and a kernel that write k8 and sc, then replayed on
+    new values, it must see both writes (the convert and the store bit for
+    bit, the sums within ``int8_cache.limit``); its counter moves by one a
+    call, eager and in the capture."""
+    ins = int8_cache.inputs(cuda)
+    k8, sc, q, t8 = (x.clone() for x in ins)
+    before = probes.int8_probe.launches
+    probes.int8_probe(case, k8, sc, q, t8)
+    assert probes.int8_probe.launches == before + 1
+    k8_src, sc_src = ins[0].clone(), ins[1].clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        k8.copy_(k8_src)
+        sc.copy_(sc_src)
+        k8.neg_()
+        sc.mul_(-2.0)
+        got = probes.int8_probe(case, k8, sc, q, t8)
+    assert probes.int8_probe.launches == before + 2
+    for step in range(3):
+        k8_src.copy_(torch.roll(ins[0], step, 1))
+        sc_src.copy_(torch.roll(ins[1], step, 1))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = probes.int8_probe_plain(case, -k8_src, sc_src * -2.0, q, t8)
+        lim, _ = int8_cache.limit(case, (-k8_src, sc_src * -2.0, q, t8))
+        assert torch.equal(got, want) if lim is None else \
+            bool(((got - want).abs() <= lim).all()), (case, step)
 
 
 @pytest.mark.cuda

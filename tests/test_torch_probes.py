@@ -52,6 +52,23 @@ def _fixed(shape):
 
 # ---------------------------------------------------------------- P4
 
+def _fma(a, b, c):
+    """fp32 a * b + c rounded once (the product is exact in fp64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _block_sum(vals):
+    """common.cuh's block_sum over 128 fp32 values: each warp's xor
+    butterfly, then 0 + warp 0 + warp 1 + warp 2 + warp 3."""
+    w = vals.reshape(4, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w + w[:, torch.arange(32) ^ o]
+    r = torch.zeros((), dtype=torch.float32)
+    for k in range(4):
+        r = r + w[k, 0]
+    return r
+
+
 _INT8_FNS = {"i8_load_convert": "case_load_convert", "i8_dequant_matmul": "case_dequant_matmul",
              "i8_pv": "case_pv", "i8_matmul_direct": "case_matmul_direct",
              "i8_store": "case_store", "i8_sd_tail": "case_sd_tail"}
@@ -83,6 +100,87 @@ def test_int8_probe_plain_matches_pallas(case):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     else:
         assert bool(((got - t(np.asarray(want))).abs() <= lim).all())
+
+
+def _int8_kernel_walk(case, k8, sc, q, t8):
+    """P4's kernel (``csrc/probes.cu`` ``int8_probe_kernel``) in its own order
+    and layout, in fp32 on the CPU. K8 as 512 16-byte vectors, vector g =
+    row g // 8, slots 16 (g % 8) + k, its 16 values summed in one chain from
+    0 (pv and dequant_matmul: sc[0, s] k; matmul_direct: the exact integer
+    sum). pv: vector g on thread g of four blocks, a row's 8 lanes added by a
+    shuffle-xor tree (4, 2, 1). dequant_matmul and matmul_direct: thread t
+    of one block holds vectors t + 128 r, multiplies each row's sum by
+    q[0, row], adds its four pairwise, then ``_block_sum``. sd_tail: lane l
+    of one warp holds KSD8's vector l (row l // 4, dims 16 (l % 4) + k), then
+    a warp's xor butterfly. The convert (a 4-byte word a thread, 8 blocks of
+    128) and the store (sc's float4 t + 128 r) follow the same words."""
+    tt = torch.arange(128)
+    if case == "i8_load_convert":  # thread (b, t): row 8 b + t // 16, word t % 16
+        g = torch.arange(8 * 128)
+        row, word = g // 16, g % 16
+        src = (row * 128 + 4 * word)[:, None] + torch.arange(4)
+        out = torch.empty(64 * 64)
+        out[(4 * g)[:, None] + torch.arange(4)] = k8.reshape(-1)[src].float() * 0.5
+        return out.reshape(64, 64)
+    if case == "i8_store":  # float4 t + 128 r of sc -> four int8
+        out = torch.empty(8 * 128, dtype=torch.int8)
+        s4 = sc.reshape(256, 4)
+        for r in range(2):
+            x = torch.trunc(s4[tt + 128 * r] * 100.0).clamp(-128, 127)
+            out[((tt + 128 * r) * 4)[:, None] + torch.arange(4)] = x.to(torch.int8)
+        return out.reshape(8, 128)
+
+    def chain(w, vals):  # sum_k w[:, k] vals[:, k], one fp32 chain from 0
+        acc = torch.zeros(vals.shape[0])
+        for k in range(16):
+            acc = _fma(w[:, k], vals[:, k], acc)
+        return acc
+
+    if case == "i8_sd_tail":
+        lanes = torch.arange(32)
+        qd = q[0][(16 * (lanes % 4))[:, None] + torch.arange(16)]
+        acc = chain(qd, t8.reshape(32, 16).float())
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[lanes ^ o]
+        return (0.0 + acc[0]).expand(1, 64)
+    g = torch.arange(512)
+    kv = k8.reshape(512, 16).float()  # vector g: row g // 8, slots 16 (g % 8) + k
+    s = sc[0][(16 * (g % 8))[:, None] + torch.arange(16)]
+    if case == "i8_matmul_direct":
+        rows_sum = k8.reshape(512, 16).int().sum(1).float()  # exact
+    else:
+        rows_sum = chain(s, kv)
+    if case == "i8_pv":
+        p = rows_sum
+        for o in (4, 2, 1):
+            p = p + p[g ^ o]
+        return p[g % 8 == 0][None]
+    a = (q[0][g // 8] * rows_sum).reshape(4, 128)  # (r, thread): vector t + 128 r
+    return (0.0 + _block_sum((a[0] + a[1]) + (a[2] + a[3]))).expand(1, 64)
+
+
+@pytest.mark.parametrize("which", ["probe", "wide"])
+@pytest.mark.parametrize("case", probes.INT8_CASES)
+def test_int8_kernel_walk_within_limit(case, which):
+    """The card's P4 kernel sums in another order than the plain version:
+    its walk, emulated in fp32, stays within ``int8_cache.limit`` of the plain
+    version (the convert and the store bit for bit) on the probe's inputs and
+    on ``wide_inputs``, whose K8 and KSD8 span -128..127 and whose signed SC
+    makes the store truncate toward zero on both signs."""
+    ins = int8_cache.inputs(CPU) if which == "probe" else int8_cache.wide_inputs(CPU)
+    if which == "wide":
+        k8, sc = ins[0], ins[1]
+        assert int(k8.min()) == -128 and int(k8.max()) == 127 and int(ins[3].min()) == -128
+        x = sc * 100.0
+        assert bool((x.abs() < 127).all()) and bool(((x < 0) & (x != x.trunc())).any())
+    got = _int8_kernel_walk(case, *ins)
+    want = probes.int8_probe_plain(case, *ins)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    lim, _ = int8_cache.limit(case, ins)
+    if lim is None:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= lim).all())
 
 
 # ---------------------------------------------------------------- P5
@@ -129,23 +227,6 @@ def test_softmax_probe_h_from_a_zero_scratch_is_finite():
     half[0, :32] = float("nan")
     out = probes.softmax_probe("H_dotgen_transpose_rhs", x, v, half)
     assert bool(torch.isnan(out[0, :32]).all()) and bool(torch.isfinite(out[0, 32:]).all())
-
-
-def _fma(a, b, c):
-    """fp32 a * b + c rounded once (the product is exact in fp64)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
-def _block_sum(vals):
-    """common.cuh's block_sum over 128 fp32 values: each warp's xor
-    butterfly, then 0 + warp 0 + warp 1 + warp 2 + warp 3."""
-    w = vals.reshape(4, 32)
-    for o in (16, 8, 4, 2, 1):
-        w = w + w[:, torch.arange(32) ^ o]
-    r = torch.zeros((), dtype=torch.float32)
-    for k in range(4):
-        r = r + w[k, 0]
-    return r
 
 
 def _softmax_kernel_walk(case, x, v, scr0):
