@@ -7,13 +7,14 @@ writes are the JAX package's native format and ``weights.load_native``
 reads either package's. Leaves are numpy arrays or torch tensors in the
 JAX package's layouts; bfloat16 tensors are written as their 16-bit
 patterns tagged BF16, which the JAX package's reader reads to the same
-values.
+values. ``load_params`` reads such a file back as a tree.
 """
 
 import numpy as np
 import torch
 
-from .safetensors_io import save_safetensors
+from ..device import resolve_device
+from .safetensors_io import load_safetensors, save_safetensors
 
 
 def flatten(tree, prefix=""):
@@ -58,11 +59,11 @@ def unflatten(flat):
     return convert(root)
 
 
-def save_params(tree, path, metadata=None):
+def save_params(params, path, metadata=None):
     """Write a parameter tree (JAX-package layouts) as a native safetensors
     file; torch tensors are read back to the host, bf16 ones bit for bit."""
     arrays, bf16 = {}, set()
-    for name, leaf in flatten(tree).items():
+    for name, leaf in flatten(params).items():
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach().cpu()
             if leaf.dtype == torch.bfloat16:
@@ -72,3 +73,23 @@ def save_params(tree, path, metadata=None):
                 leaf = leaf.numpy()
         arrays[name] = np.asarray(leaf)
     save_safetensors(arrays, path, metadata=metadata, bf16=bf16)
+
+
+def load_params(path, device_put=True, *, device=None):
+    """A native safetensors file written by either package -> its tree of
+    dicts and lists in the JAX package's layouts, ``@none`` leaves as None.
+    With ``device_put`` the leaves are tensors on ``device`` (the card
+    unless the caller names another), BF16 ones as ``torch.bfloat16`` bit
+    for bit; without it they are numpy arrays, BF16 ones widened to
+    float32, as the JAX package's ``load_params(device_put=False)`` gives
+    them."""
+    arrays, bf16 = load_safetensors(path)
+    if not device_put:
+        return unflatten({k: (a.astype(np.uint32) << 16).view(np.float32) if k in bf16 else a
+                          for k, a in arrays.items()})
+    dev = resolve_device(device)
+    flat = {}
+    for k, a in arrays.items():
+        t = torch.from_numpy(a.copy())
+        flat[k] = (t.view(torch.bfloat16) if k in bf16 else t).to(dev)
+    return unflatten(flat)

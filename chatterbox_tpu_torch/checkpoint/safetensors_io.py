@@ -65,7 +65,7 @@ def load_safetensors(path):
     return out, bf16
 
 
-def save_safetensors(tensors, path, metadata=None, bf16=()):
+def save_safetensors(tensors, path, metadata=None, *, bf16=()):
     """Write dict[name, np.ndarray] to a .safetensors file; the uint16
     arrays named in ``bf16`` are bfloat16 bit patterns, tagged BF16. Each
     tensor is written from its own buffer, not gathered into one."""

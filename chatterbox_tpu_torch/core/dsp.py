@@ -16,10 +16,11 @@ import torch
 import torch.nn.functional as F
 
 
-def hann_window(n: int) -> np.ndarray:
-    """The periodic window: ``torch.hann_window`` /
-    ``scipy.get_window('hann', n, fftbins=True)``."""
-    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+def hann_window(n: int, periodic: bool = True) -> np.ndarray:
+    """``torch.hann_window`` / ``scipy.get_window('hann', n, fftbins=True)``;
+    ``periodic=False`` is the symmetric window (denominator n - 1)."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / (n if periodic else n - 1))
+            ).astype(np.float32)
 
 
 @lru_cache(maxsize=None)
@@ -78,13 +79,16 @@ def _reflect_pad(x, pad: int):
 
 
 def stft(x, n_fft: int, hop_length: int, window, center: bool = True,
-         dtype=torch.float32):
+         pad_mode: str = "reflect", *, dtype=torch.float32):
     """STFT of (B, T) -> (real, imag), each (B, frames, n_fft//2+1), in
     ``dtype``.
 
     Matches ``torch.stft(..., win_length=n_fft, normalized=False,
-    onesided=True)``; ``center=True`` reflect-pads by n_fft//2."""
+    onesided=True)``; ``center=True`` reflect-pads by n_fft//2, the only
+    ``pad_mode`` there is (another raises ValueError when centring)."""
     assert x.ndim == 2, f"expected (B, T), got {tuple(x.shape)}"
+    if center and pad_mode != "reflect":
+        raise ValueError(f"stft pads only with 'reflect', not {pad_mode!r}")
     x = x.to(dtype)
     xc = (_reflect_pad(x, n_fft // 2) if center else x)[:, None]
     kern = torch.from_numpy(_dft_kernels(n_fft, _win_key(window))).to(x.device, dtype)
@@ -93,9 +97,9 @@ def stft(x, n_fft: int, hop_length: int, window, center: bool = True,
     return out[..., :n_freq], out[..., n_freq:]
 
 
-def istft(real, imag, n_fft: int, hop_length: int, window):
-    """Inverse STFT of (B, frames, F) -> (B, T). Matches ``torch.istft``
-    with ``center=True``."""
+def istft(real, imag, n_fft: int, hop_length: int, window, center: bool = True):
+    """Inverse STFT of (B, frames, F) -> (B, T). Matches ``torch.istft``;
+    ``center=False`` keeps the n_fft//2 samples at each end."""
     b, frames, n_freq = real.shape
     assert n_freq == n_fft // 2 + 1
     key = _win_key(window)
@@ -108,6 +112,8 @@ def istft(real, imag, n_fft: int, hop_length: int, window):
     y = F.conv_transpose1d(frames_td.transpose(1, 2), eye, stride=hop_length)[:, 0]
     env = torch.from_numpy(_ola_envelope(n_fft, hop_length, frames, key)).to(real.device)
     y = y / env
+    if not center:
+        return y
     half = n_fft // 2
     return y[:, half : y.shape[1] - half]
 

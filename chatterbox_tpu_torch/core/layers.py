@@ -67,9 +67,9 @@ def conv1d(p, x, stride=1, padding=0, dilation=1, groups=1):
     return y.transpose(1, 2)
 
 
-def causal_conv1d(p, x):
+def causal_conv1d(p, x, dilation=1):
     """Left-padded conv, matching reference decoder.py:71-97 CausalConv1d."""
-    return conv1d(p, x, padding=(p["w"].shape[-1] - 1, 0))
+    return conv1d(p, x, padding=((p["w"].shape[-1] - 1) * dilation, 0), dilation=dilation)
 
 
 def conv2d(p, x, stride=(1, 1), padding=(0, 0)):
@@ -142,17 +142,19 @@ def leaky_relu(x, negative_slope=0.1):
 # ---------------------------------------------------------------------------
 
 
-def sdpa(q, k, v, bias=None):
+def sdpa(q, k, v, mask=None, scale=None):
     """Scaled dot-product attention, q,k,v (B, H, T, D) with an optional
     mask broadcast to (B, H, T, S): an additive fp32 bias, or a bool mask
     (True = attend) that sets the other logits to the fp32 minimum. fp32
-    logits and softmax with scale 1/sqrt(D), probs cast to v's dtype before
-    the value product."""
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
-    if bias is not None and bias.dtype == torch.bool:
-        logits = logits.masked_fill(~bias, torch.finfo(torch.float32).min)
-    elif bias is not None:
-        logits = logits + bias
+    logits and softmax with ``scale`` (None: 1/sqrt(D)), probs cast to v's
+    dtype before the value product."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None and mask.dtype == torch.bool:
+        logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    elif mask is not None:
+        logits = logits + mask
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 

@@ -58,6 +58,14 @@ def espnet_rel_pe(d_model: int, t: int) -> np.ndarray:
     return pe[None, center - t + 1 : center + t].astype(np.float32)
 
 
+def rel_pos_encoding(x, d_model: int):
+    """x (B, T, C) -> (x * sqrt(d_model), pos_emb (1, 2T-1, d_model) fp32 on
+    x's device): EspnetRelPositionalEncoding. The encoder applies the scale
+    alone (``_embed``); the attention builds the table it needs itself."""
+    pos = torch.from_numpy(espnet_rel_pe(d_model, x.shape[1])).to(x.device)
+    return x * float(np.sqrt(d_model)), pos
+
+
 def _rel_shift_bd(bd):
     """(B, H, T, 2T-1) -> (B, H, T, T): out[t, s] = bd[t, T-1 - t + s], by
     the reference's pad/reshape trick (conformer.py:64-73)."""
@@ -123,11 +131,17 @@ def relpos_operands(p, x, n_heads):
 
 
 def rel_pos_attention(p, x, n_heads, key_mask=None):
-    """RelPositionMultiHeadedAttention (self-attention), through K4 (the
-    dense ``rel_pos_attention_dense`` with ``FLASH_ATTENTION`` off). Pad
-    keys are biased with -1e9 and pad-query rows are zeroed afterwards."""
+    """RelPositionMultiHeadedAttention (self-attention), through K4
+    (``rel_pos_attention_flash``; the dense ``rel_pos_attention_dense`` with
+    ``FLASH_ATTENTION`` off)."""
     if not FLASH_ATTENTION:
         return rel_pos_attention_dense(p, x, n_heads, key_mask)
+    return rel_pos_attention_flash(p, x, n_heads, key_mask)
+
+
+def rel_pos_attention_flash(p, x, n_heads, key_mask=None):
+    """The rel-pos attention as the exact decomposition through K4. Pad keys
+    are biased with -1e9 and pad-query rows are zeroed afterwards."""
     b, t, c = x.shape
     d_k = c // n_heads
     q_u, k, v, qhat, shat = relpos_operands(p, x, n_heads)

@@ -113,7 +113,7 @@ def _resblock(p, x, kernel, dilations, mask=None):
     return x
 
 
-def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None, compute_dtype=None):
+def hift_decode(p, cfg: HiFTConfig, mel, source, compute_dtype=None, n_valid=None):
     """(B, T, 80) mel + (B, T*480) merged source -> (B, T*480) waveform.
 
     ``compute_dtype=torch.bfloat16`` runs the conv trunk (conv_pre, the
@@ -192,8 +192,8 @@ def hift_decode(p, cfg: HiFTConfig, mel, source, n_valid=None, compute_dtype=Non
 
 
 def hift_generate(p, cfg: HiFTConfig, mel, phase_noise=None, additive_noise=None,
-                  generator=None, n_valid=None, f0_cum_init=None, return_f0=False,
-                  compute_dtype=None):
+                  f0_cum_init=None, return_f0=False, compute_dtype=None, n_valid=None, *,
+                  generator=None):
     """(B, T, 80) fp32 mel -> ((B, T*480) wav, (B, T*480) source), and the
     (B, T) f0 in Hz as a third value with ``return_f0``.
 

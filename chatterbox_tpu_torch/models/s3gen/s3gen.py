@@ -113,7 +113,7 @@ def trim_fade(n: int, device) -> torch.Tensor:
 
 
 def s3gen_wav(p, cfg: S3GenConfig, speech_tokens, token_lens, ref: RefDict, noise_mel,
-              phase_noise=None, additive_noise=None, generator=None, hift_dtype=None):
+              phase_noise=None, additive_noise=None, hift_dtype=None, *, generator=None):
     """Tokens -> (wav (B, T_wav), wav_lens (B,), source).
 
     noise_mel (B, >= 2*(P+T), 80) is the CFM noise; the vocoder noise is

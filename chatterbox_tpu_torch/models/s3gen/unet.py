@@ -85,7 +85,7 @@ def _attn(p, x, n_heads, key_bias=None, use_flash=None):
     if use_flash:
         out = _heads(q, k, v, key_bias)
     else:
-        out = sdpa(q, k, v, bias=None if key_bias is None else key_bias.float()[:, None, None, :])
+        out = sdpa(q, k, v, mask=None if key_bias is None else key_bias.float()[:, None, None, :])
     return linear(p["to_out"], merge_heads(out))
 
 
@@ -121,7 +121,7 @@ def _transformer_block(p, x, cfg: UNetConfig, key_bias=None, use_flash=None):
     return x + linear(p["ff_out"], F.gelu(linear(p["ff_in"], y)))
 
 
-def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None, use_flash=None):
+def unet_forward(p, cfg: UNetConfig, x, mu, spks, cond, t, mask=None, *, use_flash=None):
     """Velocity estimate. x, mu, cond (B, T, 80); spks (B, 80); t (B,) in
     [0, 1]; mask (B, T) bool or None. Returns (B, T, 80). ``use_flash``
     picks every block's attention (see ``_attn``)."""

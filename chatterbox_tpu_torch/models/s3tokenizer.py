@@ -15,6 +15,7 @@ Two things decide every token:
     package. On the card run it with TF32 off (``device.full_fp32``).
 """
 
+import logging
 import re
 from dataclasses import dataclass
 
@@ -146,14 +147,30 @@ def _fsq_key(sd, prefix):
                 None)
 
 
-def s3tok_config_from_sd(sd, prefix: str) -> S3TokenizerConfig:
-    """The architecture of the tokenizer under ``prefix`` from the
-    checkpoint's tensor shapes, as the JAX package's
-    ``s3tok_config_from_sd``: n_mels and n_state from conv1, n_layer by
-    counting blocks, the FSMN kernel and the FSQ width from their weights,
-    n_audio_ctx from the positional buffer when shipped. The head count,
-    which shapes cannot tell, is n_state // 64."""
-    n_state, n_mels, _ = tuple(sd[prefix + "encoder.conv1.weight"].shape)
+_ENCODER_ANCHOR = "encoder.conv1.weight"
+
+
+def detect_s3tok_prefix(sd) -> str:
+    """The prefix of the tokenizer's subtree in a state dict, found by its
+    one ``encoder.conv1.weight`` key: '' for a bare S3TokenizerV2 dict,
+    'tokenizer.' inside the s3gen checkpoint. No such key, or more than
+    one, raises KeyError."""
+    hits = [k[: -len(_ENCODER_ANCHOR)] for k in sd if k.endswith(_ENCODER_ANCHOR)]
+    if len(hits) != 1:
+        raise KeyError(f"expected exactly one '*{_ENCODER_ANCHOR}' key, found {len(hits)}: "
+                       f"{hits}")
+    return hits[0]
+
+
+def s3tok_config_from_sd(sd, prefix=None, n_head=None) -> S3TokenizerConfig:
+    """The architecture of the tokenizer under ``prefix`` (None: found by
+    ``detect_s3tok_prefix``) from the checkpoint's tensor shapes, as the JAX
+    package's ``s3tok_config_from_sd``: n_mels and n_state from conv1,
+    n_layer by counting blocks, the FSMN kernel and the FSQ width from their
+    weights, n_audio_ctx from the positional buffer when shipped. The head
+    count, which shapes cannot tell, is ``n_head`` or n_state // 64."""
+    prefix = detect_s3tok_prefix(sd) if prefix is None else prefix
+    n_state, n_mels, _ = tuple(sd[prefix + _ENCODER_ANCHOR].shape)
     block = re.compile(re.escape(prefix) + r"encoder\.blocks\.(\d+)\.")
     layer_ids = {int(m.group(1)) for k in sd if (m := block.match(k))}
     if not layer_ids or layer_ids != set(range(max(layer_ids) + 1)):
@@ -166,19 +183,26 @@ def s3tok_config_from_sd(sd, prefix: str) -> S3TokenizerConfig:
         n_mels=n_mels,
         n_audio_ctx=tuple(sd[pos_key].shape)[0] if pos_key in sd else S3TokenizerConfig.n_audio_ctx,
         n_state=n_state,
-        n_head=max(n_state // 64, 1),
+        n_head=n_head or max(n_state // 64, 1),
         n_layer=max(layer_ids) + 1,
         fsq_dim=tuple(sd[fsq_key].shape)[0],
         fsmn_kernel=tuple(sd[prefix + "encoder.blocks.0.attn.fsmn_block.weight"].shape)[-1],
     )
 
 
-def convert_s3tokenizer(sd, cfg: S3TokenizerConfig, prefix: str):
+def convert_s3tokenizer(sd, cfg: S3TokenizerConfig = None, prefix=None, strict: bool = True):
     """The upstream S3TokenizerV2 checkpoint's subtree under ``prefix`` ->
-    the JAX package's tree (numpy), as its ``convert_s3tokenizer`` with an
-    explicit config: a missing key raises KeyError naming it, a key under
-    the prefix left unread raises ValueError, and a shipped positional
-    buffer must equal the sinusoids."""
+    the JAX package's tree (numpy), as its ``convert_s3tokenizer``.
+    ``prefix=None`` finds the subtree (``detect_s3tok_prefix``) and
+    ``cfg=None`` reads the architecture from the shapes
+    (``s3tok_config_from_sd``); the result is then (params, cfg), else
+    params. A missing key raises KeyError naming it; a key under the prefix
+    left unread raises ValueError, or with ``strict=False`` is logged as a
+    warning; a shipped positional buffer must equal the sinusoids."""
+    prefix = detect_s3tok_prefix(sd) if prefix is None else prefix
+    inferred = cfg is None
+    if inferred:
+        cfg = s3tok_config_from_sd(sd, prefix)
     consumed = set()
     sub = tc.TrackingDict(sd, consumed)
     fsq_key = _fsq_key(sd, prefix) or prefix + "quantizer.project_down.weight"
@@ -217,13 +241,15 @@ def convert_s3tokenizer(sd, cfg: S3TokenizerConfig, prefix: str):
     unconsumed = [k for k in sd if k.startswith(prefix) and k not in consumed
                   and not k.endswith(_IGNORED_SUFFIXES)]
     if unconsumed:
-        raise ValueError(f"convert_s3tokenizer: {len(unconsumed)} checkpoint keys under "
-                         f"{prefix!r} were NOT consumed (layout drift?): "
-                         f"{sorted(unconsumed)[:20]}")
+        msg = (f"convert_s3tokenizer: {len(unconsumed)} checkpoint keys under {prefix!r} were "
+               f"NOT consumed (layout drift?): {sorted(unconsumed)[:20]}")
+        if strict:
+            raise ValueError(msg)
+        logging.getLogger(__name__).warning(msg)
     pos_key = prefix + "encoder.positional_embedding"
     if pos_key in sd:
         shipped = tc.as_numpy(sd[pos_key])
         if not np.allclose(shipped, _sinusoids(*shipped.shape), atol=1e-4):
             raise ValueError("s3tokenizer positional_embedding in checkpoint differs from "
                              "recomputed sinusoids -- encoder variant mismatch")
-    return params
+    return (params, cfg) if inferred else params

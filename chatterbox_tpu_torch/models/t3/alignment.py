@@ -36,7 +36,7 @@ class AlignState(NamedTuple):
     completed_at: torch.Tensor  # (B,) int32 (int32 max before completion)
 
 
-def init_align_state(b: int, s_text: int, device=None) -> AlignState:
+def init_align_state(b: int, s_text: int, *, device=None) -> AlignState:
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 

@@ -265,7 +265,7 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
         if kvs is not None:
             kvs[i, 0, :, :, :t] = k
             kvs[i, 1, :, :, :t] = v
-        x = x + reduce_from_model(_wmat(merge_heads(sdpa(q, k, v, bias=bias)), lp["o"]))
+        x = x + reduce_from_model(_wmat(merge_heads(sdpa(q, k, v, mask=bias)), lp["o"]))
         y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
         x = x + reduce_from_model(_wmat(_mlp(lp, y), lp["down"]))
     hidden = rms_norm(params["final_ln"], x, cfg.rms_norm_eps)

@@ -233,7 +233,7 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
         gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms, draw_rows=draw_rows,
     )
     if alignment:
-        carry.align = init_align_state(b, tmax, dev)
+        carry.align = init_align_state(b, tmax, device=dev)
         carry.attn = torch.zeros((b, tmax), dtype=torch.float32, device=dev)  # before step 0
     return carry
 
@@ -249,6 +249,7 @@ def t3_generate_start(
     sampling: SamplingConfig = SamplingConfig(),
     max_new_tokens: int = 1000,
     cache_quant: bool = False,
+    *,
     uniforms: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> GenCarry:
@@ -337,10 +338,11 @@ def t3_generate(
     emotion_adv,
     sampling: SamplingConfig = SamplingConfig(),
     max_new_tokens: int = 1000,
-    uniforms: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
     alignment: bool = False,
     cache_quant: bool = False,
+    *,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
     draw_rows: Optional[Tuple[int, int, int]] = None,
 ) -> GenResult:
     """Batched CFG speech-token generation: the prefill
@@ -423,7 +425,7 @@ def masked_ce(logits, targets, lens, data_group=None):
     return torch.sum(nll * mask) / torch.clamp_min(count, 1)
 
 
-def t3_loss(p, cfg: T3Config, batch, data_group=None):
+def t3_loss(p, cfg: T3Config, batch, *, data_group=None):
     """Masked CE losses (loss_text, loss_speech) of ``t3_forward`` on a batch
     dict with the JAX package's keys (speaker_emb, prompt_tokens,
     emotion_adv, text_tokens, text_lens, speech_tokens, speech_lens); with

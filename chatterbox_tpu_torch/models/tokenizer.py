@@ -14,6 +14,8 @@ import json
 import logging
 from typing import List
 
+import torch
+
 logger = logging.getLogger(__name__)
 
 SOT = "[START]"
@@ -119,6 +121,11 @@ class EnTokenizer:
         if self._hf is not None:
             return self._hf.encode(txt).ids
         return self._py.encode(txt)
+
+    def text_to_tokens(self, text: str):
+        """The ids of ``text`` as a (1, N) int32 CPU tensor, the reference's
+        ``text_to_tokens``."""
+        return torch.tensor(self.encode(text), dtype=torch.int32).reshape(1, -1)
 
     def decode(self, seq) -> str:
         seq = [int(x) for x in seq]

@@ -12,7 +12,11 @@ import numpy as np
 import torch
 
 from ..checkpoint import torch_convert as tc
+from ..core.dsp import ve_mel_spectrogram
 from ..core.layers import linear, lstm
+from ..core.resample import resample
+from ..device import full_fp32
+from ..pipeline.audio import trim_silence
 
 
 @dataclass(frozen=True)
@@ -73,6 +77,44 @@ def ve_embed_from_mels(p, cfg: VoiceEncoderConfig, mels, n_valid_windows=None):
         wmask = (torch.arange(n, device=mels.device)[None] < nv[:, None])[..., None]
         raw = (embeds * wmask).sum(dim=1) / nv[:, None].clamp(min=1).to(embeds.dtype)
     return raw / torch.linalg.norm(raw, dim=1, keepdim=True)
+
+
+def ve_embed_utterance(p, cfg: VoiceEncoderConfig, wav16):
+    """(B, T) 16 kHz wav -> (B, 256) utterance embeddings on the device of
+    ``p``: the 40-mel frontend, then ``ve_embed_from_mels`` (the reference's
+    embeds_from_wavs -> embeds_from_mels, voice_encoder.py:246-274)."""
+    dev = p["proj"]["w"].device
+    with full_fp32():
+        mels = ve_mel_spectrogram(torch.as_tensor(wav16, device=dev)).transpose(1, 2)
+        return ve_embed_from_mels(p, cfg, mels)
+
+
+def ve_embed_from_wavs(p, cfg: VoiceEncoderConfig, wavs, sample_rate: int,
+                       trim_top_db: float = 20.0):
+    """Host wavs at any rate -> (B, 256) embeddings on the device of ``p``:
+    the reference's ``VoiceEncoder.embeds_from_wavs`` (voice_encoder.py:
+    246-274). ``wavs`` is a 1-D array or a list of them. Each wav is
+    resampled to 16 kHz on the device with the kaiser_fast design when it is
+    at another rate (voice_encoder.py:262), trimmed of silence at
+    ``trim_top_db`` on the host (voice_encoder.py:267; 0 or None keeps it
+    whole) and embedded at its own trimmed length.
+
+    Not the serving path: a wav at a time, at its exact length. The TTS
+    pipeline pads its batch and masks windows through
+    ``ve_embed_from_mels``'s ``n_valid_windows`` instead."""
+    dev = p["proj"]["w"].device
+    if isinstance(wavs, np.ndarray) and wavs.ndim == 1:
+        wavs = [wavs]
+    outs = []
+    for wav in wavs:
+        wav = torch.from_numpy(np.asarray(wav, np.float32).reshape(-1)).to(dev)
+        if sample_rate != cfg.sample_rate:
+            with full_fp32():
+                wav = resample(wav, sample_rate, cfg.sample_rate, quality="kaiser_fast")
+        if trim_top_db:
+            wav = torch.from_numpy(trim_silence(wav.cpu().numpy(), top_db=trim_top_db)).to(dev)
+        outs.append(ve_embed_utterance(p, cfg, wav[None])[0])
+    return torch.stack(outs)
 
 
 def convert_voice_encoder(sd, cfg: VoiceEncoderConfig = VoiceEncoderConfig(), prefix=""):

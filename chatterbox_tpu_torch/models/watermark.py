@@ -104,14 +104,14 @@ class SpreadSpectrumWatermarker:
         return 1.0 if float(np.mean(self.get_payload(wav, sample_rate))) >= 0.75 else 0.0
 
 
-def convert_perth(sd):
+def convert_perth(sd, strict: bool = True):
     """A torch Perth state dict -> (params, meta), as the JAX package's
     ``convert_perth``: the ``model``/``state_dict``/``network`` containers
     and a ``module.`` prefix unwrapped, then the ``encoder.*`` and
     ``decoder.*`` conv/linear stacks in the natural order of their indices,
     in the JAX package's layouts (numpy float32; ``kind`` "conv" or
-    "linear"). Keys left unread raise ValueError; ``meta["unconsumed"]``
-    is kept, empty, as the JAX package returns it."""
+    "linear"). Keys left unread raise ValueError, or with ``strict=False``
+    are listed, sorted, in ``meta["unconsumed"]``."""
     import re
 
     for wrap in ("model", "state_dict", "network"):
@@ -144,11 +144,11 @@ def convert_perth(sd):
 
     enc, dec = build_stack("encoder"), build_stack("decoder")
     unconsumed = sorted(k for k in sd if k not in consumed)
-    if unconsumed:
+    if unconsumed and strict:
         raise ValueError(f"convert_perth: {len(unconsumed)} checkpoint keys NOT consumed "
                          f"(layout drift?): {unconsumed[:20]}")
     n_bins = enc[0]["w"].shape[1]
-    meta = {"n_fft": (n_bins - 1) * 2, "n_bins": n_bins, "unconsumed": []}
+    meta = {"n_fft": (n_bins - 1) * 2, "n_bins": n_bins, "unconsumed": unconsumed}
     return {"encoder": enc, "decoder": dec}, meta
 
 

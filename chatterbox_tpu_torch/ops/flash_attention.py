@@ -109,7 +109,7 @@ def flash_self_attention_packed_plain(qkv, key_bias, n_heads: int):
     return merge_heads(torch.matmul(probs, v)).to(qkv.dtype)
 
 
-def flash_self_attention_packed(qkv, key_bias, n_heads: int):
+def flash_self_attention_packed(qkv, key_bias=None, n_heads: int = 8):
     """qkv (B, T, 3*H*D), key_bias (B, T) additive f32 or None ->
     (B, T, H*D) in qkv's dtype."""
     _build.refuse_autograd("flash_self_attention_packed", qkv, key_bias)

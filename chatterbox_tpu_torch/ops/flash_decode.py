@@ -120,11 +120,11 @@ def _workspace(cache, pairs: int, s: int):
 # ---------------------------------------------------------------------------
 
 
-def quantize_kv(kv):
-    """Per-token symmetric int8 quantization over the last (head-dim) axis,
+def quantize_kv(kv, axis=-1):
+    """Per-token symmetric int8 quantization over ``axis`` (the head dim),
     a copy of the JAX package's ``quantize_kv`` as XLA compiles it: kv
-    (..., D) -> (int8 values, fp32 scales (...)), ``kv ~= values *
-    scales[..., None]``, with ``scale = max(absmax * f32(1/127), 1e-8)`` (XLA
+    (..., D) -> (int8 values, fp32 scales with ``axis`` reduced), ``kv ~=
+    values * scales[..., None]``, with ``scale = max(absmax * f32(1/127), 1e-8)`` (XLA
     folds the division by the constant 127 into a multiply by its fp32
     reciprocal inside a compiled function, as the JAX decode loop is; JAX
     run op by op divides, and differs in the last bit of a few scales) and
@@ -134,9 +134,9 @@ def quantize_kv(kv):
     multiply by its reciprocal), so the CUDA kernel K2b matches this bit for
     bit. (A Python scalar factor is applied in fp32, as f32(1/127).)"""
     x = kv.float()
-    absmax = x.abs().amax(dim=-1)
+    absmax = x.abs().amax(dim=axis)
     scale = torch.clamp_min(absmax * (1.0 / 127.0), 1e-8)
-    q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    q = torch.round(x / scale.unsqueeze(axis)).clamp(-127, 127).to(torch.int8)
     return q, scale
 
 

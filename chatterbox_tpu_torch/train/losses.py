@@ -31,7 +31,7 @@ def cfm_draws(x1, generator: Optional[torch.Generator] = None) -> CFMDraws:
                     torch.rand((b,), generator=generator, device=dev))
 
 
-def cfm_loss(p, cfg: FlowConfig, x1, mask, mu, spks, cond,
+def cfm_loss(p, cfg: FlowConfig, x1, mask, mu, spks, cond, *,
              generator: Optional[torch.Generator] = None, draws: Optional[CFMDraws] = None,
              use_flash: Optional[bool] = None):
     """Conditional flow-matching loss (flow_matching.py:146-185).

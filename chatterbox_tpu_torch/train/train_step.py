@@ -98,7 +98,7 @@ def t3_loss_and_grads(params, cfg: T3Config, batch, data_group=None):
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     with torch.enable_grad():
-        lt, ls = t3_loss(_like(params, live), cfg, batch, data_group)
+        lt, ls = t3_loss(_like(params, live), cfg, batch, data_group=data_group)
         loss = lt + ls
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]

@@ -46,7 +46,7 @@ class T3Trainer:
     were."""
 
     def __init__(self, cfg: T3Config, params, learning_rate: float = 1e-4, donate: bool = True,
-                 device=None, *, mesh=None, model_sharded: bool = False):
+                 *, device=None, mesh=None, model_sharded: bool = False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -63,7 +63,7 @@ class T3Trainer:
         self.opt_state = init_state(self.params)
         self.step_num = 0
 
-    def step(self, batch, timer=None):
+    def step(self, batch, *, timer=None):
         """One train step on ``batch`` (the JAX batch dict; tensors or numpy
         arrays); returns the metrics as host floats."""
         self.params, self.opt_state, metrics = self._step(
@@ -135,7 +135,7 @@ class T3Trainer:
         self.step_num = step_num
 
     @classmethod
-    def resume(cls, path, cfg: T3Config, params_template, learning_rate: float = 1e-4,
+    def resume(cls, path, cfg: T3Config, params_template, learning_rate: float = 1e-4, *,
                device=None):
         t = cls(cfg, params_template, learning_rate, device=device)
         t.load(path)

@@ -28,8 +28,7 @@ index and ``@none`` a None leaf (``checkpoint/pytree_io.py``, whose
 import numpy as np
 import torch
 
-from .checkpoint.pytree_io import unflatten
-from .checkpoint.safetensors_io import load_safetensors
+from .checkpoint.pytree_io import load_params
 
 _EMBEDDINGS = {"text_emb", "speech_emb", "text_pos_emb", "speech_pos_emb", "input_embedding"}
 
@@ -150,12 +149,7 @@ def load_native(path):
     """A ``save_native`` ``*.jax.safetensors`` file -> the port's parameters
     (CPU tensors, PyTorch layouts). BF16 payloads are viewed as
     ``torch.bfloat16`` bit for bit."""
-    arrays, bf16 = load_safetensors(path)
-    flat = {}
-    for name, a in arrays.items():
-        t = torch.from_numpy(a.copy())
-        flat[name] = t.view(torch.bfloat16) if name in bf16 else t
-    return from_jax_layout(unflatten(flat))
+    return from_jax_layout(load_params(path, device="cpu"))
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ Phases (any failure exits non-zero before the last line):
   4. probes: the entry points of ``chatterbox_tpu_torch/probes/`` with the
      launch counters set to 0 just before and read just after: P1's four
      chains of ``P1_LAYERS`` (10) layers at full width, eager and as a CUDA graph, with bf16
-     and with int8 weights, then P2/P3, P4 and P5 (``probe_phase``);
+     and with int8 weights, each timed as the best of ``P1_ITERS`` (2) runs,
+     then P2/P3, P4 and P5 (``probe_phase``);
   5. reference: a small model with the main path's head width, through the
      port on the card against the port's plain versions on the CPU (T3 with
      dense and with int8 weights, the flow at 10 and at 4 Euler steps), and
@@ -115,6 +116,16 @@ Phases (any failure exits non-zero before the last line):
      ``ChatterboxVC.from_local`` on two of path E's sources, and a random
      Perth net from the factory, on the card against the CPU, in the
      pipeline and in a stream;
+  8b. voice embeddings and ``load_params``, path Q (``voice_path``): path
+     D's seeded 10 s synthetic voice made at 16, 24 and 44.1 kHz, each
+     through ``ve_embed_from_wavs`` (the full-width ``VoiceEncoderConfig()``
+     with from_random(seed=0)'s weights; kaiser_fast resampling to 16 kHz,
+     silence trimmed) on the card and on the CPU, within ``Q_EMBED_ATOL``,
+     and the cosine of the 24 and 44.1 kHz embeddings to the 16 kHz one;
+     ``resample`` 44.1 -> 16 kHz with kaiser_fast and kaiser_best on the card
+     against the CPU (within ``Q_RESAMPLE_ATOL``), timed; ``load_params`` of
+     the T3 file path M's ``save_native`` wrote, on the card, bit for bit
+     against the tree path M saved;
   9. T3 training, path N (``train_path``): ``T3Trainer`` on ``T3Config()``
      in fp32 (532,397,056 parameters) with batches of 8 rows of 34 + 128 +
      512 positions: the first gradient reaches every leaf; 2 warm and 4
@@ -198,6 +209,7 @@ T3_LAYERS, T3_HEADS, HEAD_DIM = 30, 16, 64
 # and path M, the reference set, keep all 30) and P1's chains
 TTS_T3_LAYERS = 10
 P1_LAYERS = 10
+P1_ITERS = 2  # runs of each P1 chain count, best taken (the probe's default is 3)
 N_COND, TEXT_BUCKET, N_BOS = 34, 64, 2
 FLOW_HEADS, CONF_HEADS, CONF_C = 8, 8, 512
 # K3's and K5's (padded T, valid mel frames): path A's flow (250 + 250
@@ -949,7 +961,8 @@ def probe_phase(card):
     """The probes' entry points on the card, the launch counters set to 0
     just before and read just after: P1 (``probes.boundary``: the four
     chains of ``P1_LAYERS`` layers at full width, eager and as a CUDA
-    graph, with bf16 and with int8 weights), then P2/P3, P4 and P5 (each checks its kernels
+    graph, with bf16 and with int8 weights, the best of ``P1_ITERS`` runs
+    each), then P2/P3, P4 and P5 (each checks its kernels
     against their plain versions and times them). Prints P1's results as
     one JSON line and the rest as another; fails if a probe kernel was not
     launched. Returns (results, counts)."""
@@ -960,8 +973,8 @@ def probe_phase(card):
 
     dev = torch.device("cuda")
     reset_launch_counts()
-    p1 = {"bf16": boundary.run(dev, layers=P1_LAYERS),
-          "int8": boundary.run(dev, wquant=True, layers=P1_LAYERS)}
+    p1 = {"bf16": boundary.run(dev, layers=P1_LAYERS, iters=P1_ITERS),
+          "int8": boundary.run(dev, wquant=True, layers=P1_LAYERS, iters=P1_ITERS)}
     rest = {"P2/P3": cache_write.run(dev), "P4": int8_cache.run(dev), "P5": ops.run(dev)}
     torch.cuda.synchronize()
     counts = launch_counts()
@@ -2639,7 +2652,7 @@ PERTH_TOPOLOGY = {"n_bins": 513, "hidden": 256, "n_layers": 4}
 PERTH_ATOL = 1e-5  # tests/test_torch_checkpoint.py's, against the JAX package
 
 
-def same_params(what, got, want):
+def same_params(what, got, want, path="M"):
     """Fail unless both parameter trees hold the same leaves, each of the
     same dtype and shape and equal bit for bit (compared as integers)."""
     import torch
@@ -2649,17 +2662,18 @@ def same_params(what, got, want):
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     a, b = flatten(got), flatten(want)
     if a.keys() != b.keys():
-        fail(f"path M: {what}: leaves differ: {sorted(a.keys() ^ b.keys())[:10]}")
+        fail(f"path {path}: {what}: leaves differ: {sorted(a.keys() ^ b.keys())[:10]}")
     for k, x in a.items():
         y = b[k]
         if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
-            fail(f"path M: {what}: {k}: {x.dtype} {tuple(x.shape)} on {x.device}, not "
+            fail(f"path {path}: {what}: {k}: {x.dtype} {tuple(x.shape)} on {x.device}, not "
                  f"{y.dtype} {tuple(y.shape)} on {y.device}")
         it = ints[x.element_size()]
         if not torch.equal(x.contiguous().view(it), y.contiguous().view(it)):
-            fail(f"path M: {what}: {k} differs")
+            fail(f"path {path}: {what}: {k} differs")
     dtypes = sorted({str(x.dtype).replace("torch.", "") for x in a.values()})
-    print(f"path M: {what}: {len(a)} leaves equal bit for bit ({', '.join(dtypes)})", flush=True)
+    print(f"path {path}: {what}: {len(a)} leaves equal bit for bit ({', '.join(dtypes)})",
+          flush=True)
 
 
 class RssPeak:
@@ -2718,7 +2732,7 @@ class WatermarkSpy:
         return self.engine.apply(wav)
 
 
-def reference_set_path(card, ref_path, src_paths):
+def reference_set_path(card, ref_path, src_paths, native):
     """Path M: the reference checkpoint set. The ``from_random(seed=0)``
     model (path E's weights, and paths A-L's with T3's 30 layers) is
     written in the reference format
@@ -2733,8 +2747,9 @@ def reference_set_path(card, ref_path, src_paths):
       2. path A's call on the loaded model, counted (K1a x 30 x 249, K2, K3,
          K4; no K1b, K1c+d, K2b, K5): tokens and wavs (cuDNN deterministic)
          equal to the written model's, the call timed;
-      3. ``save_native`` then ``from_native``: the same leaves, and a 2-text
-         call's tokens equal to the loaded model's (step 5's first call);
+      3. ``save_native`` into ``native`` (kept for path Q) then
+         ``from_native``: the same leaves, and a 2-text call's tokens equal
+         to the loaded model's (step 5's first call);
       4. ``ChatterboxVC.from_local``: S3Gen equal, two of path E's sources
          converted to the written model's wavs;
       5. the Perth factory on ``perth.pth``: the engine on the card within
@@ -2747,7 +2762,8 @@ def reference_set_path(card, ref_path, src_paths):
          watermarked on the card, the neural stream's chunks equal the
          engine applied alone to its unwatermarked chunks, which equal the
          spread-spectrum stream's.
-    Returns step 2's first-call launch counts."""
+    Returns step 2's first-call launch counts and the T3 tree step 3 saved
+    (CPU tensors in the JAX layouts)."""
     import numpy as np
     import torch
 
@@ -2768,7 +2784,7 @@ def reference_set_path(card, ref_path, src_paths):
     torch.cuda.synchronize()
     print(f"path M: from_random at full width in {time.time() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory(prefix=".smoke_reference_", dir=HERE) as work:
-        ckpt, native = os.path.join(work, "reference"), os.path.join(work, "native")
+        ckpt = os.path.join(work, "reference")
         t0 = time.time()
         rf.write_reference_set(
             ckpt, *(weights.to_jax_tree(p) for p in (ref.t3_params, ref.s3gen_params,
@@ -2828,6 +2844,7 @@ def reference_set_path(card, ref_path, src_paths):
         t0 = time.time()
         tts.save_native(native)
         saved = time.time() - t0
+        saved_t3 = weights.jax_layout(tts.t3_params)  # the tree save_native wrote
         t0 = time.time()
         # save_native writes no tokenizer.json (nor does the JAX package's)
         back = ChatterboxTTS.from_native(native, tokenizer_json=os.path.join(ckpt,
@@ -2956,7 +2973,103 @@ def reference_set_path(card, ref_path, src_paths):
               f"chunks equal the spread-spectrum stream's; max |neural - spread-spectrum| "
               f"{moved:.4f}; wall {s_wall:.3f} s spread-spectrum, {n_wall:.3f} s neural (first "
               f"calls) on {card}", flush=True)
-    return counts
+    return counts, saved_t3
+
+
+# path Q: voice embeddings from wavs at any rate, the Kaiser designs, load_params
+Q_RATES = (16000, 24000, 44100)
+Q_EMBED_ATOL = 1e-4  # tests/test_torch_conditioning.py's card-against-CPU bound
+Q_RESAMPLE_ATOL = 1e-5  # fp32 sums of ~88 (kaiser_fast) or ~352 (kaiser_best) terms
+Q_RESAMPLE_CALLS = 20
+
+
+def voice_path(card, native):
+    """Path Q: ``ve_embed_from_wavs`` of path D's seeded 10 s synthetic
+    voice made at each of ``Q_RATES`` (the full-width ``VoiceEncoderConfig()``
+    with the weights ``from_random(seed=0)`` gives it) on the card and on the
+    CPU, within ``Q_EMBED_ATOL``, and the cosines of the other rates'
+    embeddings to the 16 kHz one; ``resample`` 44.1 -> 16 kHz with
+    kaiser_fast and kaiser_best on the card against the CPU, within
+    ``Q_RESAMPLE_ATOL``, each timed as the mean of ``Q_RESAMPLE_CALLS`` eager
+    calls (between CUDA events on the card: the taps' upload included; by
+    the host's clock on the CPU); ``load_params`` of path M's
+    ``t3.jax.safetensors`` on the card, bit for bit against the tree path M
+    saved (``native``: path M's returns)."""
+    import torch
+
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.checkpoint.pytree_io import flatten, load_params
+    from chatterbox_tpu_torch.core.resample import resample
+    from chatterbox_tpu_torch.device import full_fp32
+    from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig, ve_embed_from_wavs
+    from chatterbox_tpu_torch.pipeline.audio import synthetic_voice
+
+    native_dir, saved_t3 = native
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = VoiceEncoderConfig()
+    ve = {"card": weights.init_voice_encoder(cfg, 5, dev)}  # from_random(seed=0)'s VE
+    ve["CPU"] = weights.tree_to(ve["card"], cpu)
+    embeds = {}
+    for sr in Q_RATES:
+        voice = synthetic_voice(1000, REF_SECONDS, sr)  # path D's reference, made at sr
+        walls = {}
+        for where in ("card", "CPU"):
+            t0 = time.time()
+            e = ve_embed_from_wavs(ve[where], cfg, voice, sr)
+            walls[where] = time.time() - t0
+            embeds[sr, where] = e.cpu()
+        got, want = embeds[sr, "card"], embeds[sr, "CPU"]
+        err = float((got - want).abs().max())
+        print(f"path Q: ve_embed_from_wavs of a {REF_SECONDS:.0f} s voice at {sr} Hz "
+              f"{tuple(got.shape)}: card vs CPU max_abs_err={err:.3e} tol={Q_EMBED_ATOL:.0e}; "
+              f"wall card {walls['card']:.3f} s, CPU {walls['CPU']:.3f} s (first calls)",
+              flush=True)
+        if got.shape != (1, cfg.speaker_embed_size) or not torch.isfinite(got).all():
+            fail(f"path Q: the {sr} Hz embedding is {tuple(got.shape)} or not finite")
+        if not err <= Q_EMBED_ATOL:
+            fail(f"path Q: the {sr} Hz embedding on the card is {err} from the CPU's")
+    base = embeds[Q_RATES[0], "card"][0]
+    cosines = {sr: float(embeds[sr, "card"][0] @ base) for sr in Q_RATES[1:]}
+    print("path Q: cosine of each rate's embedding (card) to the 16000 Hz one "
+          + json.dumps(cosines), flush=True)
+
+    wav = torch.from_numpy(synthetic_voice(1000, REF_SECONDS, 44100))
+    for quality in ("kaiser_fast", "kaiser_best"):
+        want = resample(wav, 44100, 16000, quality)
+        t0 = time.perf_counter()
+        for _ in range(Q_RESAMPLE_CALLS):
+            resample(wav, 44100, 16000, quality)
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / Q_RESAMPLE_CALLS
+        x = wav.to(dev)
+        with full_fp32():
+            got = resample(x, 44100, 16000, quality)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(Q_RESAMPLE_CALLS):
+                resample(x, 44100, 16000, quality)
+            end.record()
+            torch.cuda.synchronize()
+        card_ms = start.elapsed_time(end) / Q_RESAMPLE_CALLS
+        err = float((got.cpu() - want).abs().max())
+        print(f"path Q: resample {quality} 44100 -> 16000 Hz of {REF_SECONDS:.0f} s "
+              f"({tuple(got.shape)}): card {card_ms:.4f} ms, CPU {cpu_ms:.3f} ms (means of "
+              f"{Q_RESAMPLE_CALLS} eager calls); card vs CPU max_abs_err={err:.3e} "
+              f"tol={Q_RESAMPLE_ATOL:.0e} on {card}", flush=True)
+        if not err <= Q_RESAMPLE_ATOL:
+            fail(f"path Q: resample {quality} on the card is {err} from the CPU's")
+
+    path = os.path.join(native_dir, "t3.jax.safetensors")
+    t0 = time.time()
+    loaded = load_params(path)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    devices = {str(x.device) for x in flatten(loaded).values() if isinstance(x, torch.Tensor)}
+    print(f"path Q: load_params of path M's t3.jax.safetensors ({os.path.getsize(path)} bytes) "
+          f"on the card in {load_s:.3f} s, leaves on {sorted(devices)}", flush=True)
+    if devices != {"cuda:0"}:
+        fail(f"path Q: load_params put leaves on {sorted(devices)}")
+    same_params("load_params of t3.jax.safetensors", weights.tree_to(loaded, cpu), saved_t3,
+                path="Q")
 
 
 # path N: T3 training at full width, and cfm_loss at the full flow width
@@ -3694,15 +3807,21 @@ def main():
         t4 = time.time()
         vc_counts = vc_path(card, ref_path, src_paths, src_lens)
         t5 = time.time()
-        counts["M"] = reference_set_path(card, ref_path, src_paths)
+        counts["M"], saved_t3 = reference_set_path(card, ref_path, src_paths,
+                                                   os.path.join(audio_dir, "native"))
         t6 = time.time()
+        voice_path(card, (os.path.join(audio_dir, "native"), saved_t3))
+        del saved_t3
+        t6q = time.time()
+        print(f"path Q: {t6q - t6:.1f} s", flush=True)
         counts["N"] = train_path(card)
         t7 = time.time()
         counts["O"] = mesh_path(card)
         t8 = time.time()
     print(f"phases: start {t0 - t_start:.1f} s, kernels {t1 - t0:.1f} s, probes {t2 - t1:.1f} s, "
           f"reference {t3 - t2:.1f} s, TTS paths {t4 - t3:.1f} s, VC path {t5 - t4:.1f} s, "
-          f"reference set (path M) {t6 - t5:.1f} s, training (path N) {t7 - t6:.1f} s, "
+          f"reference set (path M) {t6 - t5:.1f} s, voice (path Q) {t6q - t6:.1f} s, "
+          f"training (path N) {t7 - t6q:.1f} s, "
           f"mesh (path O) {t8 - t7:.1f} s", flush=True)
     counts["E"] = {k: sum(c[k] for c in vc_counts.values()) for k in vc_counts["fused"]}
     counts["probes"] = probe_counts

@@ -714,3 +714,31 @@ def test_wmat_int8_on_the_card_matches_the_cpu(cuda):
     assert bool(((got - want).abs() <= 1e-5 * a).all())
     got16 = llama._wmat(y.to(torch.bfloat16), wp).float().cpu()
     assert bool(((got16 - want).abs() <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * a).all())
+
+
+@pytest.mark.cuda
+def test_kaiser_resample_and_ve_embed_from_wavs_on_the_card_match_the_cpu(cuda):
+    """resample(quality="kaiser_fast") 44.1 kHz -> 16 kHz and
+    ve_embed_from_wavs of a 24 kHz voice (full-width VoiceEncoderConfig,
+    random weights) on the card against the CPU, in fp32 with TF32 off:
+    the resample within 1e-5 (fp32 sums of 2 * 16 * 44100 / 16000 ~ 88
+    terms in another order) and the embeddings within 1e-4, the bound of the
+    conditioning path's card-against-CPU checks."""
+    from chatterbox_tpu_torch import weights
+    from chatterbox_tpu_torch.core.resample import resample
+    from chatterbox_tpu_torch.device import full_fp32
+    from chatterbox_tpu_torch.models.voice_encoder import VoiceEncoderConfig, ve_embed_from_wavs
+    from chatterbox_tpu_torch.pipeline.audio import synthetic_voice
+
+    wav = torch.from_numpy(synthetic_voice(0, 3.0, 44100))
+    want = resample(wav, 44100, 16000, quality="kaiser_fast")
+    with full_fp32():
+        got = resample(wav.to(cuda), 44100, 16000, quality="kaiser_fast").cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+    cfg = VoiceEncoderConfig()
+    p_cpu = weights.init_voice_encoder(cfg, seed=5)
+    voice = synthetic_voice(1, 3.0, 24000)
+    want = ve_embed_from_wavs(p_cpu, cfg, voice, 24000)
+    got = ve_embed_from_wavs(weights.tree_to(p_cpu, cuda), cfg, voice, 24000)
+    assert got.device.type == "cuda" and tuple(got.shape) == (1, 256)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
