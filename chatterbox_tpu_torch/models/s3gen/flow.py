@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
+from ...runtime.profiling import annotate
 from .conformer import ConformerConfig, convert_upsample_conformer, upsample_conformer_encoder
 from .unet import UNetConfig, convert_unet, unet_forward
 
@@ -54,11 +55,12 @@ def solve_euler(p, cfg: FlowConfig, z, mu, spks, cond, mask=None):
     cond_in = torch.cat([cond, torch.zeros_like(cond)], dim=0)
     x = z
     for t_cur, dt in zip(t_span[:-1], dts):
-        t_in = torch.full((2 * b,), float(t_cur), dtype=torch.float32, device=z.device)
-        v = unet_forward(p["estimator"], cfg.estimator, torch.cat([x, x], dim=0), mu_in,
-                         spks_in, cond_in, t_in, mask2)
-        dphi = (1.0 + r) * v[:b] - r * v[b:]
-        x = x + (float(dt) * dphi.float()).to(x.dtype)
+        with annotate("s3gen.euler"):
+            t_in = torch.full((2 * b,), float(t_cur), dtype=torch.float32, device=z.device)
+            v = unet_forward(p["estimator"], cfg.estimator, torch.cat([x, x], dim=0), mu_in,
+                             spks_in, cond_in, t_in, mask2)
+            dphi = (1.0 + r) * v[:b] - r * v[b:]
+            x = x + (float(dt) * dphi.float()).to(x.dtype)
     return x
 
 
@@ -69,30 +71,32 @@ def flow_inference(p, cfg: FlowConfig, token, token_len, prompt_token, prompt_to
     token (B, T) right-padded, token_len (B,); prompt_token (B, P);
     prompt_feat (B, 2P, 80); embedding_vec (B, 192) x-vector; noise
     (B, >= T_mel, 80) CFM noise. Rows are valid up to 2*(P + token_len)."""
-    b = token.shape[0]
-    pdt = p["input_embedding"]["w"].dtype
-    prompt_feat = prompt_feat.to(pdt)
-    noise = noise.to(pdt)
-    emb = embedding_vec / torch.linalg.norm(embedding_vec, dim=-1, keepdim=True)
-    spks = linear(p["spk_embed_affine"], emb.to(pdt))
+    with annotate("s3gen.encoder"):  # the flow up to the solver
+        b = token.shape[0]
+        pdt = p["input_embedding"]["w"].dtype
+        prompt_feat = prompt_feat.to(pdt)
+        noise = noise.to(pdt)
+        emb = embedding_vec / torch.linalg.norm(embedding_vec, dim=-1, keepdim=True)
+        spks = linear(p["spk_embed_affine"], emb.to(pdt))
 
-    full_token = torch.cat([prompt_token, token], dim=1).long()
-    total_len = (prompt_token_len + token_len).to(token.device)
-    tmask = torch.arange(full_token.shape[1], device=token.device)[None] < total_len[:, None]
-    tok_emb = embedding(p["input_embedding"], full_token.clamp(min=0))
-    tok_emb = tok_emb * tmask[..., None].to(tok_emb.dtype)
+        full_token = torch.cat([prompt_token, token], dim=1).long()
+        total_len = (prompt_token_len + token_len).to(token.device)
+        tmask = torch.arange(full_token.shape[1], device=token.device)[None] < total_len[:, None]
+        tok_emb = embedding(p["input_embedding"], full_token.clamp(min=0))
+        tok_emb = tok_emb * tmask[..., None].to(tok_emb.dtype)
 
-    h = upsample_conformer_encoder(p["encoder"], tok_emb, cfg.encoder, key_mask=tmask)
-    h = linear(p["encoder_proj"], h)  # (B, 2(P+T), 80)
+        h = upsample_conformer_encoder(p["encoder"], tok_emb, cfg.encoder, key_mask=tmask)
+        h = linear(p["encoder_proj"], h)  # (B, 2(P+T), 80)
 
-    mel_len1 = prompt_feat.shape[1]
-    t_mel = h.shape[1]
-    conds = torch.cat(
-        [prompt_feat, torch.zeros((b, t_mel - mel_len1, cfg.output_size), dtype=h.dtype,
-                                  device=h.device)],
-        dim=1,
-    )
-    mel_mask = torch.arange(t_mel, device=h.device)[None] < (cfg.token_mel_ratio * total_len)[:, None]
+        mel_len1 = prompt_feat.shape[1]
+        t_mel = h.shape[1]
+        conds = torch.cat(
+            [prompt_feat, torch.zeros((b, t_mel - mel_len1, cfg.output_size), dtype=h.dtype,
+                                      device=h.device)],
+            dim=1,
+        )
+        mel_mask = (torch.arange(t_mel, device=h.device)[None]
+                    < (cfg.token_mel_ratio * total_len)[:, None])
     # solve at a 128-multiple T: the convs are causal and pad keys are masked,
     # so the valid region is unchanged
     tp = -(-t_mel // 128) * 128

@@ -17,6 +17,7 @@ import torch
 from ...constants import S3_SR, S3GEN_SR
 from ...core.dsp import s3gen_mel_spectrogram
 from ...core.resample import resample
+from ...runtime.profiling import annotate
 from ..s3tokenizer import S3TokenizerConfig, convert_s3tokenizer, s3_tokenize, s3tok_config_from_sd
 from .flow import FlowConfig, convert_flow, flow_inference
 from .hifigan import HiFTConfig, convert_hift, hift_generate
@@ -124,11 +125,14 @@ def s3gen_wav(p, cfg: S3GenConfig, speech_tokens, token_lens, ref: RefDict, nois
         ref.prompt_token_len, ref.prompt_feat, ref.embedding, noise_mel,
     )
     gen_mel = mel[:, ref.prompt_feat.shape[1]:]
-    wav, source = hift_generate(
-        p["hift"], cfg.hift, gen_mel, phase_noise=phase_noise, additive_noise=additive_noise,
-        generator=generator, n_valid=(2 * token_lens).to(torch.int32), compute_dtype=hift_dtype,
-    )
-    n = cfg.trim_n
-    wav = torch.cat([wav[:, : 2 * n] * trim_fade(n, wav.device)[None], wav[:, 2 * n:]], dim=1)
-    wav_lens = (token_lens * 2 * 480).to(torch.int32)
+    with annotate("s3gen.hift"):
+        wav, source = hift_generate(
+            p["hift"], cfg.hift, gen_mel, phase_noise=phase_noise, additive_noise=additive_noise,
+            generator=generator, n_valid=(2 * token_lens).to(torch.int32),
+            compute_dtype=hift_dtype,
+        )
+        n = cfg.trim_n
+        wav = torch.cat([wav[:, : 2 * n] * trim_fade(n, wav.device)[None], wav[:, 2 * n:]],
+                        dim=1)
+        wav_lens = (token_lens * 2 * 480).to(torch.int32)
     return wav, wav_lens, source

@@ -26,6 +26,7 @@ from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
 from ...parallel.tensor_parallel import copy_to_model, gather_vocab
+from ...runtime.profiling import annotate, spanned
 from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds, convert_cond_enc
 from .llama import (LLAMA_520M, LlamaConfig, convert_llama, llama_decode_step, llama_prefill,
@@ -190,6 +191,7 @@ def _carry_result(cy: GenCarry, stop: int) -> GenResult:
     return GenResult(cy.tokens, lengths, steps)
 
 
+@spanned("t3.prefill")
 def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens, emotion_adv,
            sampling: SamplingConfig, max_new_tokens: int, uniforms, generator, alignment: bool,
            cache_quant: bool, draw_rows=None) -> GenCarry:
@@ -285,46 +287,53 @@ def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
     i_end = min(cy.i + n_steps, max_new)
 
     while cy.i < i_end:
-        i = cy.i
-        lg = cy.logits.float()  # sampling chain in fp32
-        lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if cfg_on else lg
-        if i < sampling.min_new_tokens:
-            lg = torch.where(eos_col, torch.finfo(torch.float32).min, lg)
-        if alignment:
-            cy.align, lg = alignment_step(cy.align, cy.attn, text_lens, i, lg, stop)
-        lg = process_logits(lg, cy.seen, sampling)
-        if sampling.greedy:
-            tok = torch.argmax(lg, dim=-1).to(torch.int32)
-        else:
-            lo, hi, total = cy.draw_rows or (0, b, b)
-            if cy.uniforms is not None:
-                u = cy.uniforms[i].to(device=dev, dtype=torch.float32)
-            else:
-                u = torch.rand((total,), generator=cy.generator, device=dev)
-            u = u[lo:hi]
-            tok = sample_from_logits(lg, u)
-        tok = torch.where(cy.done, stop, tok)
-        cy.tokens[:, i] = tok
-        cy.seen[rows_b, tok.long()] = True
-        cy.done = cy.done | (tok == stop)
-        cy.i = i + 1
-        if cy.i == max_new:
-            break  # the last token's logits are never read
-        # every DONE_CHECK_EVERY absolute steps, and at the chunk's end
-        if (cy.i % DONE_CHECK_EVERY == 0 or cy.i == i_end) and bool(cy.done.all()):
-            break
+        with annotate("t3.step"):
+            i = cy.i
+            with annotate("t3.sample"):
+                lg = cy.logits.float()  # sampling chain in fp32
+                lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if cfg_on else lg
+                if i < sampling.min_new_tokens:
+                    lg = torch.where(eos_col, torch.finfo(torch.float32).min, lg)
+                if alignment:
+                    cy.align, lg = alignment_step(cy.align, cy.attn, text_lens, i, lg, stop)
+                lg = process_logits(lg, cy.seen, sampling)
+                if sampling.greedy:
+                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                else:
+                    lo, hi, total = cy.draw_rows or (0, b, b)
+                    if cy.uniforms is not None:
+                        u = cy.uniforms[i].to(device=dev, dtype=torch.float32)
+                    else:
+                        u = torch.rand((total,), generator=cy.generator, device=dev)
+                    u = u[lo:hi]
+                    tok = sample_from_logits(lg, u)
+                tok = torch.where(cy.done, stop, tok)
+                cy.tokens[:, i] = tok
+                cy.seen[rows_b, tok.long()] = True
+                cy.done = cy.done | (tok == stop)
+            cy.i = i + 1
+            if cy.i == max_new:
+                break  # the last token's logits are never read
+            # every DONE_CHECK_EVERY absolute steps, and at the chunk's end
+            if cy.i % DONE_CHECK_EVERY == 0 or cy.i == i_end:
+                with annotate("t3.done_check"):
+                    finished = bool(cy.done.all())
+                if finished:
+                    break
 
-        emb = embedding(p["speech_emb"], tok.long())[:, None] + p["speech_pos_emb"]["w"][i + 1]
-        if cfg_on:
-            emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
-        h, attn_2b = llama_decode_step(
-            p["llama"], cfg.llama, emb, cy.cache, cy.s0 + i, (cy.base_pos + i)[:, None],
-            cy.row_prefix, cy.gap_end, layers=layers, align_layer=align_layer,
-            text_slice=text_slice,
-        )
-        cy.logits = _head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size)
-        if alignment:
-            cy.attn = attn_2b[:b]  # the conditional rows
+            with annotate("t3.forward"):
+                emb = (embedding(p["speech_emb"], tok.long())[:, None]
+                       + p["speech_pos_emb"]["w"][i + 1])
+                if cfg_on:
+                    emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
+                h, attn_2b = llama_decode_step(
+                    p["llama"], cfg.llama, emb, cy.cache, cy.s0 + i, (cy.base_pos + i)[:, None],
+                    cy.row_prefix, cy.gap_end, layers=layers, align_layer=align_layer,
+                    text_slice=text_slice,
+                )
+                cy.logits = _head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size)
+                if alignment:
+                    cy.attn = attn_2b[:b]  # the conditional rows
     return cy, _carry_result(cy, stop)
 
 

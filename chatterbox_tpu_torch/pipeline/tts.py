@@ -79,6 +79,7 @@ from ..models.watermark import PerthImplicitWatermarker
 from ..parallel.sharding import data_rows, gather_rows
 from ..parallel.tensor_parallel import model_parallel
 from ..runtime.fast_init import synthetic_init
+from ..runtime.profiling import annotate, spanned
 from .audio import load_wav, trim_silence
 from .conditionals import Conditionals, T3CondData
 
@@ -235,6 +236,7 @@ def pad_speech(clean_rows: List[np.ndarray]):
     return speech, n_clean
 
 
+@spanned("s3gen.collect")
 def collect(handle) -> List[np.ndarray]:
     """A deferred generate_batch result (int16 wav (B, T), lengths (B,)) on
     the device -> one float32 waveform a row on the host (TTS and VC)."""
@@ -274,8 +276,10 @@ def synthesize(s3gen_params, s3gen_cfg, noise, watermarker, speech, speech_lens,
         s3gen_params, s3gen_cfg, speech, speech_lens, ref, noise[:, :total].expand(b, total, 80),
         phase_noise=phase, additive_noise=additive, generator=gen, hift_dtype=hift_dtype,
     )
-    y = watermarker.apply(wav)
-    return torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16), wav_lens
+    with annotate("s3gen.watermark"):
+        y = watermarker.apply(wav)
+        pcm = torch.round(torch.clamp(y, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return pcm, wav_lens
 
 
 @dataclass
@@ -592,6 +596,7 @@ class ChatterboxTTS:
         return out
 
     @torch.inference_mode()
+    @spanned("tts.call")
     def generate_batch(
         self,
         texts: List[str],
@@ -678,17 +683,19 @@ class ChatterboxTTS:
             )
         t_t3 = time.perf_counter()
 
-        if device_chain:
-            speech, clean_lens = _compact_tokens(res.tokens, res.lengths)
-            clean_rows = None
-        else:
-            tokens, lengths = res.tokens, res.lengths
-            if self.mesh is not None:  # the whole batch's tokens fix its token bucket
-                tokens, lengths = (gather_rows(x, self.mesh, lo, b) for x in (tokens, lengths))
-            clean_rows = clean_token_rows(tokens.cpu().numpy(), lengths.cpu().numpy())
-            speech, n_clean = pad_speech(clean_rows)
-            speech = torch.from_numpy(speech[lo:hi]).to(self.device)
-            clean_lens = torch.from_numpy(n_clean[lo:hi]).to(self.device)
+        with annotate("tts.tokens"):
+            if device_chain:
+                speech, clean_lens = _compact_tokens(res.tokens, res.lengths)
+                clean_rows = None
+            else:
+                tokens, lengths = res.tokens, res.lengths
+                if self.mesh is not None:  # the whole batch's tokens fix its token bucket
+                    tokens, lengths = (gather_rows(x, self.mesh, lo, b)
+                                       for x in (tokens, lengths))
+                clean_rows = clean_token_rows(tokens.cpu().numpy(), lengths.cpu().numpy())
+                speech, n_clean = pad_speech(clean_rows)
+                speech = torch.from_numpy(speech[lo:hi]).to(self.device)
+                clean_lens = torch.from_numpy(n_clean[lo:hi]).to(self.device)
 
         handle = synthesize(
             self.s3gen_params, inp.s3gen_cfg, inp.noise, self.watermarker, speech, clean_lens,
@@ -845,6 +852,7 @@ class ChatterboxTTS:
         # the readbacks do not occupy the device: no lock
         return [w for h in handles for w in self.collect(h)]
 
+    @spanned("tts.prepare")
     def prepare_call(self, texts: List[str], conds: Optional[Conditionals], exaggeration: float,
                      max_new_tokens: int, flow_steps: Optional[int] = None,
                      alignment: bool = False) -> CallInputs:

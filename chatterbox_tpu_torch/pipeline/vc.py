@@ -41,6 +41,7 @@ from ..models.s3gen.s3gen import (RefDict, S3GenConfig, convert_s3gen, embed_ref
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
 from ..models.watermark import PerthImplicitWatermarker
 from ..parallel.sharding import data_rows, gather_rows
+from ..runtime.profiling import annotate, spanned
 from .audio import load_wav
 from .conditionals import Conditionals
 from .tts import TOKEN_BUCKETS, _bucket, cast_s3gen, cfm_noise, collect, random_s3gen, synthesize
@@ -166,6 +167,7 @@ class ChatterboxVC:
             batch[i, : len(s)] = np.clip(np.round(s * 32768.0), -32768, 32767).astype(np.int16)
         return batch, n_toks, wav_bucket
 
+    @spanned("vc.upload")
     def _upload_sources(self, packed):
         """Packed sources -> (int16 batch, tokens per row, bucket * 640) on
         the device, copied on the caller's stream."""
@@ -174,6 +176,7 @@ class ChatterboxVC:
                 wav_bucket)
 
     @torch.inference_mode()
+    @spanned("vc.call")
     def generate_batch(self, audios: List = None, target_voice_path=None, seed: int = 0,
                        defer_collect: bool = False, _uploaded=None,
                        flow_steps: Optional[int] = None) -> List[np.ndarray]:
@@ -196,11 +199,13 @@ class ChatterboxVC:
         b = batch.shape[0]
         lo, hi = (0, b) if self.mesh is None else data_rows(self.mesh, b)
         batch, lens = batch[lo:hi], lens[lo:hi]
-        wav16 = batch.float() / 32768.0
-        with full_fp32():
-            # pad keys masked: a row's tokens must not depend on its batch-mates
-            tokens, _ = s3_tokenize(self.s3gen_params["tokenizer"], self.s3gen_cfg.tokenizer,
-                                    wav16, wav_lens=lens * _SAMPLES_PER_TOKEN)
+        with annotate("vc.tokenize"):
+            wav16 = batch.float() / 32768.0
+            with full_fp32():
+                # pad keys masked: a row's tokens must not depend on its batch-mates
+                tokens, _ = s3_tokenize(self.s3gen_params["tokenizer"],
+                                        self.s3gen_cfg.tokenizer, wav16,
+                                        wav_lens=lens * _SAMPLES_PER_TOKEN)
         handle = synthesize(self.s3gen_params, with_flow_steps(self.s3gen_cfg, n_steps),
                             self._cfm_noise, self.watermarker, tokens, lens, self.ref_dict, seed,
                             torch.bfloat16 if self.hift_bf16 else None,
