@@ -18,7 +18,7 @@
 //       to its tail;
 //   K2b (kv_quantize_kernel<T>): n tokens per (layer, k/v, row, head)
 //       quantized to int8 with one fp32 scale each and written in place: the
-//       prefill's s0 tokens, and every 8th step the full tail (the XLA
+//       prefill's s0 tokens, and the full tail at every 8th slot (the XLA
 //       quantize_kv plus the int8 column merge, llama.py:632-646).
 //
 // Cache layout: (L, 2, B, H, S, D), contiguous, K plane then V plane per
@@ -67,8 +67,8 @@
 //
 // K2 -- what bounds it: bytes (L*2*B*H*D elements read and written once).
 // Design: one thread per 16-byte vector of the (L, 2, B, H, D) new K/V,
-// written to slot `pos` of the matching cache (or tail) row: one launch per
-// decode step for all layers.
+// written to slot `pos` (mod S) of the matching cache (or tail) row: one
+// launch per decode step for all layers.
 //
 // K2b -- what bounds it: bytes (n tokens read in the working dtype, written
 // as int8 plus one fp32 scale), with the IEEE divisions close behind. Design:
@@ -87,6 +87,19 @@
 // finish overlap their loads with the others' divisions; a grid of one wave
 // striding over the tokens, 4 rounds a lane, was slower (PERF.md, K2b).
 // The first design, one warp a token, had 128 bytes in flight a warp.
+//
+// Positions from device memory. Each kernel reads its position (K1's
+// cur_len, K2's and K2b's pos) from one int32 in device memory, never from
+// an argument: the decode loop keeps its step counter on the device, so that
+// one captured CUDA graph replays every step. The int8 path's tail is a ring
+// of W slots: K1c+d takes merge_base = cur_len / W * W, K2 writes slot
+// pos % S (of the tail: pos - merge_base; of the bf16 cache, whose S holds
+// every pos: pos), and K2b, launched every step with the step's write slot
+// pos, quantizes its n tokens into [pos + 1 - n, pos + 1) when pos + 1
+// closes them ((pos + 1) % n == 0) and returns at once otherwise; the
+// prefill's s0 tokens are the case pos = s0 - 1, n = s0. cur_len is
+// clamped to [0, S], so that a wrong one cannot read outside the cache or
+// leave a ticket behind.
 
 #include "common.cuh"
 
@@ -303,6 +316,9 @@ __device__ __forceinline__ float2 combine(const float* parts, int n, float m_sel
   return make_float2(mx, l);
 }
 
+// a kernel's position: the int32 at dev, clamped to [0, hi]
+__device__ __forceinline__ int position(const int* dev, int hi) { return min(max(*dev, 0), hi); }
+
 // the live chunks of a launch: at least one, so that a (row, head) with
 // cur_len = 0 still writes its self-only output
 __device__ __forceinline__ int live_chunks(int cur_len) { return max(1, (cur_len + CH - 1) / CH); }
@@ -311,11 +327,15 @@ template <typename T, bool STATS>
 __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
     const T* __restrict__ k_layer,  // cache + offset of (layer, K plane)
     const T* __restrict__ v_layer,  // cache + offset of (layer, V plane)
-    int H, int S, const int* __restrict__ row_prefix, int gap_end, int cur_len,
-    const T* __restrict__ q, const T* __restrict__ k_new, const T* __restrict__ v_new,
-    T* __restrict__ out, float* __restrict__ ml, float scale, float* __restrict__ parts,
-    int* __restrict__ tickets) {
+    int H, int S, const int* __restrict__ row_prefix, int gap_end,
+    const int* __restrict__ cur_len_dev, const T* __restrict__ q, const T* __restrict__ k_new,
+    const T* __restrict__ v_new, T* __restrict__ out, float* __restrict__ ml, float scale,
+    float* __restrict__ parts, int* __restrict__ tickets) {
   const int chunk = blockIdx.x;
+  const int bh = blockIdx.y;  // (row, head), row-major over (B, H)
+  // both loads issued before either is waited for
+  const int rp = row_prefix[bh / H];
+  const int cur_len = position(cur_len_dev, S);
   const int n_live = live_chunks(cur_len);
   if (chunk >= n_live) return;
   __shared__ __align__(16) unsigned char k_s[CH * HD * sizeof(T)];
@@ -324,11 +344,9 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
   __shared__ float e_s[MAX_CHUNKS], le_s[MAX_CHUNKS];
   __shared__ int last;
 
-  const int bh = blockIdx.y;  // (row, head), row-major over (B, H)
   const int tid = threadIdx.x;
   const int g = tid % LPR;  // this lane's dims: [8g, 8g + 8)
   const int start = chunk * CH, end = min(start + CH, cur_len);
-  const int rp = row_prefix[bh / H];
   const long long plane = (long long)S * HD;
   const T* kb = k_layer + bh * plane + 8 * g;
   const T* vb = v_layer + bh * plane + 8 * g;
@@ -380,11 +398,15 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_int8_kernel(
     const int8_t* __restrict__ k_layer, const int8_t* __restrict__ v_layer,  // int8 cache planes
     const float* __restrict__ sk_layer, const float* __restrict__ sv_layer,  // their scales
     const T* __restrict__ tk_layer, const T* __restrict__ tv_layer,          // tail planes
-    int H, int S, int W, const int* __restrict__ row_prefix, int gap_end, int cur_len,
-    int merge_base, const T* __restrict__ q, const T* __restrict__ k_new,
+    int H, int S, int W, const int* __restrict__ row_prefix, int gap_end,
+    const int* __restrict__ cur_len_dev, const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, T* __restrict__ out, float scale, float* __restrict__ parts,
     int* __restrict__ tickets) {
   const int chunk = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int rp = row_prefix[bh / H];  // issued beside the position's load
+  const int cur_len = position(cur_len_dev, S);
+  const int merge_base = cur_len / W * W;
   const int n_live = live_chunks(cur_len);
   if (chunk >= n_live) return;
   // a chunk row holds an int8 cache row (slot < merge_base, its first HD
@@ -395,11 +417,9 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_int8_kernel(
   __shared__ float e_s[MAX_CHUNKS], le_s[MAX_CHUNKS];
   __shared__ int last;
 
-  const int bh = blockIdx.y;
   const int tid = threadIdx.x;
   const int g = tid % LPR;
   const int start = chunk * CH, end = min(start + CH, cur_len);
-  const int rp = row_prefix[bh / H];
   const int8_t* kb = k_layer + bh * (long long)S * HD + 8 * g;
   const int8_t* vb = v_layer + bh * (long long)S * HD + 8 * g;
   const float* skb = sk_layer + bh * (long long)S;
@@ -470,14 +490,16 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_int8_kernel(
 }
 
 __global__ void kv_append_kernel(char* __restrict__ cache, const char* __restrict__ new_kv,
-                                 long long rows, long long row_stride, int vecs_per_row,
-                                 long long pos_off) {
+                                 long long rows, int S, int row_bytes, int vecs_per_row,
+                                 const int* __restrict__ pos_dev) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long r = idx / vecs_per_row;
   const int c = (int)(idx % vecs_per_row);
   if (r >= rows) return;
+  // pos modulo S: the int8 path's tail is a ring
+  const int pos = ((*pos_dev % S) + S) % S;
   const uint4* src = reinterpret_cast<const uint4*>(new_kv) + r * vecs_per_row + c;
-  uint4* dst = reinterpret_cast<uint4*>(cache + r * row_stride + pos_off) + c;
+  uint4* dst = reinterpret_cast<uint4*>(cache + (r * S + pos) * row_bytes) + c;
   *dst = *src;
 }
 
@@ -515,7 +537,12 @@ __device__ __forceinline__ uint32_t pack4_int8(const float* q) {
 template <typename T>
 __global__ void __launch_bounds__(Q_THREADS) kv_quantize_kernel(
     int8_t* __restrict__ cache8, float* __restrict__ scales, const T* __restrict__ src,
-    long long tokens, int S, int n, int pos) {
+    long long tokens, int S, int n, const int* __restrict__ pos_dev) {
+  // the step's write slot w: the n tokens go to [w + 1 - n, w + 1) when w
+  // closes them, and nowhere otherwise
+  const int w = *pos_dev;
+  if ((w + 1) % n != 0 || w + 1 - n < 0 || w + 1 > S) return;
+  const int pos = w + 1 - n;
   const int lane = threadIdx.x & 31;
   const int grp = lane / Q_LANES, sub = lane % Q_LANES;
   const long long base = ((long long)blockIdx.x * (Q_THREADS / 32) + (threadIdx.x >> 5)) *
@@ -568,8 +595,9 @@ int s_chunks(int S) { return (S + CH - 1) / CH; }
 
 template <typename T>
 void launch_decode(const void* cache, int layer, int B, int H, int S, const void* row_prefix,
-                   int gap_end, int cur_len, const void* q, const void* k_new, const void* v_new,
-                   void* out, void* ml, float scale, void* work, void* tickets, cudaStream_t st) {
+                   int gap_end, const void* cur_len, const void* q, const void* k_new,
+                   const void* v_new, void* out, void* ml, float scale, void* work,
+                   void* tickets, cudaStream_t st) {
   const long long plane = (long long)B * H * S * HD;  // one (layer, K|V) plane
   const T* c = reinterpret_cast<const T*>(cache);
   const T* kl = c + (2LL * layer) * plane;
@@ -582,20 +610,21 @@ void launch_decode(const void* cache, int layer, int B, int H, int S, const void
   float* stats = reinterpret_cast<float*>(ml);
   float* parts = reinterpret_cast<float*>(work);
   int* tk = reinterpret_cast<int*>(tickets);
+  const int* cl = reinterpret_cast<const int*>(cur_len);
   const dim3 grid(s_chunks(S), B * H);
   if (stats) {
     flash_decode_kernel<T, true><<<grid, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, rp, gap_end, cur_len, qq, kn, vn, o, stats, scale, parts, tk);
+        kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, stats, scale, parts, tk);
   } else {
     flash_decode_kernel<T, false><<<grid, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, rp, gap_end, cur_len, qq, kn, vn, o, nullptr, scale, parts, tk);
+        kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, nullptr, scale, parts, tk);
   }
 }
 
 template <typename T>
 void launch_decode_int8(const void* cache8, const void* scales, const void* tail, int layer, int B,
-                        int H, int S, int W, const void* row_prefix, int gap_end, int cur_len,
-                        int merge_base, const void* q, const void* k_new, const void* v_new,
+                        int H, int S, int W, const void* row_prefix, int gap_end,
+                        const void* cur_len, const void* q, const void* k_new, const void* v_new,
                         void* out, float scale, void* work, void* tickets, cudaStream_t st) {
   const long long bh = (long long)B * H;
   const int8_t* c8 = reinterpret_cast<const int8_t*>(cache8);
@@ -606,17 +635,17 @@ void launch_decode_int8(const void* cache8, const void* scales, const void* tail
   flash_decode_int8_kernel<T><<<grid, DEC_THREADS, 0, st>>>(
       c8 + k_pl * bh * S * HD, c8 + v_pl * bh * S * HD, sc + k_pl * bh * S, sc + v_pl * bh * S,
       tl + k_pl * bh * W * HD, tl + v_pl * bh * W * HD, H, S, W,
-      reinterpret_cast<const int*>(row_prefix), gap_end, cur_len, merge_base,
+      reinterpret_cast<const int*>(row_prefix), gap_end, reinterpret_cast<const int*>(cur_len),
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k_new),
       reinterpret_cast<const T*>(v_new), reinterpret_cast<T*>(out), scale,
       reinterpret_cast<float*>(work), reinterpret_cast<int*>(tickets));
 }
 
-// what both K1 entry points take: head dim HD, a (B*H)-row grid,
-// 0 <= cur_len <= S, and 1 to MAX_CHUNKS chunks of S
-bool decode_shape_ok(int B, int H, int S, int D, int cur_len) {
-  return D == HD && B > 0 && H > 0 && (long long)B * H <= 65535 && 0 <= cur_len &&
-         cur_len <= S && 1 <= S && s_chunks(S) <= MAX_CHUNKS;
+// what both K1 entry points take: head dim HD, a (B*H)-row grid, a cur_len
+// pointer, and 1 to MAX_CHUNKS chunks of S
+bool decode_shape_ok(int B, int H, int S, int D, const void* cur_len) {
+  return D == HD && B > 0 && H > 0 && (long long)B * H <= 65535 && cur_len && 1 <= S &&
+         s_chunks(S) <= MAX_CHUNKS;
 }
 
 }  // namespace
@@ -624,12 +653,13 @@ bool decode_shape_ok(int B, int H, int S, int D, int cur_len) {
 extern "C" {
 
 // K1a / K1b. dtype: 0 = float32, 1 = bfloat16. cache (L, 2, B, H, S, D); q,
-// k_new, v_new, out (B, H, D); row_prefix (B,) int32; ml (B, H, 2) fp32 for
+// k_new, v_new, out (B, H, D); row_prefix (B,) int32; cur_len (1,) int32,
+// read when the kernel runs and clamped to [0, S]; ml (B, H, 2) fp32 for
 // the stats (m, l), or null for none; work (B*H*ceil(S/64)*(D + 2),) fp32
 // and tickets (B*H,) int32, zero, both reused by the launches on one cache,
 // which must run in order; 1 <= S <= 256*64. All device pointers.
 int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int S, int D,
-                     const void* row_prefix, int gap_end, int cur_len, const void* q,
+                     const void* row_prefix, int gap_end, const void* cur_len, const void* q,
                      const void* k_new, const void* v_new, void* out, void* ml, float scale,
                      void* work, void* tickets, void* stream) {
   if (!decode_shape_ok(B, H, S, D, cur_len)) return (int)cudaErrorInvalidValue;
@@ -649,25 +679,20 @@ int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int 
 // K1c+d. cache8 (L, 2, B, H, S, D) int8; scales (L, 2, B, H, S) fp32; tail
 // (L, 2, B, H, W, D), q, k_new, v_new and out (B, H, D) of `dtype` (0 =
 // float32, 1 = bfloat16); row_prefix (B,) int32; work and tickets as
-// K1a's. Requires 0 <= merge_base <= cur_len <= merge_base + W.
+// K1a's, cur_len too; the kernel takes merge_base = cur_len / W * W.
 int cbx_flash_decode_int8(const void* cache8, const void* scales, const void* tail, int dtype,
                           int layer, int B, int H, int S, int W, int D, const void* row_prefix,
-                          int gap_end, int cur_len, int merge_base, const void* q,
-                          const void* k_new, const void* v_new, void* out, float scale,
-                          void* work, void* tickets, void* stream) {
-  if (!decode_shape_ok(B, H, S, D, cur_len)) return (int)cudaErrorInvalidValue;
-  if (merge_base < 0 || merge_base > cur_len || cur_len - merge_base > W) {
-    return (int)cudaErrorInvalidValue;
-  }
+                          int gap_end, const void* cur_len, const void* q, const void* k_new,
+                          const void* v_new, void* out, float scale, void* work, void* tickets,
+                          void* stream) {
+  if (!decode_shape_ok(B, H, S, D, cur_len) || W <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     launch_decode_int8<bf16>(cache8, scales, tail, layer, B, H, S, W, row_prefix, gap_end,
-                             cur_len, merge_base, q, k_new, v_new, out, scale, work, tickets,
-                             st);
+                             cur_len, q, k_new, v_new, out, scale, work, tickets, st);
   } else if (dtype == 0) {
     launch_decode_int8<float>(cache8, scales, tail, layer, B, H, S, W, row_prefix, gap_end,
-                              cur_len, merge_base, q, k_new, v_new, out, scale, work, tickets,
-                              st);
+                              cur_len, q, k_new, v_new, out, scale, work, tickets, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -675,28 +700,31 @@ int cbx_flash_decode_int8(const void* cache8, const void* scales, const void* ta
 }
 
 // K2. cache (rows, S, row_bytes) viewed as bytes with rows = L*2*B*H; new_kv
-// (rows, row_bytes). Writes new_kv[r] to cache[r, pos]. row_bytes % 16 == 0.
+// (rows, row_bytes); pos (1,) int32, read when the kernel runs. Writes
+// new_kv[r] to cache[r, pos mod S]. row_bytes % 16 == 0.
 int cbx_kv_append(void* cache, const void* new_kv, long long rows, int S, int row_bytes,
-                  int pos, void* stream) {
-  if (row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
+                  const void* pos, void* stream) {
+  if (row_bytes % 16 != 0 || S <= 0 || !pos) return (int)cudaErrorInvalidValue;
   const int vecs = row_bytes / 16;
   const long long total = rows * vecs;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
   kv_append_kernel<<<(unsigned int)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<char*>(cache), reinterpret_cast<const char*>(new_kv), rows,
-      (long long)S * row_bytes, vecs, (long long)pos * row_bytes);
+      reinterpret_cast<char*>(cache), reinterpret_cast<const char*>(new_kv), rows, S, row_bytes,
+      vecs, reinterpret_cast<const int*>(pos));
   return (int)cudaGetLastError();
 }
 
 // K2b. src (rows, n, D) of `dtype` (0 = float32, 1 = bfloat16), rows =
 // L*2*B*H, 16-byte aligned; cache8 (rows, S, D) int8, 8-byte aligned, and
-// scales (rows, S) fp32. Quantizes src[r, t] into cache8[r, pos + t] and
-// scales[r, pos + t]; D = 64, pos + n <= S, rows * n < 2^31.
+// scales (rows, S) fp32; pos (1,) int32, the write slot w, read when the
+// kernel runs. Where (w + 1) % n == 0 and [w + 1 - n, w + 1) lies in S,
+// quantizes src[r, t] into cache8[r, w + 1 - n + t] and scales[r, w + 1 - n
+// + t]; otherwise writes nothing. D = 64, rows * n < 2^31.
 int cbx_kv_quantize(void* cache8, void* scales, const void* src, int dtype, long long rows, int S,
-                    int n, int D, int pos, void* stream) {
+                    int n, int D, const void* pos, void* stream) {
   const long long tokens = rows * n;
-  if (D != HD || n <= 0 || pos < 0 || pos + n > S || rows <= 0 || tokens >= (1LL << 31)) {
+  if (D != HD || n <= 0 || n > S || !pos || rows <= 0 || tokens >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
@@ -706,12 +734,13 @@ int cbx_kv_quantize(void* cache8, void* scales, const void* src, int dtype, long
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   int8_t* c8 = reinterpret_cast<int8_t*>(cache8);
   float* sc = reinterpret_cast<float*>(scales);
+  const int* pd = reinterpret_cast<const int*>(pos);
   if (dtype == 1) {
     kv_quantize_kernel<bf16><<<(unsigned int)blocks, Q_THREADS, 0, st>>>(
-        c8, sc, reinterpret_cast<const bf16*>(src), tokens, S, n, pos);
+        c8, sc, reinterpret_cast<const bf16*>(src), tokens, S, n, pd);
   } else {
     kv_quantize_kernel<float><<<(unsigned int)blocks, Q_THREADS, 0, st>>>(
-        c8, sc, reinterpret_cast<const float*>(src), tokens, S, n, pos);
+        c8, sc, reinterpret_cast<const float*>(src), tokens, S, n, pd);
   }
   return (int)cudaGetLastError();
 }

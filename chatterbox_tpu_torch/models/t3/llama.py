@@ -42,6 +42,7 @@ from ...core.layers import merge_heads, rms_norm, sdpa, split_heads
 from ...parallel.tensor_parallel import copy_to_model, model_size, reduce_from_model
 from ...ops.flash_decode import (
     TAIL_W,
+    device_position,
     flash_decode_layer_attention,
     flash_decode_layer_attention_int8,
     flash_decode_layer_attention_stats,
@@ -87,10 +88,24 @@ def rope_inv_freq(cfg: LlamaConfig) -> np.ndarray:
     return np.where(is_medium, smoothed, scaled).astype(np.float32)
 
 
+# (config, device) -> rope_inv_freq(config) on the device: made once, so that
+# no step uploads it (an upload from the host waits for the card)
+_INV_FREQ = {}
+
+
+def _inv_freq(cfg: LlamaConfig, device) -> torch.Tensor:
+    """``rope_inv_freq(cfg)`` as an fp32 tensor on ``device``, made at the
+    first call for the pair and kept."""
+    key = (cfg, torch.device(device))
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        inv = _INV_FREQ[key] = torch.from_numpy(rope_inv_freq(cfg)).to(device)
+    return inv
+
+
 def rope_cos_sin(cfg: LlamaConfig, positions):
     """positions (B, T) -> cos, sin (B, T, head_dim) in HF half-rotate layout."""
-    inv = torch.from_numpy(rope_inv_freq(cfg)).to(positions.device)
-    freqs = positions[..., None].float() * inv
+    freqs = positions[..., None].float() * _inv_freq(cfg, positions.device)
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
 
@@ -273,7 +288,7 @@ def llama_prefill(params, cfg: LlamaConfig, inputs_embeds, positions, attn_mask,
         return hidden, kvs
     values = torch.zeros(kv_shape + (cache_len, cfg.head_dim), dtype=torch.int8, device=dev)
     scales = torch.ones(kv_shape + (cache_len,), dtype=torch.float32, device=dev)
-    kv_cache_quantize_write(values, scales, kvs, 0)
+    kv_cache_quantize_write(values, scales, kvs, t - 1)  # slots [0, t)
     mb0 = t // TAIL_W * TAIL_W
     tail = torch.zeros(kv_shape + (TAIL_W, cfg.head_dim), dtype=dt, device=dev)
     tail[:, :, :, :, :t - mb0] = kvs[:, :, :, :, mb0:]
@@ -297,17 +312,21 @@ def _text_probs(cache, layer: int, q, m, l, text_slice: Tuple[int, int], row_pre
     return reduce_from_model(p.sum(dim=1)) / (p.shape[1] * model_size())
 
 
-def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positions,
+def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos, positions,
                       row_prefix, gap_end: int, layers=None, align_layer: Optional[int] = None,
                       text_slice: Optional[Tuple[int, int]] = None):
     """One-token incremental forward. x (B, 1, C); cache (the tensor or a
-    ``QuantCache``) holding valid slots [0, write_pos); positions (B, 1) rope
-    positions; row_prefix (B,) int32 and gap_end give slot validity (see
-    K1). The current token attends to itself as an explicit self-logit, its
-    stale slot ``write_pos`` is excluded (cur_len = write_pos), and after the
-    layer loop every layer's new K/V is written at ``write_pos`` in place
-    (into the tail on the int8 path, which is merged into the int8 cache
-    when ``write_pos + 1`` closes a group of TAIL_W).
+    ``QuantCache``) holding valid slots [0, write_pos); write_pos a (1,)
+    int32 tensor on the cache's device, which the kernels read there (no
+    launch depends on its value on the host, so a CUDA graph can replay the
+    step), or an int, uploaded once (``device_position``); positions (B, 1)
+    rope positions; row_prefix (B,) int32 and gap_end give slot validity
+    (see K1). The current token attends to itself as an explicit
+    self-logit, its stale slot ``write_pos`` is excluded (cur_len =
+    write_pos), and after the layer loop every layer's new K/V is written at
+    ``write_pos`` in place (into the tail on the int8 path, which is merged
+    into the int8 cache when ``write_pos + 1`` closes a group of TAIL_W).
+    The caller checks that the cache holds slot ``write_pos``.
 
     ``align_layer`` (with ``text_slice``, the cache slots of the text) asks
     for that layer's head-mean attention over the text: K1b runs there and
@@ -331,12 +350,12 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
         if quant or text_slice is None:
             raise ValueError("alignment needs the working-dtype KV cache and a text_slice")
     cos, sin = rope_cos_sin(cfg, positions)
+    write_pos = device_position(write_pos, x.device)
     if layers is None:
         layers = unstack_layers(params)
     kv_dtype = cache.tail.dtype if quant else cache.dtype
     new_kv = torch.empty((cfg.num_hidden_layers, 2, b, cfg.num_key_value_heads, d),
                          dtype=kv_dtype, device=x.device)
-    merge_base = write_pos // TAIL_W * TAIL_W
     attn = None
     for i, lp in enumerate(layers):
         y = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
@@ -345,7 +364,7 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
         q1, k1, v1 = (t[:, :, 0].contiguous() for t in (q, k, v))
         if quant:
             a = flash_decode_layer_attention_int8(
-                cache.values, cache.scales, cache.tail, merge_base, i, write_pos, row_prefix,
+                cache.values, cache.scales, cache.tail, None, i, write_pos, row_prefix,
                 gap_end, q1, k1, v1)
         elif i == align_layer:
             a, m, l = flash_decode_layer_attention_stats(
@@ -362,18 +381,19 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos: int, positi
     return rms_norm(params["final_ln"], x, cfg.rms_norm_eps), attn
 
 
-def kv_cache_write(cache, new_kv, write_pos: int):
+def kv_cache_write(cache, new_kv, write_pos):
     """Write one decode step's K/V of every layer (L, 2, B, H, D) at slot
-    ``write_pos``, in place: into the cache tensor (K2), or into the tail of
-    a ``QuantCache`` (K2), whose full group of TAIL_W is then quantized into
-    the int8 cache when ``write_pos + 1`` closes it (K2b)."""
+    ``write_pos`` (``device_position``), in place: into the cache tensor
+    (K2), or into the tail of a ``QuantCache`` (K2, at slot ``write_pos %
+    TAIL_W``), whose full group of TAIL_W K2b then quantizes into the int8
+    cache: K2b is launched every step and writes only when ``write_pos + 1``
+    closes the group."""
+    write_pos = device_position(write_pos, new_kv.device)
     if not isinstance(cache, QuantCache):
         kv_cache_append(cache, new_kv, write_pos)
         return
-    merge_base = write_pos // TAIL_W * TAIL_W
-    kv_cache_append(cache.tail, new_kv, write_pos - merge_base)
-    if (write_pos + 1) % TAIL_W == 0:
-        kv_cache_quantize_write(cache.values, cache.scales, cache.tail, merge_base)
+    kv_cache_append(cache.tail, new_kv, write_pos)
+    kv_cache_quantize_write(cache.values, cache.scales, cache.tail, write_pos)
 
 
 def convert_llama(sd, cfg: LlamaConfig, prefix="tfmr."):

@@ -10,13 +10,19 @@ few steps: tokens after a row's EOS are forced to EOS, so the extra steps do
 not change the result. The loop exists once, in ``t3_generate_resume``:
 ``t3_generate_start`` runs the prefill into a ``GenCarry``, which later
 calls advance in chunks (streaming, preemptible batches), and
-``t3_generate`` is the two over the whole budget. ``cache_quant`` takes the int8 KV cache and
-``alignment`` the hallucination watchdog (``alignment.py``), as in the JAX
-package. ``t3_forward``/``t3_loss`` are the teacher-forced training pass.
+``t3_generate`` is the two over the whole budget. A step is two functions,
+``_sample_part`` and ``_forward_part``, which read the step from a counter
+on the device; on the card they run eagerly once and are then captured as
+CUDA graphs that replay every later step (``_StepGraphs``). ``cache_quant``
+takes the int8 KV cache and ``alignment`` the hallucination watchdog
+(``alignment.py``), as in the JAX package. ``t3_forward``/``t3_loss`` are
+the teacher-forced training pass.
 """
 
+import contextlib
+import threading
 from dataclasses import dataclass, field
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -25,12 +31,13 @@ import torch.nn.functional as F
 from ...checkpoint import torch_convert as tc
 from ...core.layers import embedding, linear
 from ...core.sampling import SamplingConfig, cfg_combine, process_logits, sample_from_logits
-from ...parallel.tensor_parallel import copy_to_model, gather_vocab
-from ...runtime.profiling import annotate, spanned
+from ...ops import kernels
+from ...parallel.tensor_parallel import copy_to_model, gather_vocab, model_group
+from ...runtime.profiling import annotate, count, spanned
 from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds, convert_cond_enc
-from .llama import (LLAMA_520M, LlamaConfig, convert_llama, llama_decode_step, llama_prefill,
-                    unstack_layers)
+from .llama import (LLAMA_520M, LlamaConfig, QuantCache, convert_llama, llama_decode_step,
+                    llama_prefill, unstack_layers)
 
 # the decode loop reads "every row done" on the host once per this many steps
 # (each read waits for the card)
@@ -156,9 +163,11 @@ class GenCarry:
     """The decode loop's state between steps: the resumable handle of
     chunked and streaming generation (``t3_generate_resume``), as the JAX
     package's ``GenCarry`` (t3.py:208-222). Everything lives on the device
-    except the step index and the shapes. K1's workspace belongs to the
+    except the shapes and the host's copy of the step index, ``i``, which
+    the loop's control flow reads; every tensor is written in place, so that
+    a captured step finds it where it was. K1's workspace belongs to the
     cache tensor (``ops/flash_decode._workspaces``) and lives as long as the
-    carry holds it."""
+    carry holds it, as do the captured step's graphs (``graphs``)."""
 
     cache: Any  # (L, 2, 2B, H, S, D) working dtype, or a QuantCache with its tail
     tokens: torch.Tensor  # (B, max_new) int32, EOS-padded
@@ -167,17 +176,20 @@ class GenCarry:
     logits: torch.Tensor  # (2B, vocab): the last step's (the prefill's at i = 0)
     row_prefix: torch.Tensor  # (2B,) int32: [cond; text] slots a row
     base_pos: torch.Tensor  # (2B,) int64: compacted rope position of step 0
+    step: torch.Tensor  # (1,) int64: the step on the device, equal to i
+    pos: torch.Tensor  # (1,) int32: s0 + step, the cache slot the step writes
     i: int  # decode steps taken; the next token's index
     s0: int  # prefill length: step i writes cache slot s0 + i
     gap_end: int  # first slot after the text bucket
     generator: Optional[torch.Generator] = None  # the draws, when no uniforms
-    uniforms: Optional[torch.Tensor] = None  # (max_new, B) in [0, 1): step i's draw
+    uniforms: Optional[torch.Tensor] = None  # (max_new, B) fp32 on the device: step i's draw
     # (lo, hi, total): these rows are rows [lo, hi) of a batch of ``total``
     # split over data-parallel ranks; each step draws for all ``total`` rows
     # (``uniforms``: (max_new, total)) and takes its own
     draw_rows: Optional[Tuple[int, int, int]] = None
     align: Any = None  # the watchdog's AlignState, when alignment is on
     attn: Optional[torch.Tensor] = None  # (B, T_text) the last step's text attention
+    graphs: Optional["_StepGraphs"] = None  # the captured step, once it is
 
 
 def _carry_result(cy: GenCarry, stop: int) -> GenResult:
@@ -226,12 +238,16 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
 
     seen = torch.zeros((b, cfg.speech_tokens_dict_size), dtype=torch.bool, device=dev)
     seen[:, cfg.start_speech_token] = True
+    if uniforms is not None:  # uploaded once; each step picks its row on the device
+        uniforms = uniforms.to(device=dev, dtype=torch.float32)
     carry = GenCarry(
         cache=cache,
         tokens=torch.full((b, max_new_tokens), cfg.stop_speech_token, dtype=torch.int32,
                           device=dev),
         seen=seen, done=torch.zeros((b,), dtype=torch.bool, device=dev), logits=logits,
-        row_prefix=row_prefix.contiguous(), base_pos=base_pos, i=0, s0=s0,
+        row_prefix=row_prefix.contiguous(), base_pos=base_pos,
+        step=torch.zeros((1,), dtype=torch.long, device=dev),
+        pos=torch.full((1,), s0, dtype=torch.int32, device=dev), i=0, s0=s0,
         gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms, draw_rows=draw_rows,
     )
     if alignment:
@@ -263,6 +279,174 @@ def t3_generate_start(
                   sampling, max_new_tokens, uniforms, generator, False, cache_quant)
 
 
+class _StepInputs(NamedTuple):
+    """What a decode step reads besides its carry: fixed for a carry's
+    chunk, and held by its captured graphs while they live."""
+
+    p: Any
+    cfg: T3Config
+    sampling: SamplingConfig
+    layers: List[dict]  # ``unstack_layers`` of p's Llama
+    eos_col: torch.Tensor  # (1, vocab) bool: the stop token's column
+    text_lens: torch.Tensor  # (B,) on the device: the watchdog's
+    text_slice: Tuple[int, int]  # the text's cache slots: the watchdog's
+
+
+def _step_inputs(p, cfg: T3Config, cy: GenCarry, text_lens,
+                 sampling: SamplingConfig) -> _StepInputs:
+    dev = cy.tokens.device
+    tmax = cy.gap_end - cfg.n_cond
+    return _StepInputs(
+        p, cfg, sampling, unstack_layers(p["llama"]),
+        torch.arange(cfg.speech_tokens_dict_size, device=dev)[None] == cfg.stop_speech_token,
+        text_lens.to(dev), (cfg.n_cond, cfg.n_cond + tmax))
+
+
+def _sample_part(cy: GenCarry, si: _StepInputs):
+    """The first half of step ``cy.step``: the token from the last logits
+    (CFG combine, the ``min_new_tokens`` floor, the watchdog, the
+    processors, the draw), written into column ``step`` of the tokens, into
+    ``seen`` and into ``done``, all in place. Returns the token (B,) int32.
+    Nothing here reads a value on the host, except the watchdog, which reads
+    ``cy.i`` and never runs captured."""
+    sampling, stop = si.sampling, si.cfg.stop_speech_token
+    b = cy.tokens.shape[0]
+    lg = cy.logits.float()  # sampling chain in fp32
+    lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if sampling.cfg_weight > 0 else lg
+    if sampling.min_new_tokens > 0:
+        lg = torch.where(si.eos_col & (cy.step < sampling.min_new_tokens),
+                         torch.finfo(torch.float32).min, lg)
+    if cy.align is not None:
+        cy.align, lg = alignment_step(cy.align, cy.attn, si.text_lens, cy.i, lg, stop)
+    lg = process_logits(lg, cy.seen, sampling)
+    if sampling.greedy:
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    else:
+        lo, hi, total = cy.draw_rows or (0, b, b)
+        if cy.uniforms is not None:
+            u = cy.uniforms.index_select(0, cy.step)[0]
+        else:
+            u = torch.rand((total,), generator=cy.generator, device=lg.device)
+        tok = sample_from_logits(lg, u[lo:hi])
+    tok = torch.where(cy.done, stop, tok)
+    cy.tokens.index_copy_(1, cy.step, tok[:, None])
+    cy.seen.scatter_(1, tok[:, None].long(), True)
+    cy.done |= tok == stop
+    return tok
+
+
+def _forward_part(cy: GenCarry, si: _StepInputs, tok):
+    """The second half of step ``cy.step``: token ``tok``'s embedding at
+    speech position step + 1, the layers at cache slot ``cy.pos`` (K1 reads
+    it on the device; K2 and K2b write there), the head's logits copied into
+    ``cy.logits``; then the step counter and the slot move on by one."""
+    p, cfg = si.p, si.cfg
+    b = cy.tokens.shape[0]
+    emb = (embedding(p["speech_emb"], tok.long())[:, None]
+           + p["speech_pos_emb"]["w"].index_select(0, cy.step + 1))
+    if si.sampling.cfg_weight > 0:
+        emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
+    alignment = cy.align is not None
+    h, attn_2b = llama_decode_step(
+        p["llama"], cfg.llama, emb, cy.cache, cy.pos, (cy.base_pos + cy.step)[:, None],
+        cy.row_prefix, cy.gap_end, layers=si.layers,
+        align_layer=cfg.alignment_layer if alignment else None, text_slice=si.text_slice,
+    )
+    cy.logits.copy_(_head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size))
+    if alignment:
+        cy.attn = attn_2b[:b]  # the conditional rows
+    _advance(cy)
+
+
+def _advance(cy: GenCarry):
+    cy.step += 1
+    cy.pos += 1
+
+
+class _StepGraphs:
+    """A carry's decode step as two CUDA graphs, the sample part and the
+    forward part, captured once on the decode stream (``_decode_stream``)
+    into one memory pool and replayed every later step. The host's break
+    after the sample keeps its place between the two replays. The graphs
+    read the carry's tensors where they lie, the step from ``cy.step``, and
+    the inputs ``si``, which they hold. The carry's generator is registered
+    with the sample graph, so that each replay's ``torch.rand`` draws what
+    the eager step would (the default generator registers itself).
+
+    The kernels' ``.launches`` counters count launches on the card: a
+    capture adds none, and each replay adds what its graph captured."""
+
+    def __init__(self, cy: GenCarry, si: _StepInputs):
+        self.si = si
+        fns = list(kernels().values())
+        before = [fn.launches for fn in fns]
+        self.sample_graph = torch.cuda.CUDAGraph()
+        if (cy.generator is not None and cy.uniforms is None
+                and not si.sampling.greedy):
+            self.sample_graph.register_generator_state(cy.generator)
+        with annotate("t3.sample"):
+            self.tok = self._capture(self.sample_graph, None, lambda: _sample_part(cy, si))
+        mid = [fn.launches for fn in fns]
+        self.forward_graph = torch.cuda.CUDAGraph()
+        with annotate("t3.forward"):
+            self._capture(self.forward_graph, self.sample_graph.pool(),
+                          lambda: _forward_part(cy, si, self.tok))
+        after = [fn.launches for fn in fns]
+        self.sample_launches = [(f, m - a) for f, a, m in zip(fns, before, mid) if m != a]
+        self.forward_launches = [(f, z - m) for f, m, z in zip(fns, mid, after) if z != m]
+        for fn, n in zip(fns, before):
+            fn.launches = n
+
+    @staticmethod
+    def _capture(graph, pool, body):
+        # thread_local: another thread's CUDA calls neither break the
+        # capture nor are broken by it
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+        try:
+            return body()
+        finally:
+            graph.capture_end()
+
+    def serves(self, p, sampling: SamplingConfig) -> bool:
+        return self.si.p is p and self.si.sampling == sampling
+
+    def sample(self):
+        self.sample_graph.replay()
+        for fn, n in self.sample_launches:
+            fn.launches += n
+
+    def forward(self):
+        self.forward_graph.replay()
+        for fn, n in self.forward_launches:
+            fn.launches += n
+
+
+# each thread's decode stream, one a device
+_STREAMS = threading.local()
+
+
+@contextlib.contextmanager
+def _decode_stream(dev: torch.device):
+    """Run the block on the calling thread's decode stream for ``dev``,
+    after the work already queued on the current stream, which then waits
+    for the block's work. A CUDA graph is captured on a stream other than
+    the default one; the eager steps before the capture run on the same
+    stream, so that its library state (cuBLAS's workspace a stream) exists
+    before the capture, which cannot make it."""
+    streams = _STREAMS.__dict__.setdefault("by_device", {})
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    stream = streams.get(index)
+    if stream is None:
+        stream = streams[index] = torch.cuda.Stream(index)
+    caller = torch.cuda.current_stream(dev)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        caller.wait_stream(stream)
+
+
 def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
                        sampling: SamplingConfig = SamplingConfig(), n_steps: int = 50):
     """Run the carry to step ``min(i + n_steps, max_new)``, or until every
@@ -270,70 +454,61 @@ def t3_generate_resume(p, cfg: T3Config, carry: GenCarry, text_lens,
     absolute step, so a run in chunks gives the tokens of one run: the int8
     cache's tail is merged at the same slots whatever the chunking. Updates
     ``carry`` in place and returns (carry, GenResult so far); the result's
-    tokens are the carry's own tensor, which a later resume writes on."""
+    tokens are the carry's own tensor, which a later resume writes on.
+
+    On a CUDA device, without the watchdog and outside a model group (whose
+    collectives stay eager), the loop runs on a decode stream of its own:
+    the carry's first step runs eagerly (it makes K1's workspace, which a
+    capture cannot), the next captures the step as CUDA graphs
+    (``_StepGraphs``), and every later step, in this call or a later one,
+    replays them. Eager and replayed steps leave the same tokens, cache and
+    step count. Each step counts ``t3.graph_steps`` or ``t3.eager_steps`` in
+    its ``t3.step`` span; ``t3.sample`` and ``t3.forward`` open around an
+    eager step's parts and, inside ``t3.capture``, around their capture: a
+    replayed step has no span below ``t3.step``."""
     cy = carry
     b, max_new = cy.tokens.shape
     dev = cy.tokens.device
-    cfg_on = sampling.cfg_weight > 0
     stop = cfg.stop_speech_token
-    text_lens = text_lens.to(dev)
-    tmax = cy.gap_end - cfg.n_cond
-    layers = unstack_layers(p["llama"])
-    eos_col = torch.arange(cfg.speech_tokens_dict_size, device=dev)[None] == stop
-    rows_b = torch.arange(b, device=dev)
-    alignment = cy.align is not None
-    align_layer = cfg.alignment_layer if alignment else None
-    text_slice = (cfg.n_cond, cfg.n_cond + tmax)
     i_end = min(cy.i + n_steps, max_new)
+    slots = (cy.cache.values if isinstance(cy.cache, QuantCache) else cy.cache).shape[4]
+    if cy.s0 + i_end > slots:
+        raise ValueError(f"the KV cache holds {slots} slots; step {i_end - 1} writes slot "
+                         f"{cy.s0 + i_end - 1}")
+    si = _step_inputs(p, cfg, cy, text_lens, sampling)
+    graphable = dev.type == "cuda" and cy.align is None and model_group() is None
+    if cy.graphs is not None and not cy.graphs.serves(p, sampling):
+        cy.graphs = None  # captured for other parameters: capture again
 
-    while cy.i < i_end:
-        with annotate("t3.step"):
-            i = cy.i
-            with annotate("t3.sample"):
-                lg = cy.logits.float()  # sampling chain in fp32
-                lg = cfg_combine(lg[:b], lg[b:], sampling.cfg_weight) if cfg_on else lg
-                if i < sampling.min_new_tokens:
-                    lg = torch.where(eos_col, torch.finfo(torch.float32).min, lg)
-                if alignment:
-                    cy.align, lg = alignment_step(cy.align, cy.attn, text_lens, i, lg, stop)
-                lg = process_logits(lg, cy.seen, sampling)
-                if sampling.greedy:
-                    tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    with _decode_stream(dev) if graphable else contextlib.nullcontext():
+        while cy.i < i_end:
+            with annotate("t3.step"):
+                # past step 0 a forward has run eagerly on this stream
+                if graphable and cy.i > 0 and cy.graphs is None:
+                    with annotate("t3.capture"):
+                        cy.graphs = _StepGraphs(cy, si)
+                graphs = cy.graphs if graphable else None
+                count("t3.graph_steps" if graphs is not None else "t3.eager_steps")
+                if graphs is not None:
+                    graphs.sample()
                 else:
-                    lo, hi, total = cy.draw_rows or (0, b, b)
-                    if cy.uniforms is not None:
-                        u = cy.uniforms[i].to(device=dev, dtype=torch.float32)
-                    else:
-                        u = torch.rand((total,), generator=cy.generator, device=dev)
-                    u = u[lo:hi]
-                    tok = sample_from_logits(lg, u)
-                tok = torch.where(cy.done, stop, tok)
-                cy.tokens[:, i] = tok
-                cy.seen[rows_b, tok.long()] = True
-                cy.done = cy.done | (tok == stop)
-            cy.i = i + 1
-            if cy.i == max_new:
-                break  # the last token's logits are never read
-            # every DONE_CHECK_EVERY absolute steps, and at the chunk's end
-            if cy.i % DONE_CHECK_EVERY == 0 or cy.i == i_end:
-                with annotate("t3.done_check"):
-                    finished = bool(cy.done.all())
-                if finished:
-                    break
-
-            with annotate("t3.forward"):
-                emb = (embedding(p["speech_emb"], tok.long())[:, None]
-                       + p["speech_pos_emb"]["w"][i + 1])
-                if cfg_on:
-                    emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
-                h, attn_2b = llama_decode_step(
-                    p["llama"], cfg.llama, emb, cy.cache, cy.s0 + i, (cy.base_pos + i)[:, None],
-                    cy.row_prefix, cy.gap_end, layers=layers, align_layer=align_layer,
-                    text_slice=text_slice,
-                )
-                cy.logits = _head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size)
-                if alignment:
-                    cy.attn = attn_2b[:b]  # the conditional rows
+                    with annotate("t3.sample"):
+                        tok = _sample_part(cy, si)
+                cy.i += 1
+                if cy.i == max_new:
+                    break  # the last token's logits are never read
+                # every DONE_CHECK_EVERY absolute steps, and at the chunk's end
+                if cy.i % DONE_CHECK_EVERY == 0 or cy.i == i_end:
+                    with annotate("t3.done_check"):
+                        finished = bool(cy.done.all())
+                    if finished:
+                        _advance(cy)  # the device's step stays equal to i
+                        break
+                if graphs is not None:
+                    graphs.forward()
+                else:
+                    with annotate("t3.forward"):
+                        _forward_part(cy, si, tok)
     return cy, _carry_result(cy, stop)
 
 

@@ -3,7 +3,8 @@
 ``kernels()`` names every wrapper that launches a kernel: the eight of the
 TTS and VC paths and the five of the probes (``probes/``); a wrapper counts
 its own launches in ``fn.launches`` (CPU calls, which take the plain
-version, do not count).
+version, do not count; T3's captured decode step adds the launches it
+captured at each replay, ``models/t3/t3.py``).
 """
 
 PROBE_KERNELS = ("noop_copy", "cache_column_write", "cache_block_rmw", "int8_probe",

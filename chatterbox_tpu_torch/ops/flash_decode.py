@@ -51,6 +51,21 @@ K2 replaces ``flash_cache_merge_ds`` (flash_decode.py:273-353):
   (see the source note).
 Both are bound by bytes.
 
+Positions on the device. The kernels read ``cur_len`` (K1) and ``pos`` (K2,
+K2b) from a (1,) int32 tensor on the cache's device when they run: the decode
+loop keeps its step on the device, so that a CUDA graph captured once replays
+every step (``models/t3/t3.py``). A wrapper also takes an int, which it
+checks against the cache and uploads (``device_position``; the upload waits
+for the card, and a capture refuses it). The int8 path's tail is a ring of
+``TAIL_W`` slots: K1c+d takes ``merge_base = cur_len // TAIL_W * TAIL_W``, K2
+writes slot ``pos % S`` (of the tail: ``pos - merge_base``), and K2b takes
+``pos`` as the write slot of the last of its n tokens: it quantizes them into
+``[pos + 1 - n, pos + 1)`` when ``(pos + 1) % n == 0`` and writes nothing
+otherwise, so the decode loop launches it every step and the tail is merged
+when ``pos + 1`` closes it (the prefill's s0 tokens: ``pos = s0 - 1``). The
+host cannot check a device position against the cache's length: its caller
+does, where it still knows the step; K1 clamps ``cur_len`` to [0, S].
+
 A wrapper takes its plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises. On either device it raises when grad mode is
 on and an operand requires grad (``_build.refuse_autograd``): no kernel has a
@@ -71,12 +86,12 @@ TAIL_W = 8
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIG = {
-    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _F, _P, _P,
+    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P,
                          _P],
-    "cbx_flash_decode_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
-                              _P, _P, _F, _P, _P, _P],
-    "cbx_kv_append": [_P, _P, _LL, _I, _I, _I, _P],
-    "cbx_kv_quantize": [_P, _P, _P, _I, _LL, _I, _I, _I, _I, _P],
+    "cbx_flash_decode_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
+                              _P, _F, _P, _P, _P],
+    "cbx_kv_append": [_P, _P, _LL, _I, _I, _P, _P],
+    "cbx_kv_quantize": [_P, _P, _P, _I, _LL, _I, _I, _I, _P, _P],
 }
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 64  # K1's and K2b's kernels: T3's head dim
@@ -86,6 +101,16 @@ _workspaces = WeakTensorKeyDictionary()  # cache -> (partials, tickets, streams 
 
 def _lib():
     return _build.load("flash_decode", _SIG)
+
+
+def device_position(pos, device) -> torch.Tensor:
+    """A position as the (1,) int32 tensor on ``device`` that the kernels
+    read: ``pos`` itself, or an int uploaded (which waits for the card)."""
+    if isinstance(pos, torch.Tensor):
+        require(pos.shape == (1,) and pos.dtype == torch.int32 and pos.device == device,
+                f"a device position must be a (1,) int32 tensor on {device}")
+        return pos
+    return torch.tensor([int(pos)], dtype=torch.int32, device=device)
 
 
 def _workspace(cache, pairs: int, s: int):
@@ -165,8 +190,8 @@ def _attend_plain(k, v, row_prefix, gap_end: int, q, k_new, v_new):
 def flash_decode_layer_attention_plain(cache, layer_idx, cur_len, row_prefix, gap_end,
                                       q, k_new, v_new):
     """K1a in fp32, returned in q's dtype. cache (L, 2, B, H, S, D);
-    q/k_new/v_new (B, H, D); row_prefix (B,) int; layer_idx, cur_len,
-    gap_end ints."""
+    q/k_new/v_new (B, H, D); row_prefix (B,) int; layer_idx and gap_end
+    ints; cur_len an int or a (1,) int tensor."""
     out, _, _ = flash_decode_layer_attention_stats_plain(
         cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
     return out
@@ -175,6 +200,7 @@ def flash_decode_layer_attention_plain(cache, layer_idx, cur_len, row_prefix, ga
 def flash_decode_layer_attention_stats_plain(cache, layer_idx, cur_len, row_prefix, gap_end,
                                             q, k_new, v_new):
     """K1b: (out in q's dtype, m (B, H) fp32, l (B, H) fp32)."""
+    cur_len = int(cur_len)
     k = cache[layer_idx, 0, :, :, :cur_len].float()
     v = cache[layer_idx, 1, :, :, :cur_len].float()
     out, m, l = _attend_plain(k, v, row_prefix, gap_end, q, k_new, v_new)
@@ -186,7 +212,9 @@ def flash_decode_layer_attention_int8_plain(cache8, scales, tail, merge_base, la
     """K1c+d in fp32, returned in q's dtype: slots [0, merge_base) are
     ``values * scale`` from the int8 cache (L, 2, B, H, S, D) and its scales
     (L, 2, B, H, S); slots [merge_base, cur_len) are tail slots
-    [0, cur_len - merge_base) of the tail (L, 2, B, H, W, D)."""
+    [0, cur_len - merge_base) of the tail (L, 2, B, H, W, D), where
+    ``merge_base = cur_len // W * W`` (``_merge_base``)."""
+    merge_base, cur_len = _merge_base(merge_base, cur_len, tail.shape[4]), int(cur_len)
     n_tail = cur_len - merge_base
 
     def keys(kv):
@@ -198,21 +226,38 @@ def flash_decode_layer_attention_int8_plain(cache8, scales, tail, merge_base, la
     return out.to(q.dtype)
 
 
-def kv_cache_append_plain(cache, new_kv, pos: int):
+def _merge_base(merge_base, cur_len, w: int) -> int:
+    """K1c+d's merge_base, ``cur_len // w * w``: ``merge_base`` is None, or
+    with an int cur_len that value."""
+    if isinstance(cur_len, torch.Tensor):
+        require(merge_base is None, "a device cur_len takes merge_base None: the kernel derives it")
+    base = int(cur_len) // w * w
+    require(merge_base is None or merge_base == base,
+            f"merge_base {merge_base} is not cur_len // {w} * {w} = {base}")
+    return base
+
+
+def kv_cache_append_plain(cache, new_kv, pos):
     """cache[:, :, :, :, pos] = new_kv, in place. cache (L, 2, B, H, S, D),
-    new_kv (L, 2, B, H, D)."""
+    new_kv (L, 2, B, H, D); a tensor pos writes slot ``pos % S``."""
+    if isinstance(pos, torch.Tensor):
+        pos = int(pos) % cache.shape[4]
     cache[:, :, :, :, pos] = new_kv.to(cache.dtype)
     return cache
 
 
-def kv_cache_quantize_write_plain(cache8, scales, src, pos: int):
+def kv_cache_quantize_write_plain(cache8, scales, src, pos):
     """Quantize src (L, 2, B, H, n, D) with ``quantize_kv`` into slots
-    [pos, pos + n) of cache8 (L, 2, B, H, S, D) int8 and scales
-    (L, 2, B, H, S) fp32, in place."""
+    [pos + 1 - n, pos + 1) of cache8 (L, 2, B, H, S, D) int8 and scales
+    (L, 2, B, H, S) fp32, in place, when ``(pos + 1) % n == 0``; otherwise
+    nothing is written. pos (an int or a (1,) tensor) is the write slot of
+    the last token."""
+    n, w = src.shape[4], int(pos)
+    if (w + 1) % n or not 0 <= w + 1 - n <= w < cache8.shape[4]:
+        return cache8, scales
     q8, sc = quantize_kv(src)
-    n = src.shape[4]
-    cache8[:, :, :, :, pos:pos + n] = q8
-    scales[:, :, :, :, pos:pos + n] = sc
+    cache8[:, :, :, :, w + 1 - n:w + 1] = q8
+    scales[:, :, :, :, w + 1 - n:w + 1] = sc
     return cache8, scales
 
 
@@ -243,13 +288,15 @@ def _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml)
     require(two == 2 and cache.is_contiguous(), "cache must be contiguous (L, 2, B, H, S, D)")
     require(cache.dtype == q.dtype and (b, h, d) == _check_decode_args(
         cache, row_prefix, q, k_new, v_new), "cache and q must agree in dtype and (B, H, D)")
-    require(0 <= layer_idx < n_layers and 0 <= cur_len <= s, "layer_idx / cur_len out of range")
+    require(0 <= layer_idx < n_layers and (isinstance(cur_len, torch.Tensor) or 0 <= cur_len <= s),
+            "layer_idx / cur_len out of range")
+    cur_len = device_position(cur_len, cache.device)
     require(cache.data_ptr() % 16 == 0, "cache must be 16-byte aligned")
     out = torch.empty_like(q)
     work, tickets = _workspace(cache, b * h, s)
     status = _lib().cbx_flash_decode(
         cache.data_ptr(), _DTYPE_CODE[cache.dtype], int(layer_idx), b, h, s, d,
-        row_prefix.data_ptr(), int(gap_end), int(cur_len), q.data_ptr(),
+        row_prefix.data_ptr(), int(gap_end), cur_len.data_ptr(), q.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
         None if ml is None else ml.data_ptr(), d ** -0.5, work.data_ptr(), tickets.data_ptr(),
         _build.stream_ptr(cache),
@@ -258,7 +305,7 @@ def _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml)
     return out
 
 
-def flash_decode_layer_attention(cache, layer_idx: int, cur_len: int, row_prefix,
+def flash_decode_layer_attention(cache, layer_idx: int, cur_len, row_prefix,
                                 gap_end: int, q, k_new, v_new):
     """K1a: decode attention for one layer against the full multi-layer
     cache; returns (B, H, D) in q's dtype. See the module docstring."""
@@ -271,7 +318,7 @@ def flash_decode_layer_attention(cache, layer_idx: int, cur_len: int, row_prefix
     return out
 
 
-def flash_decode_layer_attention_stats(cache, layer_idx: int, cur_len: int, row_prefix,
+def flash_decode_layer_attention_stats(cache, layer_idx: int, cur_len, row_prefix,
                                       gap_end: int, q, k_new, v_new):
     """K1b: K1a plus the final softmax stats; returns (out (B, H, D) in q's
     dtype, m (B, H) fp32, l (B, H) fp32)."""
@@ -285,17 +332,21 @@ def flash_decode_layer_attention_stats(cache, layer_idx: int, cur_len: int, row_
     return out, ml[..., 0], ml[..., 1]
 
 
-def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base: int, layer_idx: int,
-                                     cur_len: int, row_prefix, gap_end: int, q, k_new, v_new):
+def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base, layer_idx: int,
+                                     cur_len, row_prefix, gap_end: int, q, k_new, v_new):
     """K1c+d: decode attention over the int8 cache below ``merge_base`` and
     the tail from ``merge_base`` to ``cur_len``; returns (B, H, D) in q's
-    dtype. ``0 <= merge_base <= cur_len <= merge_base + W``."""
+    dtype, where ``merge_base = cur_len // W * W``: the kernel derives it,
+    and the argument is None or, with an int ``cur_len``, that value."""
     _build.refuse_autograd("flash_decode_layer_attention_int8", scales, tail, q, k_new, v_new)
     n_layers, two, b, h, s, d = cache8.shape
     w = tail.shape[4]
-    require(0 <= merge_base <= cur_len <= merge_base + w <= s and 0 <= layer_idx < n_layers,
-            f"need 0 <= merge_base ({merge_base}) <= cur_len ({cur_len}) <= merge_base + "
-            f"{w} <= {s}, and layer_idx < {n_layers}")
+    if isinstance(cur_len, torch.Tensor):
+        require(merge_base is None, "a device cur_len takes merge_base None: the kernel derives it")
+    else:
+        merge_base = _merge_base(merge_base, cur_len, w)
+        require(0 <= cur_len <= s, f"cur_len {cur_len} outside the cache length {s}")
+    require(0 <= layer_idx < n_layers, f"layer_idx {layer_idx} is not below {n_layers}")
     if cache8.device.type == "cpu":
         return flash_decode_layer_attention_int8_plain(
             cache8, scales, tail, merge_base, layer_idx, cur_len, row_prefix, gap_end,
@@ -312,22 +363,24 @@ def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base: int, lay
             "q must be (B, H, D) of the cache")
     require(d % 16 == 0 and cache8.data_ptr() % 16 == 0 and tail.data_ptr() % 16 == 0,
             "int8 rows must be whole, aligned 16-byte vectors")
+    cur_len = device_position(cur_len, cache8.device)
     out = torch.empty_like(q)
     work, tickets = _workspace(cache8, b * h, s)
     status = _lib().cbx_flash_decode_int8(
         cache8.data_ptr(), scales.data_ptr(), tail.data_ptr(), _DTYPE_CODE[q.dtype],
-        int(layer_idx), b, h, s, w, d, row_prefix.data_ptr(), int(gap_end), int(cur_len),
-        int(merge_base), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        d ** -0.5, work.data_ptr(), tickets.data_ptr(), _build.stream_ptr(cache8),
+        int(layer_idx), b, h, s, w, d, row_prefix.data_ptr(), int(gap_end), cur_len.data_ptr(),
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), d ** -0.5,
+        work.data_ptr(), tickets.data_ptr(), _build.stream_ptr(cache8),
     )
     _build.check(status, "flash_decode_layer_attention_int8")
     flash_decode_layer_attention_int8.launches += 1
     return out
 
 
-def kv_cache_append(cache, new_kv, pos: int):
+def kv_cache_append(cache, new_kv, pos):
     """K2: write one decode step's K/V of every layer into slot ``pos`` of
-    the cache (or the tail), in place; returns the cache."""
+    the cache (or the tail), in place; returns the cache. A device ``pos``
+    writes slot ``pos % S``."""
     _build.refuse_autograd("kv_cache_append", cache, new_kv)
     if cache.device.type == "cpu":
         return kv_cache_append_plain(cache, new_kv, pos)
@@ -340,25 +393,31 @@ def kv_cache_append(cache, new_kv, pos: int):
     row_bytes = d * cache.element_size()
     require(row_bytes % 16 == 0 and cache.data_ptr() % 16 == 0 and new_kv.data_ptr() % 16 == 0,
             "rows must be whole, aligned 16-byte vectors")
-    require(0 <= pos < s, f"pos {pos} outside the cache length {s}")
+    if not isinstance(pos, torch.Tensor):  # (a message must not format a device tensor)
+        require(0 <= pos < s, f"pos {pos} outside the cache length {s}")
+    pos = device_position(pos, cache.device)
     status = _lib().cbx_kv_append(
         cache.data_ptr(), new_kv.data_ptr(), n_layers * two * b * h, s, row_bytes,
-        int(pos), _build.stream_ptr(cache),
+        pos.data_ptr(), _build.stream_ptr(cache),
     )
     _build.check(status, "kv_cache_append")
     kv_cache_append.launches += 1
     return cache
 
 
-def kv_cache_quantize_write(cache8, scales, src, pos: int):
+def kv_cache_quantize_write(cache8, scales, src, pos):
     """K2b: quantize src (L, 2, B, H, n, D) per token into slots
-    [pos, pos + n) of the int8 cache and its scales, in place; returns
-    (cache8, scales)."""
+    [pos + 1 - n, pos + 1) of the int8 cache and its scales, in place, when
+    ``(pos + 1) % n == 0``, and write nothing otherwise; returns (cache8,
+    scales). ``pos`` is the write slot of the last token: the decode step's
+    slot, whose tail ``src`` is merged when it closes it, or the prefill's
+    ``s0 - 1`` with its s0 tokens."""
     _build.refuse_autograd("kv_cache_quantize_write", scales, src)
     n_layers, two, b, h, s, d = cache8.shape
     n = src.shape[4]
-    require(src.shape == (n_layers, two, b, h, n, d) and 0 <= pos and pos + n <= s,
-            f"src must be (L, 2, B, H, n, D) of the cache with pos + n <= {s}")
+    require(src.shape == (n_layers, two, b, h, n, d) and n <= s
+            and (isinstance(pos, torch.Tensor) or 0 <= pos < s),
+            f"src must be (L, 2, B, H, n <= {s}, D) of the cache, and pos a slot of it")
     if cache8.device.type == "cpu":
         return kv_cache_quantize_write_plain(cache8, scales, src, pos)
     require(cache8.device.type == "cuda", f"unsupported device {cache8.device}")
@@ -374,9 +433,10 @@ def kv_cache_quantize_write(cache8, scales, src, pos: int):
     require(d == _HEAD_DIM and cache8.data_ptr() % 16 == 0,
             f"head dim {d}: the kernel takes {_HEAD_DIM}, in whole, aligned int8 rows")
     require(n > 0, "src holds no token")
+    pos = device_position(pos, cache8.device)
     status = _lib().cbx_kv_quantize(
         cache8.data_ptr(), scales.data_ptr(), src.data_ptr(), _DTYPE_CODE[src.dtype],
-        n_layers * two * b * h, s, n, d, int(pos), _build.stream_ptr(cache8),
+        n_layers * two * b * h, s, n, d, pos.data_ptr(), _build.stream_ptr(cache8),
     )
     _build.check(status, "kv_cache_quantize_write")
     kv_cache_quantize_write.launches += 1

@@ -41,6 +41,11 @@ def model_parallel(group):
         _GROUP.reset(token)
 
 
+def model_group():
+    """The group of the enclosing ``model_parallel`` block, or None."""
+    return _GROUP.get()
+
+
 def model_size() -> int:
     g = _GROUP.get()
     return 1 if g is None else dist.get_world_size(g)

@@ -33,7 +33,7 @@ import torch
 from ..core.layers import rms_norm
 from ..models.t3.llama import (LlamaConfig, _mlp, _qkv, _wmat, apply_rope, fuse_qkv_params,
                                quantize_llama_weights, rope_cos_sin, unstack_layers)
-from ..ops.flash_decode import flash_decode_layer_attention
+from ..ops.flash_decode import device_position, flash_decode_layer_attention
 from ..ops.probes import noop_copy
 from . import device_name, main
 
@@ -48,7 +48,7 @@ class Setup:
     cache: torch.Tensor  # (L, 2, rows, H, S, D)
     row_prefix: torch.Tensor  # (rows,) int32
     gap_end: int
-    cur: int
+    cur: torch.Tensor  # (1,) int32 on the device: the live length K1 reads
     cos: torch.Tensor
     sin: torch.Tensor
     x0: torch.Tensor  # (rows, 1, C)
@@ -80,8 +80,8 @@ def make_setup(params, cfg: LlamaConfig, rows=16, s=384, cur=256, device="cuda",
     cos, sin = rope_cos_sin(cfg, positions)
     return Setup(cfg, unstack_layers(params),
                  randn(n_l, 2, rows, h, s, d),
-                 torch.full((rows,), ROW_PREFIX, dtype=torch.int32, device=device), GAP_END, cur,
-                 cos, sin,
+                 torch.full((rows,), ROW_PREFIX, dtype=torch.int32, device=device), GAP_END,
+                 device_position(cur, torch.device(device)), cos, sin,
                  randn(rows, 1, cfg.hidden_size), randn(rows, h, d),
                  torch.tensor(1e-6, dtype=torch.float32, device=device))
 

@@ -17,7 +17,7 @@ column into an (L, 2, B, H, S, D) cache, the layout the port chose
 
 import torch
 
-from ..ops.flash_decode import kv_cache_append, kv_cache_append_plain
+from ..ops.flash_decode import device_position, kv_cache_append, kv_cache_append_plain
 from ..ops.probes import cache_block_rmw, cache_column_write, cache_column_write_plain
 from . import cold_ms, device_name, graph_ms, main
 
@@ -91,13 +91,14 @@ def run(device, l=L, b=B, h=H, d=D, s=S, pos=POS):
     # K2 on the port's (S, D) layout, same column
     sd = cache.transpose(-1, -2).contiguous()
     new_sd = new[..., 0].contiguous()
+    pos_dev = device_position(pos, sd.device)  # K2 reads its slot on the device
     before = kv_cache_append.launches
-    if not torch.equal(kv_cache_append(sd.clone(), new_sd, pos),
+    if not torch.equal(kv_cache_append(sd.clone(), new_sd, pos_dev),
                        kv_cache_append_plain(sd.clone(), new_sd, pos)):
         raise AssertionError("K2: the append differs from the slice assignment")
     r = {"exact": True, "moved_bytes": 2 * new_sd.numel() * 2}
     if device.type == "cuda":
-        r["ms"] = graph_ms(lambda: kv_cache_append(sd, new_sd, pos), CHAIN)
+        r["ms"] = graph_ms(lambda: kv_cache_append(sd, new_sd, pos_dev), CHAIN)
     r["launches"] = kv_cache_append.launches - before
     out["variants"]["K2 kv_cache_append (S, D)"] = r
     return out

@@ -88,8 +88,8 @@ Phases (any failure exits non-zero before the last line):
           and a stream with alignment (400);
      K1 must launch once a layer a decode step (A: 10 x 249, B: 10 x 999,
      I: 30 x 999; C: 9 x 249 K1a and 249 K1b; H: 2 x 10 x 249; J: 10 x 999
-     K1c+d; K: 10 x 249), K2b once at the prefill and once every 8 steps
-     (I: 126);
+     K1c+d; K: 10 x 249), K2b once at the prefill and once a decode step,
+     merging where the step's slot closes a tail of 8 (I: 1000);
      after the first call of paths A, D and F (``WARM_PATHS``) a second,
      warm call is timed (audio seconds per second, per stage), and on paths
      A and F (bf16 and int8 weights) a third profiled (device time by
@@ -348,9 +348,19 @@ def kernel_phase():
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    def dpos(n):
+        """A position as the kernels read it: a (1,) int32 on the card,
+        uploaded here, outside every timed graph."""
+        return fd.device_position(n, dev)
+
+    def worst_check(checks):
+        """(max |err|, its limit, the worst share) of (err, tol, share)s."""
+        return max(c[0] for c in checks), checks[0][1], max(c[2] for c in checks)
+
     rows = {}
 
-    # ---- K1: decode attention, 16 CFG rows x 16 heads, mid-decode length
+    # ---- K1: decode attention, 16 CFG rows x 16 heads, mid-decode length,
+    # checked at lengths with cur_len % 8 = 1, 0 and 7 (the path's phases)
     s0 = N_COND + TEXT_BUCKET + N_BOS
     s_cache = -(-(s0 + MAX_NEW) // 128) * 128
     cur_len = s0 + MAX_NEW // 2
@@ -359,10 +369,16 @@ def kernel_phase():
     text_lens = torch.randint(20, TEXT_BUCKET, (N_TEXTS,), generator=g, device=dev)
     row_prefix = (N_COND + text_lens).repeat(2).to(torch.int32).contiguous()
     gap_end = N_COND + TEXT_BUCKET
-    args = (cache, 7, cur_len, row_prefix, gap_end, q, kn, vn)
-    want = fd.flash_decode_layer_attention_plain(*args)
-    err, tol, share = check_kernel("flash_decode_layer_attention",
-                                   fd.flash_decode_layer_attention(*args), want)
+    checks = []
+    for c in (cur_len, cur_len // TAIL_W * TAIL_W, cur_len // TAIL_W * TAIL_W + TAIL_W - 1):
+        want = fd.flash_decode_layer_attention_plain(cache, 7, c, row_prefix, gap_end, q, kn, vn)
+        checks.append(check_kernel(f"flash_decode_layer_attention (cur_len {c})",
+                                   fd.flash_decode_layer_attention(
+                                       cache, 7, dpos(c), row_prefix, gap_end, q, kn, vn), want))
+    err, tol, share = worst_check(checks)
+    want = fd.flash_decode_layer_attention_plain(cache, 7, cur_len, row_prefix, gap_end, q, kn, vn)
+    cur_dev = dpos(cur_len)
+    args = (cache, 7, cur_dev, row_prefix, gap_end, q, kn, vn)
     check_repeat("flash_decode_layer_attention", lambda: fd.flash_decode_layer_attention(*args))
     n_valid = int((row_prefix.long() + (cur_len - gap_end)).sum()) * T3_HEADS  # (row, head, slot)
     k1_bytes = 2 * n_valid * HEAD_DIM * 2 + 4 * ROWS * T3_HEADS * HEAD_DIM * 2 + ROWS * 4
@@ -384,7 +400,7 @@ def kernel_phase():
         err=err, tol=tol, share=share,
         library_err=library_err("flash_decode_layer_attention", k1_library(7), want),
         ms=timed(rotating(lambda i: fd.flash_decode_layer_attention(
-            cache, i, cur_len, row_prefix, gap_end, q, kn, vn), T3_LAYERS), 300),
+            cache, i, cur_dev, row_prefix, gap_end, q, kn, vn), T3_LAYERS), 300),
         plain_ms=timed(rotating(lambda i: fd.flash_decode_layer_attention_plain(
             cache, i, cur_len, row_prefix, gap_end, q, kn, vn), T3_LAYERS), 60),
         library_ms=timed(rotating(k1_library, T3_LAYERS), 300),
@@ -392,11 +408,13 @@ def kernel_phase():
     )
     del kv_lib
 
-    # ---- K2: per-step append of all 30 layers' K/V at one slot
+    # ---- K2: per-step append of all 30 layers' K/V at one slot, at the
+    # same three phases
     new_kv = randn(T3_LAYERS, 2, ROWS, T3_HEADS, HEAD_DIM)
     c_kernel, c_plain = cache.clone(), cache.clone()
-    fd.kv_cache_append(c_kernel, new_kv, cur_len)
-    fd.kv_cache_append_plain(c_plain, new_kv, cur_len)
+    for c in (cur_len, cur_len // TAIL_W * TAIL_W, cur_len // TAIL_W * TAIL_W + TAIL_W - 1):
+        fd.kv_cache_append(c_kernel, new_kv, dpos(c))
+        fd.kv_cache_append_plain(c_plain, new_kv, c)
     err, tol, share = check_kernel("kv_cache_append", c_kernel, c_plain, exact=True)
     c_lib = cache.clone()
     c_lib.index_copy_(4, torch.tensor([cur_len], device=dev), new_kv[:, :, :, :, None])
@@ -405,9 +423,11 @@ def kernel_phase():
     # each timed launch writes the next decode step's slot
     pos = [s0 + i for i in range(MAX_NEW)]
     pos_idx = [torch.tensor([p], device=dev) for p in pos]
+    pos_dev = [dpos(p) for p in pos]
     rows["kv_cache_append"] = dict(
         err=err, tol=tol, share=share, library_err=lib_err,
-        ms=timed(rotating(lambda i: fd.kv_cache_append(c_kernel, new_kv, pos[i]), MAX_NEW), 500),
+        ms=timed(rotating(lambda i: fd.kv_cache_append(c_kernel, new_kv, pos_dev[i]), MAX_NEW),
+                 500),
         plain_ms=timed(rotating(lambda i: fd.kv_cache_append_plain(c_kernel, new_kv, pos[i]),
                                 MAX_NEW), 500),
         library_ms=timed(rotating(lambda i: c_kernel.index_copy_(
@@ -435,8 +455,14 @@ def kernel_phase():
         valid = (idx[None] < row_prefix[:, None]) | (idx[None] >= gap_end)
         return int(valid[:, :mb].sum()), int(valid[:, mb:].sum())
 
-    def step_args(i):
-        return i % T3_LAYERS, curs[i % TAIL_W]
+    curs_dev = [dpos(c) for c in curs]
+    # the checks' lengths: cur_len % 8 = 0, 1 and 7
+    phase_curs = (curs[-1], curs[0], curs[-2])
+
+    def step_args(i, device_len=True):
+        """(layer, cur_len) of timed launch i: the kernels' cur_len on the
+        card, the plain versions' an int."""
+        return i % T3_LAYERS, (curs_dev if device_len else curs)[i % TAIL_W]
 
     rows_h = ROWS * T3_HEADS
     vec_bytes = 4 * rows_h * HEAD_DIM * 2 + ROWS * 4  # q, k_new, v_new, out; row_prefix
@@ -464,14 +490,18 @@ def kernel_phase():
     # K1b: K1a plus (m, l) on the bf16 cache; m and l are held to fp32
     # summation order: m is one scaled dot of 64 terms (1e-5 |m| + 1e-5), l
     # sums ~600 positive terms each off by m's error (2 n 2^-24 < 1e-4 |l|)
-    args = (kv, 7, c_mid + 3, row_prefix, gap_end, q, kn, vn)
-    out, m, l = fd.flash_decode_layer_attention_stats(*args)
-    want, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+    checks, m_share, l_share = [], 0.0, 0.0
+    for c in (c_mid + 3,) + phase_curs:
+        args = (kv, 7, c, row_prefix, gap_end, q, kn, vn)
+        out, m, l = fd.flash_decode_layer_attention_stats(kv, 7, dpos(c), *args[3:])
+        want, want_m, want_l = fd.flash_decode_layer_attention_stats_plain(*args)
+        checks.append(check_kernel(f"flash_decode_layer_attention_stats (cur_len {c})", out,
+                                   want))
+        m_share = max(m_share, float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max()))
+        l_share = max(l_share, float(((l - want_l).abs() / (1e-4 * want_l)).max()))
     check_repeat("flash_decode_layer_attention_stats",
-                 lambda: fd.flash_decode_layer_attention_stats(*args))
-    err, tol, share = check_kernel("flash_decode_layer_attention_stats", out, want)
-    m_share = float(((m - want_m).abs() / (1e-5 * want_m.abs() + 1e-5)).max())
-    l_share = float(((l - want_l).abs() / (1e-4 * want_l)).max())
+                 lambda: fd.flash_decode_layer_attention_stats(kv, 7, curs_dev[3], *args[3:]))
+    err, tol, share = worst_check(checks)
     print(f"kernel flash_decode_layer_attention_stats: m at {m_share:.3f} of |err| <= "
           f"1e-5|m| + 1e-5, l at {l_share:.3f} of |err| <= 1e-4|l|", flush=True)
     if not (m_share <= 1.0 and l_share <= 1.0):
@@ -486,7 +516,7 @@ def kernel_phase():
         ms=timed(rotating(lambda i: fd.flash_decode_layer_attention_stats(
             kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 240),
         plain_ms=timed(rotating(lambda i: fd.flash_decode_layer_attention_stats_plain(
-            kv, *step_args(i), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 60),
+            kv, *step_args(i, False), row_prefix, gap_end, q, kn, vn), T3_LAYERS * TAIL_W), 60),
         library_ms=timed(rotating(lib, T3_LAYERS), 300),
         library_note="SDPA gives no (m, l)",
         bound=mean_bound(lambda c: 2 * sum(live(c)) * T3_HEADS * HEAD_DIM * 2 + vec_bytes
@@ -511,13 +541,24 @@ def kernel_phase():
 
     # K1c+d: the int8 cache below merge_base, the bf16 tail from there on;
     # the main cache slots at and past merge_base are never read
-    def k1c(i, fn=fd.flash_decode_layer_attention_int8):
-        layer, cur = step_args(i)
-        mb = cur // TAIL_W * TAIL_W
-        return fn(cache8, scales, tails[mb], mb, layer, cur, row_prefix, gap_end, q, kn, vn)
+    def k1c(i, plain=False, cur=None):
+        """Timed launch i (K1c+d, or its plain version), at cur_len cur
+        where given: the kernel derives merge_base from its cur_len."""
+        layer, c = i % T3_LAYERS, curs[i % TAIL_W] if cur is None else cur
+        tail = tails[c // TAIL_W * TAIL_W]
+        if plain:
+            return fd.flash_decode_layer_attention_int8_plain(
+                cache8, scales, tail, None, layer, c, row_prefix, gap_end, q, kn, vn)
+        c_dev = curs_dev[i % TAIL_W] if cur is None else dpos(cur)
+        return fd.flash_decode_layer_attention_int8(
+            cache8, scales, tail, None, layer, c_dev, row_prefix, gap_end, q, kn, vn)
 
-    want = k1c(TAIL_W // 2, fd.flash_decode_layer_attention_int8_plain)  # layer 4 at c_lib
-    err, tol, share = check_kernel("flash_decode_layer_attention_int8", k1c(TAIL_W // 2), want)
+    checks = [check_kernel(f"flash_decode_layer_attention_int8 (cur_len {c})",
+                           k1c(TAIL_W // 2, cur=c), k1c(TAIL_W // 2, True, c))
+              for c in phase_curs]
+    want = k1c(TAIL_W // 2, True)  # layer 4 at c_lib
+    checks.append(check_kernel("flash_decode_layer_attention_int8", k1c(TAIL_W // 2), want))
+    err, tol, share = worst_check(checks)
     check_repeat("flash_decode_layer_attention_int8", lambda: k1c(TAIL_W // 2))
     deq = (cache8.float() * scales[..., None]).to(bf)  # the library's input, made once
     mb_lib = c_lib // TAIL_W * TAIL_W
@@ -528,8 +569,7 @@ def kernel_phase():
     rows["flash_decode_layer_attention_int8"] = dict(
         err=err, tol=tol, share=share, library_err=lib_err,
         ms=timed(rotating(k1c, T3_LAYERS * TAIL_W), 240),
-        plain_ms=timed(rotating(lambda i: k1c(i, fd.flash_decode_layer_attention_int8_plain),
-                                T3_LAYERS * TAIL_W), 60),
+        plain_ms=timed(rotating(lambda i: k1c(i, True), T3_LAYERS * TAIL_W), 60),
         library_ms=timed(rotating(lib, T3_LAYERS), 300),
         library_note="SDPA over a dequantized bf16 copy made outside the timing",
         k1a_ms_same_live_lengths=k1a_same_ms,
@@ -541,48 +581,65 @@ def kernel_phase():
           f"{k1a_same_ms:.5f} ms at the same live lengths {curs[0]}-{curs[-1]}", flush=True)
     del kv_lib
 
-    # K2b: every 8th step's merge of the full tail into the int8 cache (the
-    # prefill takes the same kernel with n = s0 tokens); bit-exact
+    # K2b: launched every step with the step's write slot, it merges the
+    # full tail into the int8 cache where the slot closes it (the prefill
+    # takes the same kernel with n = s0 tokens); bit-exact at the slots of
+    # phases 7 (a merge), 0 and 1 (none: the cache is left bit for bit)
     tail = next(iter(tails.values()))
-    merge_pos = [s0 // TAIL_W * TAIL_W + TAIL_W * j for j in range(MAX_NEW_DEFAULT // TAIL_W)]
-    a = (cache8.clone(), scales.clone())
-    b = (cache8.clone(), scales.clone())
-    fd.kv_cache_quantize_write(*a, tail, merge_pos[7])
-    fd.kv_cache_quantize_write_plain(*b, tail, merge_pos[7])
-    err, tol, share = check_kernel("kv_cache_quantize_write", a[0], b[0], exact=True)
-    check_kernel("kv_cache_quantize_write (scales)", a[1], b[1], exact=True)
-    del a, b
+    merge_w = [s0 // TAIL_W * TAIL_W + TAIL_W * j + TAIL_W - 1
+               for j in range(MAX_NEW_DEFAULT // TAIL_W)]  # each merge's write slot
+    checks = []
+    for w in (merge_w[7], merge_w[7] + 1, merge_w[7] + 2):
+        a = (cache8.clone(), scales.clone())
+        b = (cache8.clone(), scales.clone())
+        fd.kv_cache_quantize_write(*a, tail, dpos(w))
+        fd.kv_cache_quantize_write_plain(*b, tail, w)
+        checks.append(check_kernel(f"kv_cache_quantize_write (write slot {w})", a[0], b[0],
+                                   exact=True))
+        check_kernel(f"kv_cache_quantize_write (write slot {w}, scales)", a[1], b[1], exact=True)
+        if (w + 1) % TAIL_W and not (torch.equal(a[0], cache8) and torch.equal(a[1], scales)):
+            fail(f"kv_cache_quantize_write: write slot {w} closes no tail, yet the cache changed")
+        del a, b
+    err, tol, share = worst_check(checks)
+    merge_dev = [dpos(w) for w in merge_w]
+    off_dev = [dpos(w + 1) for w in merge_w]  # the steps that merge nothing
     n_tok = tail.numel() // HEAD_DIM
     rows["kv_cache_quantize_write"] = dict(
         err=err, tol=tol, share=share, library_err=None,
-        ms=timed(rotating(lambda i: fd.kv_cache_quantize_write(cache8, scales, tail, merge_pos[i]),
-                          len(merge_pos)), 125),
+        ms=timed(rotating(lambda i: fd.kv_cache_quantize_write(cache8, scales, tail, merge_dev[i]),
+                          len(merge_w)), 125),
         plain_ms=timed(rotating(lambda i: fd.kv_cache_quantize_write_plain(
-            cache8, scales, tail, merge_pos[i]), len(merge_pos)), 125),
+            cache8, scales, tail, merge_w[i]), len(merge_w)), 125),
         library_ms=None, library_note="no single PyTorch call quantizes per token",
         bound=bound(n_tok * (HEAD_DIM * 2 + HEAD_DIM + 4), 4 * n_tok * HEAD_DIM),
     )
+    # the 7 launches of 8 whose slot closes no tail: each returns at once
+    off_ms = timed(rotating(lambda i: fd.kv_cache_quantize_write(cache8, scales, tail, off_dev[i]),
+                            len(merge_w)), 125)
     # ... and the prefill's launch: the s0 = 100 prefix tokens of every
     # (layer, k/v, row, head) at slot 0, bit-exact too; the ~98 MB of bf16
     # input does not stay in the 50 MB L2 between launches
     prefix = randn(T3_LAYERS, 2, ROWS, T3_HEADS, s0, HEAD_DIM)
     a = (cache8.clone(), scales.clone())
     b = (cache8.clone(), scales.clone())
-    fd.kv_cache_quantize_write(*a, prefix, 0)
-    fd.kv_cache_quantize_write_plain(*b, prefix, 0)
+    pre_dev = dpos(s0 - 1)  # the write slot of the prefix's last token
+    fd.kv_cache_quantize_write(*a, prefix, pre_dev)
+    fd.kv_cache_quantize_write_plain(*b, prefix, s0 - 1)
     check_kernel(f"kv_cache_quantize_write (prefill, n = {s0})", a[0], b[0], exact=True)
     check_kernel(f"kv_cache_quantize_write (prefill, n = {s0}, scales)", a[1], b[1], exact=True)
     del a, b
     n_pre = prefix.numel() // HEAD_DIM
     pre_bound = bound(n_pre * (HEAD_DIM * 2 + HEAD_DIM + 4), 4 * n_pre * HEAD_DIM)
-    pre_ms = timed(lambda: fd.kv_cache_quantize_write(cache8, scales, prefix, 0), 20)
-    pre_plain_ms = timed(lambda: fd.kv_cache_quantize_write_plain(cache8, scales, prefix, 0), 5)
+    pre_ms = timed(lambda: fd.kv_cache_quantize_write(cache8, scales, prefix, pre_dev), 20)
+    pre_plain_ms = timed(lambda: fd.kv_cache_quantize_write_plain(cache8, scales, prefix,
+                                                                  s0 - 1), 5)
     rows["kv_cache_quantize_write"]["extra"] = {
-        "n": TAIL_W, "ms_prefill": pre_ms, "plain_ms_prefill": pre_plain_ms,
-        "bound_ms_prefill": pre_bound[0], "n_prefill": s0}
+        "n": TAIL_W, "ms_no_merge": off_ms, "ms_prefill": pre_ms,
+        "plain_ms_prefill": pre_plain_ms, "bound_ms_prefill": pre_bound[0], "n_prefill": s0}
     k2b = rows["kv_cache_quantize_write"]
     print(f"kernel kv_cache_quantize_write: n = {TAIL_W}: {k2b['ms']:.5f} ms, "
-          f"{k2b['bound'][0] / k2b['ms']:.1%} of its {k2b['bound'][0]:.5f} ms bound; prefill "
+          f"{k2b['bound'][0] / k2b['ms']:.1%} of its {k2b['bound'][0]:.5f} ms bound; a step "
+          f"that merges nothing {off_ms:.5f} ms; prefill "
           f"n = {s0}: {pre_ms:.5f} ms, {pre_bound[0] / pre_ms:.1%} of its {pre_bound[0]:.5f} ms "
           f"bound (plain {pre_plain_ms:.5f} ms)", flush=True)
     del cache8, scales, tails, tail, prefix
@@ -801,10 +858,11 @@ def probe_kernel_phase():
     library_cold = cold_ms(lambda: cache.index_copy_(5, pos_idx, new))
     sd = cache.transpose(-1, -2).contiguous()
     new_sd = new[..., 0].contiguous()
-    got = fd.kv_cache_append(sd.clone(), new_sd, pos)
+    pos_dev = fd.device_position(pos, dev)
+    got = fd.kv_cache_append(sd.clone(), new_sd, pos_dev)
     k2_err, _, _ = check_kernel("kv_cache_append (P2/P3 shapes, (S, D))", got,
                                 fd.kv_cache_append_plain(sd.clone(), new_sd, pos), exact=True)
-    k2 = {"layout": "(S, D)", "ms": timed(lambda: fd.kv_cache_append(sd, new_sd, pos),
+    k2 = {"layout": "(S, D)", "ms": timed(lambda: fd.kv_cache_append(sd, new_sd, pos_dev),
                                            cache_write.CHAIN),
           "bound_ms": col_bound[0], "max_abs_err": k2_err}
     del sd, got
@@ -1625,9 +1683,10 @@ def cap_path(tts, conds, card):
     if tts.last_timings["kv_cache"] != "int8":
         fail(f"path I: T3 ran a {tts.last_timings['kv_cache']} KV cache, not int8")
     steps = MAX_NEW_DEFAULT - 1
+    # K2b at the prefill and in every decode step (it merges only where a
+    # slot closes a group of TAIL_W)
     check_launches("I", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
-                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * steps,
-                    _K2B: 1 + MAX_NEW_DEFAULT // TAIL_W})
+                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * steps, _K2B: 1 + steps})
     audio_s = sum(len(w) for w in wavs) / tts.sr
     print(f"path I: the one-shot cap at {MAX_NEW_DEFAULT} tokens (text bucket {tb}): batch {b} "
           f"(max_device_batch {tts.max_device_batch}); wall {wall:.3f} s for {audio_s:.3f} s of "
@@ -1650,10 +1709,13 @@ def cap_path(tts, conds, card):
 
 def cap_kernel_checks(b):
     """The kernels of path I at its batch of ``b`` texts (2b CFG rows), each
-    against its plain version within the kernel phase's limits: K2b at the
+    against its plain version within the kernel phase's limits, each T3
+    kernel given its position on the card as the path gives it: K2b at the
     prefill's n and at n = 8 into the whole 30-layer int8 cache (~11.6 GB
-    at 82 texts, byte offsets past 2^32), K2 into the tail, K1c+d at the
-    first and the last layer, K3 at 2b rows and K4 at b rows at path B's
+    at 82 texts, byte offsets past 2^32), and at two write slots that close
+    no tail (the cache left bit for bit), K2 into the tail and K1c+d at the
+    first and the last layer, each at cur_len % 8 = 0, 1 and 7, K3 at 2b
+    rows and K4 at b rows at path B's
     T = 2560, with a key length of its own a row. The plain versions of K3
     and K4 run on groups of rows, each row's output depending only on its
     own inputs. Returns {kernel: (max |err|, tol, share, rows)}."""
@@ -1683,7 +1745,12 @@ def cap_kernel_checks(b):
     def worst(*checks):
         return (max(c[0] for c in checks), checks[0][1], max(c[2] for c in checks), rows_t3)
 
-    # ---- K2b: the prefill's n = s0 at slot 0, then n = 8 at a merge slot
+    def dpos(n):
+        return fd.device_position(n, dev)
+
+    # ---- K2b: the prefill's n = s0 at slots [0, s0) (write slot s0 - 1),
+    # then n = 8 at a merge (write slot merge + 7), then at the two write
+    # slots after it, which close no tail and must leave the cache as it is
     s0 = N_COND + TEXT_BUCKET + N_BOS
     s_1000 = -(-(s0 + MAX_NEW_DEFAULT) // 128) * 128
     shape = (T3_LAYERS, 2, rows_t3, T3_HEADS, s_1000)
@@ -1697,38 +1764,57 @@ def cap_kernel_checks(b):
     merge = s0 + MAX_NEW_DEFAULT - 2 * TAIL_W - s0 % TAIL_W  # a merge slot late in the decode
     for pos, n in ((0, s0), (merge, TAIL_W)):
         src = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, n, HEAD_DIM)
-        fd.kv_cache_quantize_write(cache8, scales, src, pos)
-        fd.kv_cache_quantize_write_plain(b8, bsc, src, pos)
+        fd.kv_cache_quantize_write(cache8, scales, src, dpos(pos + n - 1))
+        fd.kv_cache_quantize_write_plain(b8, bsc, src, pos + n - 1)
         name = f"kv_cache_quantize_write ({rows_t3} rows, n = {n})"
         checks.append(exact_slots(name, cache8, b8, pos, n))
         checks.append(exact_slots(name + " scales", scales[..., None], bsc[..., None], pos, n))
-        del src
+    for w in (merge + TAIL_W, merge + TAIL_W + 1):  # src: the merge's tail
+        fd.kv_cache_quantize_write(cache8, scales, src, dpos(w))
+        torch.cuda.synchronize()
+        if not (torch.equal(cache8, b8) and torch.equal(scales, bsc)):
+            fail(f"kv_cache_quantize_write ({rows_t3} rows): write slot {w} closes no tail, "
+                 f"yet the cache changed")
+    print(f"kernel kv_cache_quantize_write ({rows_t3} rows): write slots {merge + TAIL_W} and "
+          f"{merge + TAIL_W + 1} left the cache bit for bit", flush=True)
+    del src
     out[_K2B] = worst(*checks)
     del b8, bsc
     torch.cuda.empty_cache()
 
-    # ---- K2: the per-step append into the bf16 tail (L, 2, B, H, 8, D)
+    # ---- K2: the per-step append into the bf16 tail (L, 2, B, H, 8, D),
+    # at the write slots of phases 0, 1 and 7 after the merge: tail slot
+    # pos % 8
     tail = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, TAIL_W, HEAD_DIM)
     new_kv = randn(T3_LAYERS, 2, rows_t3, T3_HEADS, HEAD_DIM)
-    t_plain = tail.clone()
-    fd.kv_cache_append(tail, new_kv, 5)
-    fd.kv_cache_append_plain(t_plain, new_kv, 5)
-    out[_K2] = worst(exact_slots(f"kv_cache_append ({rows_t3} rows)", tail, t_plain, 5, 1))
+    curs = (merge + TAIL_W, merge + TAIL_W + 1, merge + 2 * TAIL_W - 1)
+    checks = []
+    for c in curs:
+        t_plain = tail.clone()
+        fd.kv_cache_append(tail, new_kv, dpos(c))
+        fd.kv_cache_append_plain(t_plain, new_kv, c % TAIL_W)
+        checks.append(exact_slots(f"kv_cache_append ({rows_t3} rows, pos {c})", tail, t_plain,
+                                  c % TAIL_W, 1))
+    out[_K2] = worst(*checks)
     del t_plain, new_kv
 
-    # ---- K1c+d: late in the decode (a tail of 6), first and last layer
+    # ---- K1c+d: late in the decode, the first and the last layer, with
+    # merge_base = merge + 8 and tails of 0, 1 and 7
     text_lens = torch.randint(20, TEXT_BUCKET, (b,), generator=g, device=dev)
     row_prefix = (N_COND + text_lens).repeat(2).to(torch.int32).contiguous()
     gap_end = N_COND + TEXT_BUCKET
-    cur = merge + TAIL_W + 6
     q, kn, vn = (randn(rows_t3, T3_HEADS, HEAD_DIM) for _ in range(3))
     checks = []
     for layer in (0, T3_LAYERS - 1):
-        args = (cache8, scales, tail, merge + TAIL_W, layer, cur, row_prefix, gap_end, q, kn, vn)
-        checks.append(check_kernel(
-            f"flash_decode_layer_attention_int8 ({rows_t3} rows, layer {layer}, cur_len {cur})",
-            fd.flash_decode_layer_attention_int8(*args),
-            fd.flash_decode_layer_attention_int8_plain(*args)))
+        for cur in curs:
+            rest = (row_prefix, gap_end, q, kn, vn)
+            checks.append(check_kernel(
+                f"flash_decode_layer_attention_int8 ({rows_t3} rows, layer {layer}, cur_len "
+                f"{cur})",
+                fd.flash_decode_layer_attention_int8(cache8, scales, tail, None, layer, dpos(cur),
+                                                     *rest),
+                fd.flash_decode_layer_attention_int8_plain(cache8, scales, tail, merge + TAIL_W,
+                                                           layer, cur, *rest)))
     out[_K1C] = worst(*checks)
     del cache8, scales, tail, q, kn, vn
     torch.cuda.empty_cache()
@@ -2058,7 +2144,6 @@ def stream_path(tts, conds, card):
     from chatterbox_tpu_torch.models.t3.t3 import t3_generate
     from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
     from chatterbox_tpu_torch.pipeline import streaming
-    from chatterbox_tpu_torch.pipeline.tts import TEXT_BUCKETS, _bucket
 
     st = streaming.StreamConfig()
     kw = dict(seed=0, min_new_tokens=st.max_new_tokens - 1)
@@ -2094,18 +2179,16 @@ def stream_path(tts, conds, card):
           f"inputs and seed: {same}", flush=True)
     if not same:
         fail("path J: the streamed tokens differ from a one-shot t3_generate's")
-    # launches: K1c+d once a layer a decode step, K2b at the prefill and at
-    # every slot that closes a group of TAIL_W; K3/K4 in every tick
-    tb = _bucket(max(len(tts._encode_text(t)) for t in STREAM_TEXTS), TEXT_BUCKETS)
-    s0 = N_COND + tb + N_BOS
+    # launches: K1c+d once a layer a decode step, K2b at the prefill and in
+    # every decode step (it merges where a slot closes a group of TAIL_W);
+    # K3/K4 in every tick
     decode_steps = st.max_new_tokens - 1
-    merges = sum(1 for w in range(s0, s0 + decode_steps) if (w + 1) % TAIL_W == 0)
     unet_cfg = tts.s3gen_cfg.flow.estimator
     enc = tts.s3gen_cfg.flow.encoder
     k3_per_tick = unet_cfg.n_blocks * (2 + unet_cfg.num_mid_blocks) * tts.s3gen_cfg.flow.n_timesteps
     k4_per_tick = enc.num_blocks + enc.num_up_blocks
     check_launches("J", counts, (_K1C, _K2, _K2B, _K3, _K4), (_K1A, _K1B, _K5),
-                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * decode_steps, _K2B: 1 + merges,
+                   {_K1C: tts.t3_cfg.llama.num_hidden_layers * decode_steps, _K2B: 1 + decode_steps,
                     _K3: k3_per_tick * n_synth, _K4: k4_per_tick * n_synth})
     k3_t = sorted({s for s, _ in k3_spy.calls})
     k4_t = sorted({s for s, _ in k4_spy.calls})

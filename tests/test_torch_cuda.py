@@ -234,7 +234,7 @@ def test_flash_decode_graph_outlives_other_caches(cuda):
     workspace, then freed) and on an int8 cache, and after allocations
     that could take freed memory."""
     cache, q, kn, vn, rp = _split_inputs(cuda, torch.bfloat16, 100, 301, [50] * 16)
-    args = (cache, 1, 301, rp, 98, q, kn, vn)
+    args = (cache, 1, fd.device_position(301, cuda), rp, 98, q, kn, vn)  # no upload captured
     first = fd.flash_decode_layer_attention(*args)  # outside the capture: makes the workspace
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -287,28 +287,31 @@ def test_flash_decode_on_two_streams_at_once(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,n,pos", [((4, 2, 16, 16), 8, 296), ((4, 2, 16, 16), 101, 0),
-                                        ((3, 2, 5, 3), 1, 301), ((3, 2, 5, 3), 8, 13),
-                                        ((3, 2, 5, 3), 100, 5)])
+@pytest.mark.parametrize("rows,n,pos", [((4, 2, 16, 16), 8, 303), ((4, 2, 16, 16), 101, 100),
+                                        ((3, 2, 5, 3), 1, 301), ((3, 2, 5, 3), 8, 23),
+                                        ((3, 2, 5, 3), 100, 199), ((3, 2, 5, 3), 8, 13)])
 def test_kv_cache_quantize_write_matches_plain(cuda, dtype, rows, n, pos):
-    """K2b, bit for bit: the 8-token merge and a prefill of 101 tokens,
-    with an all-zero (padding) token; and n = 1, 8 and 100 over 90 rows (a
-    token count that is no multiple of a warp's 16) at slots that start off
-    a multiple of 8."""
+    """K2b, bit for bit, ``pos`` the write slot of the last token: the
+    8-token merge and a prefill of 101 tokens, with an all-zero (padding)
+    token; n = 1, 8 and 100 over 90 rows (a token count that is no multiple
+    of a warp's 16), n = 1 and 100 at slots that start off a multiple of 8;
+    and a slot that closes no tail, which writes nothing."""
     src = _randn(cuda, *rows, n, 64, seed=28, scale=3.0, dtype=dtype)
     src[:, :, :, :, n // 2] = 0
     cache8 = torch.zeros(rows + (512, 64), dtype=torch.int8, device=cuda)
     scales = torch.ones(rows + (512,), device=cuda)
     a = (cache8.clone(), scales.clone())
     fd.kv_cache_quantize_write(*a, src, pos)
-    b = fd.kv_cache_quantize_write_plain(cache8, scales, src, pos)
+    b = fd.kv_cache_quantize_write_plain(cache8.clone(), scales.clone(), src, pos)
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if (pos + 1) % n:
+        assert torch.equal(a[0], cache8) and torch.equal(a[1], scales)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,pos", [(8, 600), (100, 0)])
+@pytest.mark.parametrize("n,pos", [(8, 607), (100, 99)])
 def test_kv_cache_quantize_write_full_width(cuda, dtype, n, pos):
     """K2b, bit for bit, at the main path's width (30 layers, 16 CFG rows,
     16 heads, S = 1152): a decode merge of the full 8-token tail, and the

@@ -235,9 +235,10 @@ def test_split_s_walk_int8_matches_plain(chunk, cur_len):
 
 
 def test_kv_cache_quantize_write_matches_jax_merge():
-    """K2b: n tokens quantized into the (S, D) int8 cache at ``pos`` equal
-    the JAX package's ``quantize_kv`` followed by the int8 column merge into
-    its (D, S) cache, bit for bit, scales included."""
+    """K2b: n tokens quantized into the (S, D) int8 cache at [pos, pos + n)
+    (K2b's write slot of the last, pos + n - 1) equal the JAX package's
+    ``quantize_kv`` followed by the int8 column merge into its (D, S) cache,
+    bit for bit, scales included."""
     from chatterbox_tpu.models.t3.llama import quantize_kv
 
     rng = np.random.default_rng(9)
@@ -252,7 +253,7 @@ def test_kv_cache_quantize_write_matches_jax_merge():
     want_sc[..., pos:pos + w] = np.asarray(sc)
     cache = t(cache_ds.transpose(0, 1, 2, 3, 5, 4)).contiguous()
     got_sc = t(scales)
-    out = p_fd.kv_cache_quantize_write(cache, got_sc, t(new), pos)
+    out = p_fd.kv_cache_quantize_write(cache, got_sc, t(new), pos + w - 1)  # the last slot
     assert out[0] is cache and out[1] is got_sc
     np.testing.assert_array_equal(cache.numpy(), want.transpose(0, 1, 2, 3, 5, 4))
     np.testing.assert_array_equal(got_sc.numpy(), want_sc)

@@ -114,7 +114,7 @@ def test_int8_cache_carry_matches_jax_bit_for_bit(jax_int8_decode):
     s0, kv = r["s0"], t(r["kv_prefill"])
     values = torch.zeros(kv.shape, dtype=torch.int8)
     scales = torch.ones(kv.shape[:5])
-    pl.kv_cache_quantize_write(values, scales, kv[..., :s0, :].contiguous(), 0)
+    pl.kv_cache_quantize_write(values, scales, kv[..., :s0, :].contiguous(), s0 - 1)
     tail = torch.zeros(kv.shape[:4] + (pl.TAIL_W, kv.shape[-1]))
     mb0 = s0 // pl.TAIL_W * pl.TAIL_W
     tail[..., :s0 - mb0, :] = kv[..., mb0:s0, :]
