@@ -4,8 +4,10 @@
 // K1 replaces chatterbox_tpu/ops/flash_decode.py::flash_decode_layer_attention
 // (Pallas _kernel, flash_decode.py:54-270, called at :542), in three
 // variants:
-//   a  (flash_decode_kernel<T, false>): bf16 cache, no stats;
-//   b  (flash_decode_kernel<T, true>): a, plus the final softmax stats (m, l)
+//   a  (flash_decode_kernel<T, false, G>): bf16 cache, no stats; G query
+//      heads a KV head (1: T3's Llama; 4: the Granite backbone's GQA layers)
+//      and the caller's softmax scale;
+//   b  (flash_decode_kernel<T, true, 1>): a, plus the final softmax stats (m, l)
 //      of each (row, head) (Pallas return_stats, flash_decode.py:260-270);
 //   c+d (flash_decode_int8_kernel<T>): the int8 cache with per-token K/V
 //      scales below merge_base, and the tail of the most recent tokens in the
@@ -48,6 +50,10 @@
 // acc[64]) in fp32. On the int8 path the K scale multiplies the logit and
 // the V scale the probability, as the Pallas kernel folds them
 // (flash_decode.py:231-243), so no dequantized row is formed.
+// With G > 1 query heads a KV head (grouped-query attention), a CTA loads
+// its chunk of the KV head once and runs the chunk's partial for each of
+// the G heads in turn: the bytes are the KV head's, G times fewer than
+// with the K/V repeated, and the grid is (chunks, B * KV heads).
 // The combine runs in the same launch: each chunk writes its partial to a
 // workspace, then takes a ticket on its (row, head)'s counter after a
 // __threadfence; the last chunk to arrive takes the max and each chunk's
@@ -323,7 +329,12 @@ __device__ __forceinline__ int position(const int* dev, int hi) { return min(max
 // cur_len = 0 still writes its self-only output
 __device__ __forceinline__ int live_chunks(int cur_len) { return max(1, (cur_len + CH - 1) / CH); }
 
-template <typename T, bool STATS>
+// G query heads share each KV head (grouped-query attention; G = 1 is
+// multi-head): the CTA of a (row, KV head)'s chunk loads the chunk's K and V
+// once and computes the G heads' partials from it, one after another; the
+// (row, KV head)'s last chunk CTA combines each of the G heads. The
+// partials are per (row, query head), the tickets per (row, KV head).
+template <typename T, bool STATS, int G>
 __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
     const T* __restrict__ k_layer,  // cache + offset of (layer, K plane)
     const T* __restrict__ v_layer,  // cache + offset of (layer, V plane)
@@ -331,8 +342,9 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
     const int* __restrict__ cur_len_dev, const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, T* __restrict__ out, float* __restrict__ ml, float scale,
     float* __restrict__ parts, int* __restrict__ tickets) {
+  static_assert(!STATS || G == 1, "K1b takes one query head a KV head");
   const int chunk = blockIdx.x;
-  const int bh = blockIdx.y;  // (row, head), row-major over (B, H)
+  const int bh = blockIdx.y;  // (row, KV head), row-major over (B, H): H counts KV heads
   // both loads issued before either is waited for
   const int rp = row_prefix[bh / H];
   const int cur_len = position(cur_len_dev, S);
@@ -362,34 +374,44 @@ __global__ void __launch_bounds__(DEC_THREADS) flash_decode_kernel(
     copy_seg(k_s + so, kb + off, valid[j]);
     copy_seg(v_s + so, vb + off, valid[j]);
   }
-  float qf[8];
-  seg_to_float<T>(q + bh * HD + 8 * g, qf);
+  float qf[G][8];
+#pragma unroll
+  for (int h = 0; h < G; ++h) seg_to_float<T>(q + (bh * G + h) * HD + 8 * g, qf[h]);
   cp_async_wait_all();
 
-  float s[NR], w[NR];
 #pragma unroll
-  for (int j = 0; j < NR; ++j) {
-    float x[8];
-    seg_to_float<T>(k_s + seg + j * ROWS_STEP * HD * sizeof(T), x);
-    const float d = row_dot(x, qf);
-    s[j] = valid[j] ? d * scale : -INFINITY;
-    w[j] = 1.f;
+  for (int h = 0; h < G; ++h) {
+    float s[NR], w[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      float x[8];
+      seg_to_float<T>(k_s + seg + j * ROWS_STEP * HD * sizeof(T), x);
+      const float d = row_dot(x, qf[h]);
+      s[j] = valid[j] ? d * scale : -INFINITY;
+      w[j] = 1.f;
+    }
+    float* bh_parts = parts + (long long)(bh * G + h) * gridDim.x * PART;
+    chunk_partial(
+        s, w,
+        [&](int j, float (&x)[8]) { seg_to_float<T>(v_s + seg + j * ROWS_STEP * HD * sizeof(T), x); },
+        red, bh_parts + chunk * PART);
+    if constexpr (G > 1) __syncthreads();  // red is written again by the next head
   }
-  float* bh_parts = parts + (long long)bh * gridDim.x * PART;
-  chunk_partial(
-      s, w,
-      [&](int j, float (&x)[8]) { seg_to_float<T>(v_s + seg + j * ROWS_STEP * HD * sizeof(T), x); },
-      red, bh_parts + chunk * PART);
   if (!last_chunk(tickets + bh, n_live, &last)) return;
 
   float kx[8];
   seg_to_float<T>(k_new + bh * HD + 8 * g, kx);
-  const float m_self = row_dot(kx, qf) * scale;
-  const float2 st =
-      combine(bh_parts, n_live, m_self, v_new + bh * HD, out + bh * HD, e_s, le_s, red.m);
-  if (STATS && tid == 0) {
-    ml[2 * bh] = st.x;
-    ml[2 * bh + 1] = st.y;
+#pragma unroll
+  for (int h = 0; h < G; ++h) {
+    const int bhq = bh * G + h;
+    const float m_self = row_dot(kx, qf[h]) * scale;
+    const float2 st = combine(parts + (long long)bhq * gridDim.x * PART, n_live, m_self,
+                              v_new + bh * HD, out + bhq * HD, e_s, le_s, red.m);
+    if (STATS && tid == 0) {
+      ml[2 * bh] = st.x;
+      ml[2 * bh + 1] = st.y;
+    }
+    if constexpr (G > 1) __syncthreads();  // e_s, le_s and red are the next head's
   }
 }
 
@@ -593,11 +615,28 @@ __global__ void __launch_bounds__(Q_THREADS) kv_quantize_kernel(
 // the chunks a launch's grid holds along x: all of S's, whatever cur_len
 int s_chunks(int S) { return (S + CH - 1) / CH; }
 
+template <typename T, int G>
+void launch_decode_g(const T* kl, const T* vl, int B, int H, int S, const int* rp, int gap_end,
+                     const int* cl, const T* qq, const T* kn, const T* vn, T* o, float* stats,
+                     float scale, float* parts, int* tk, cudaStream_t st) {
+  const dim3 grid(s_chunks(S), B * H);
+  if constexpr (G == 1) {
+    if (stats) {
+      flash_decode_kernel<T, true, 1><<<grid, DEC_THREADS, 0, st>>>(
+          kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, stats, scale, parts, tk);
+      return;
+    }
+  }
+  flash_decode_kernel<T, false, G><<<grid, DEC_THREADS, 0, st>>>(
+      kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, nullptr, scale, parts, tk);
+}
+
+// H counts KV heads; q and out hold G query heads a KV head
 template <typename T>
-void launch_decode(const void* cache, int layer, int B, int H, int S, const void* row_prefix,
-                   int gap_end, const void* cur_len, const void* q, const void* k_new,
-                   const void* v_new, void* out, void* ml, float scale, void* work,
-                   void* tickets, cudaStream_t st) {
+void launch_decode(const void* cache, int layer, int B, int H, int G, int S,
+                   const void* row_prefix, int gap_end, const void* cur_len, const void* q,
+                   const void* k_new, const void* v_new, void* out, void* ml, float scale,
+                   void* work, void* tickets, cudaStream_t st) {
   const long long plane = (long long)B * H * S * HD;  // one (layer, K|V) plane
   const T* c = reinterpret_cast<const T*>(cache);
   const T* kl = c + (2LL * layer) * plane;
@@ -611,13 +650,12 @@ void launch_decode(const void* cache, int layer, int B, int H, int S, const void
   float* parts = reinterpret_cast<float*>(work);
   int* tk = reinterpret_cast<int*>(tickets);
   const int* cl = reinterpret_cast<const int*>(cur_len);
-  const dim3 grid(s_chunks(S), B * H);
-  if (stats) {
-    flash_decode_kernel<T, true><<<grid, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, stats, scale, parts, tk);
+  if (G == 4) {
+    launch_decode_g<T, 4>(kl, vl, B, H, S, rp, gap_end, cl, qq, kn, vn, o, stats, scale, parts,
+                          tk, st);
   } else {
-    flash_decode_kernel<T, false><<<grid, DEC_THREADS, 0, st>>>(
-        kl, vl, H, S, rp, gap_end, cl, qq, kn, vn, o, nullptr, scale, parts, tk);
+    launch_decode_g<T, 1>(kl, vl, B, H, S, rp, gap_end, cl, qq, kn, vn, o, stats, scale, parts,
+                          tk, st);
   }
 }
 
@@ -652,24 +690,28 @@ bool decode_shape_ok(int B, int H, int S, int D, const void* cur_len) {
 
 extern "C" {
 
-// K1a / K1b. dtype: 0 = float32, 1 = bfloat16. cache (L, 2, B, H, S, D); q,
-// k_new, v_new, out (B, H, D); row_prefix (B,) int32; cur_len (1,) int32,
-// read when the kernel runs and clamped to [0, S]; ml (B, H, 2) fp32 for
-// the stats (m, l), or null for none; work (B*H*ceil(S/64)*(D + 2),) fp32
-// and tickets (B*H,) int32, zero, both reused by the launches on one cache,
+// K1a / K1b. dtype: 0 = float32, 1 = bfloat16. cache (L, 2, B, H, S, D)
+// with H KV heads; q and out (B, H * G, D), G query heads a KV head (1, or
+// 4: Granite 4.0-H's groups; K1b: 1), head j reading KV head j / G; k_new, v_new (B, H, D);
+// row_prefix (B,) int32; cur_len (1,) int32, read when the kernel runs and
+// clamped to [0, S]; ml (B, H, 2) fp32 for the stats (m, l), or null for
+// none; scale the softmax's; work (B*H*G*ceil(S/64)*(D + 2),) fp32 and
+// tickets (B*H,) int32, zero, both reused by the launches on one cache,
 // which must run in order; 1 <= S <= 256*64. All device pointers.
-int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int S, int D,
+int cbx_flash_decode(const void* cache, int dtype, int layer, int B, int H, int G, int S, int D,
                      const void* row_prefix, int gap_end, const void* cur_len, const void* q,
                      const void* k_new, const void* v_new, void* out, void* ml, float scale,
                      void* work, void* tickets, void* stream) {
-  if (!decode_shape_ok(B, H, S, D, cur_len)) return (int)cudaErrorInvalidValue;
+  if (!decode_shape_ok(B, H, S, D, cur_len) || !(G == 1 || G == 4) || (ml && G != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    launch_decode<bf16>(cache, layer, B, H, S, row_prefix, gap_end, cur_len, q, k_new, v_new, out,
-                        ml, scale, work, tickets, st);
+    launch_decode<bf16>(cache, layer, B, H, G, S, row_prefix, gap_end, cur_len, q, k_new, v_new,
+                        out, ml, scale, work, tickets, st);
   } else if (dtype == 0) {
-    launch_decode<float>(cache, layer, B, H, S, row_prefix, gap_end, cur_len, q, k_new, v_new, out,
-                         ml, scale, work, tickets, st);
+    launch_decode<float>(cache, layer, B, H, G, S, row_prefix, gap_end, cur_len, q, k_new, v_new,
+                         out, ml, scale, work, tickets, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -17,12 +17,20 @@ CUDA graphs that replay every later step (``_StepGraphs``). ``cache_quant``
 takes the int8 KV cache and ``alignment`` the hallucination watchdog
 (``alignment.py``), as in the JAX package. ``t3_forward``/``t3_loss`` are
 the teacher-forced training pass.
+
+``GraniteT3Config`` puts the Granite 4.0-H hybrid backbone
+(``granite_hybrid.py``: Mamba-2 and grouped-query attention layers) in the
+Llama's place: its parameters are ``p["granite"]``, the carry holds its
+``SSMState`` beside the attention layers' KV cache, and the heads divide
+their logits by its ``logits_scaling``. It takes the working-dtype cache on
+one device, without the watchdog and without training: each of those raises
+a ValueError.
 """
 
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, ClassVar, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,6 +44,8 @@ from ...parallel.tensor_parallel import copy_to_model, gather_vocab, model_group
 from ...runtime.profiling import annotate, count, spanned
 from .alignment import alignment_step, init_align_state
 from .cond_enc import cond_embeds, convert_cond_enc
+from .granite_hybrid import (GRANITE_4_0_H_MICRO, GraniteHybridConfig, granite_decode_step,
+                             granite_layers, granite_prefill)
 from .llama import (LLAMA_520M, LlamaConfig, QuantCache, convert_llama, llama_decode_step,
                     llama_prefill, unstack_layers)
 
@@ -60,6 +70,8 @@ class T3Config:
     speaker_embed_size: int = 256
     alignment_layer: int = 9
     llama: LlamaConfig = field(default_factory=lambda: LLAMA_520M)
+    # the Granite backbone in the Llama's place: ``GraniteT3Config``'s field
+    granite: ClassVar[Optional[GraniteHybridConfig]] = None
 
     @property
     def n_cond(self) -> int:
@@ -67,7 +79,21 @@ class T3Config:
 
     @property
     def dim(self) -> int:
-        return self.llama.hidden_size
+        return (self.granite or self.llama).hidden_size
+
+
+@dataclass(frozen=True)
+class GraniteT3Config(T3Config):
+    """T3 with the Granite 4.0-H backbone (``granite_hybrid.py``) in place
+    of the Llama, whose ``llama`` config it then does not read."""
+
+    granite: GraniteHybridConfig = field(default_factory=lambda: GRANITE_4_0_H_MICRO)
+
+
+def _refuse_granite(cfg: T3Config, what: str, why: str):
+    """Raise the ValueError of a path the Granite backbone does not take."""
+    if cfg.granite is not None:
+        raise ValueError(f"the Granite 4.0-H backbone does not run {what}: {why}")
 
 
 def convert_t3(sd, cfg: T3Config = T3Config()):
@@ -85,11 +111,13 @@ def convert_t3(sd, cfg: T3Config = T3Config()):
     }
 
 
-def _head(p, name: str, x, vocab: int):
+def _head(p, name: str, x, vocab: int, cfg: T3Config):
     """A vocabulary head's logits over the whole vocabulary; under tensor
     parallelism this rank's slice of the head, gathered
-    (``parallel/tensor_parallel.py``)."""
-    return gather_vocab(linear(p[name], copy_to_model(x)), vocab)
+    (``parallel/tensor_parallel.py``). The Granite backbone's heads divide
+    by its ``logits_scaling``, as its published head does."""
+    logits = gather_vocab(linear(p[name], copy_to_model(x)), vocab)
+    return logits / cfg.granite.logits_scaling if cfg.granite is not None else logits
 
 
 def t3_cond_prefix(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv):
@@ -170,6 +198,7 @@ class GenCarry:
     carry holds it, as do the captured step's graphs (``graphs``)."""
 
     cache: Any  # (L, 2, 2B, H, S, D) working dtype, or a QuantCache with its tail
+    # (the Granite backbone: its attention layers' (La, 2, 2B, Hkv, S, D))
     tokens: torch.Tensor  # (B, max_new) int32, EOS-padded
     seen: torch.Tensor  # (B, vocab) bool
     done: torch.Tensor  # (B,) bool
@@ -190,6 +219,7 @@ class GenCarry:
     align: Any = None  # the watchdog's AlignState, when alignment is on
     attn: Optional[torch.Tensor] = None  # (B, T_text) the last step's text attention
     graphs: Optional["_StepGraphs"] = None  # the captured step, once it is
+    state: Any = None  # the Granite backbone's SSMState, updated in place
 
 
 def _carry_result(cy: GenCarry, stop: int) -> GenResult:
@@ -215,19 +245,34 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
     n_bos = 2 if cfg_on else 1
     pdt = p["speech_emb"]["w"].dtype
     text_lens = text_lens.to(dev)
+    if alignment:
+        _refuse_granite(cfg, "the alignment watchdog", "it reads a Llama layer's per-head text "
+                        "attention, which no Mamba layer has and K1b takes only without GQA")
+    if cache_quant:
+        _refuse_granite(cfg, "the int8 KV cache", "four GQA layers hold ~8 KiB a token-row; "
+                        "the cost is the Mamba state, which int8 K/V does not cut")
+    if model_group() is not None:
+        _refuse_granite(cfg, "under tensor parallelism", "its Mamba heads are not sharded")
 
     cond = t3_cond_prefix(p, cfg, speaker_emb.to(pdt), prompt_tokens, emotion_adv.to(pdt))
     pre = t3_build_prefill(p, cfg, cond, text_tokens, text_lens, sampling.cfg_weight)
     s0 = pre.embeds.shape[1]
     # the cache is padded to a multiple of 128 slots, as the JAX package does
     cache_len = -(-(s0 + max_new_tokens) // 128) * 128
-    hidden, cache = llama_prefill(
-        p["llama"], cfg.llama, pre.embeds, pre.positions, pre.valid, cache_len,
-        cache_quant=cache_quant,
-    )
+    state = None
+    if cfg.granite is not None:
+        hidden, cache, state = granite_prefill(p["granite"], cfg.granite, pre.embeds, pre.valid,
+                                               cache_len)
+        count("t3.ssm_state_bytes", sum(t.numel() * t.element_size() for t in state))
+        count("t3.ssm_layers", len(cfg.granite.mamba_layers))
+    else:
+        hidden, cache = llama_prefill(
+            p["llama"], cfg.llama, pre.embeds, pre.positions, pre.valid, cache_len,
+            cache_quant=cache_quant,
+        )
     rows = torch.arange(hidden.shape[0], device=dev)
     logits = _head(p, "speech_head", hidden[rows, pre.last_idx],
-                   cfg.speech_tokens_dict_size)  # (2B, vocab)
+                   cfg.speech_tokens_dict_size, cfg)  # (2B, vocab)
 
     # slot validity for the decode kernel: [cond; text] up to row_prefix,
     # then the text-padding gap, then [BOS; decoded] from gap_end on
@@ -249,6 +294,7 @@ def _start(p, cfg: T3Config, text_tokens, text_lens, speaker_emb, prompt_tokens,
         step=torch.zeros((1,), dtype=torch.long, device=dev),
         pos=torch.full((1,), s0, dtype=torch.int32, device=dev), i=0, s0=s0,
         gap_end=cfg.n_cond + tmax, generator=generator, uniforms=uniforms, draw_rows=draw_rows,
+        state=state,
     )
     if alignment:
         carry.align = init_align_state(b, tmax, device=dev)
@@ -286,7 +332,7 @@ class _StepInputs(NamedTuple):
     p: Any
     cfg: T3Config
     sampling: SamplingConfig
-    layers: List[dict]  # ``unstack_layers`` of p's Llama
+    layers: List[dict]  # ``unstack_layers`` of p's Llama, or ``granite_layers``
     eos_col: torch.Tensor  # (1, vocab) bool: the stop token's column
     text_lens: torch.Tensor  # (B,) on the device: the watchdog's
     text_slice: Tuple[int, int]  # the text's cache slots: the watchdog's
@@ -296,8 +342,10 @@ def _step_inputs(p, cfg: T3Config, cy: GenCarry, text_lens,
                  sampling: SamplingConfig) -> _StepInputs:
     dev = cy.tokens.device
     tmax = cy.gap_end - cfg.n_cond
+    layers = (granite_layers(p["granite"], cfg.granite) if cfg.granite is not None
+              else unstack_layers(p["llama"]))
     return _StepInputs(
-        p, cfg, sampling, unstack_layers(p["llama"]),
+        p, cfg, sampling, layers,
         torch.arange(cfg.speech_tokens_dict_size, device=dev)[None] == cfg.stop_speech_token,
         text_lens.to(dev), (cfg.n_cond, cfg.n_cond + tmax))
 
@@ -347,12 +395,16 @@ def _forward_part(cy: GenCarry, si: _StepInputs, tok):
     if si.sampling.cfg_weight > 0:
         emb = torch.cat([emb, emb], dim=0)  # the same token in both streams
     alignment = cy.align is not None
-    h, attn_2b = llama_decode_step(
-        p["llama"], cfg.llama, emb, cy.cache, cy.pos, (cy.base_pos + cy.step)[:, None],
-        cy.row_prefix, cy.gap_end, layers=si.layers,
-        align_layer=cfg.alignment_layer if alignment else None, text_slice=si.text_slice,
-    )
-    cy.logits.copy_(_head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size))
+    if cfg.granite is not None:
+        h = granite_decode_step(p["granite"], cfg.granite, emb, cy.cache, cy.state, cy.pos,
+                                cy.row_prefix, cy.gap_end, layers=si.layers)
+    else:
+        h, attn_2b = llama_decode_step(
+            p["llama"], cfg.llama, emb, cy.cache, cy.pos, (cy.base_pos + cy.step)[:, None],
+            cy.row_prefix, cy.gap_end, layers=si.layers,
+            align_layer=cfg.alignment_layer if alignment else None, text_slice=si.text_slice,
+        )
+    cy.logits.copy_(_head(p, "speech_head", h[:, 0], cfg.speech_tokens_dict_size, cfg))
     if alignment:
         cy.attn = attn_2b[:b]  # the conditional rows
     _advance(cy)
@@ -564,6 +616,7 @@ def t3_forward(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv, text_t
     (B, Ts, V_speech)): [cond; text + pos; speech + pos] in one causal
     prefill that builds no KV cache, pads masked out of the keys and their
     rope positions compacted (``cumsum(valid) - 1``, 0 at pads)."""
+    _refuse_granite(cfg, "the teacher-forced training pass", "the training path is the Llama's")
     b, tt = text_tokens.shape
     ts = speech_tokens.shape[1]
     dev = text_tokens.device
@@ -582,8 +635,8 @@ def t3_forward(p, cfg: T3Config, speaker_emb, prompt_tokens, emotion_adv, text_t
     hidden, _ = llama_prefill(p["llama"], cfg.llama, embeds, positions, valid, None)
     text_latents = hidden[:, cfg.n_cond : cfg.n_cond + tt]
     speech_latents = hidden[:, cfg.n_cond + tt :]
-    return (_head(p, "text_head", text_latents, cfg.text_tokens_dict_size),
-            _head(p, "speech_head", speech_latents, cfg.speech_tokens_dict_size))
+    return (_head(p, "text_head", text_latents, cfg.text_tokens_dict_size, cfg),
+            _head(p, "speech_head", speech_latents, cfg.speech_tokens_dict_size, cfg))
 
 
 def masked_ce(logits, targets, lens, data_group=None):

@@ -1,7 +1,8 @@
 """The port's hand-written kernels, each beside its plain PyTorch version.
 
-``kernels()`` names every wrapper that launches a kernel: the eight of the
-TTS and VC paths and the five of the probes (``probes/``); a wrapper counts
+``kernels()`` names every wrapper that launches a kernel: the nine of the
+TTS and VC paths (the ninth, the Mamba-2 decode update, on the Granite
+backbone's T3 only) and the five of the probes (``probes/``); a wrapper counts
 its own launches in ``fn.launches`` (CPU calls, which take the plain
 version, do not count; T3's captured decode step adds the launches it
 captured at each replay, ``models/t3/t3.py``).
@@ -12,7 +13,7 @@ PROBE_KERNELS = ("noop_copy", "cache_column_write", "cache_block_rmw", "int8_pro
 
 
 def kernels():
-    """{name: wrapper} for the thirteen kernels: the TTS and VC paths' eight,
+    """{name: wrapper} for the fourteen kernels: the TTS and VC paths' nine,
     then ``PROBE_KERNELS``."""
     from . import probes
     from .flash_attention import (
@@ -27,6 +28,7 @@ def kernels():
         kv_cache_append,
         kv_cache_quantize_write,
     )
+    from .ssm_decode import ssm_decode_update
 
     return {
         "flash_decode_layer_attention": flash_decode_layer_attention,
@@ -37,6 +39,7 @@ def kernels():
         "flash_self_attention_packed": flash_self_attention_packed,
         "flash_self_attention": flash_self_attention,
         "flash_relpos_attention": flash_relpos_attention,
+        "ssm_decode_update": ssm_decode_update,
         **{name: getattr(probes, name) for name in PROBE_KERNELS},
     }
 

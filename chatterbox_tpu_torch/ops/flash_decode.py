@@ -11,6 +11,9 @@ seed the softmax as a self-logit; slots at or past ``cur_len`` are never
 read. Three variants, one wrapper each:
 
 - a ``flash_decode_layer_attention``: a bf16 (or fp32) cache, no stats;
+  G query heads a KV head (grouped-query attention: 1 for T3's Llama, 4
+  for the Granite backbone's attention layers, whose softmax scale the
+  caller passes), each CTA loading a chunk of its KV head once for the G;
 - b ``flash_decode_layer_attention_stats``: a, plus the final softmax stats
   (m, l) per (row, head) (Pallas ``return_stats``, flash_decode.py:260-270,
   525-553): m is the max of the scaled logits, self-logit included, and
@@ -30,9 +33,10 @@ of one (row, head), each writing an fp32 partial (m, l, acc) to a
 workspace; the last chunk of each (row, head) to finish folds the partials
 in chunk order with the self-logit (see the source note in
 csrc/flash_decode.cu). The grid is all of S's chunks, whatever ``cur_len``.
-The workspace and its tickets belong to the cache (``_workspace``): sized
-once from its (B*H, S), reused by every launch on it, and freed with it;
-the tickets are 0 between launches. Launches on one cache must therefore
+The workspace and its tickets belong to the cache (``_workspace``): one
+for each number of (row, query head) pairs a launch takes (B * H * G),
+sized from it and S, reused by every launch on it, and freed with it; the
+tickets are 0 between launches. Launches on one cache must therefore
 run in order on the device, as its writes already must. The kernels take
 head dim 64 (T3's). The
 main path runs K1 in bf16; the fp32 kernels serve the exact-token check of
@@ -86,8 +90,8 @@ TAIL_W = 8
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIG = {
-    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P, _P,
-                         _P],
+    "cbx_flash_decode": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _F, _P,
+                         _P, _P],
     "cbx_flash_decode_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P,
                               _P, _F, _P, _P, _P],
     "cbx_kv_append": [_P, _P, _LL, _I, _I, _P, _P],
@@ -96,7 +100,7 @@ _SIG = {
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 64  # K1's and K2b's kernels: T3's head dim
 _CHUNK = 64  # slots a K1 CTA: csrc/flash_decode.cu's CH
-_workspaces = WeakTensorKeyDictionary()  # cache -> (partials, tickets, streams recorded)
+_workspaces = WeakTensorKeyDictionary()  # cache -> {pairs: (partials, tickets, streams)}
 
 
 def _lib():
@@ -117,21 +121,28 @@ def _workspace(cache, pairs: int, s: int):
     """K1's workspace for ``cache`` (the tensor the kernel reads: the cache,
     or the int8 values): pairs * ceil(s / 64) fp32 partials of D + 2 floats,
     and ``pairs`` int32 tickets that are 0 between launches (each launch's
-    last chunk CTA resets its own). It belongs to the cache: made at the
-    cache's first K1 launch, never regrown, and freed with it, so a CUDA
-    graph that captured a launch on the cache stays valid while the cache
-    lives. It cannot be made while a graph is being captured: the first
-    launch on a cache runs outside the capture. Each stream that launches
-    on it is recorded with the allocator, so its memory is not handed out
-    again before that stream's work is done."""
-    have = _workspaces.get(cache)
+    last chunk CTA resets its own). It belongs to the cache and to
+    ``pairs`` (a launch with G query heads a KV head takes G times the
+    pairs of one with G = 1, so each G has its own): made at the first K1
+    launch of that size on the cache, never regrown, and freed with the
+    cache, so a CUDA graph that captured a launch on the cache stays valid
+    while the cache lives. It cannot be made while a graph is being
+    captured: the first launch of each size on a cache runs outside the
+    capture. Each stream that launches on it is recorded with the
+    allocator, so its memory is not handed out again before that stream's
+    work is done."""
+    sized = _workspaces.get(cache)
+    if sized is None:
+        sized = _workspaces[cache] = {}
+    have = sized.get(pairs)
     if have is None:
         require(not torch.cuda.is_current_stream_capturing(),
-                "K1's workspace is made at the cache's first launch: launch once before capturing")
-        have = (torch.empty(pairs * -(-s // _CHUNK) * (_HEAD_DIM + 2), dtype=torch.float32,
-                            device=cache.device),
-                torch.zeros(pairs, dtype=torch.int32, device=cache.device), set())
-        _workspaces[cache] = have
+                "K1's workspace is made at the cache's first launch of each size: launch once "
+                "before capturing")
+        have = sized[pairs] = (
+            torch.empty(pairs * -(-s // _CHUNK) * (_HEAD_DIM + 2), dtype=torch.float32,
+                        device=cache.device),
+            torch.zeros(pairs, dtype=torch.int32, device=cache.device), set())
     stream = torch.cuda.current_stream(cache.device)
     if stream.cuda_stream not in have[2] and not torch.cuda.is_current_stream_capturing():
         have[0].record_stream(stream)
@@ -165,13 +176,19 @@ def quantize_kv(kv, axis=-1):
     return q, scale
 
 
-def _attend_plain(k, v, row_prefix, gap_end: int, q, k_new, v_new):
+def _attend_plain(k, v, row_prefix, gap_end: int, q, k_new, v_new, scale=None):
     """softmax([valid logits; self logit]) @ [v; v_new] in fp32 over the
-    fp32 keys ``k`` and values ``v`` (B, H, n, D) of slots [0, n). Returns
-    (out fp32 (B, H, D), m (B, H), l (B, H)) with m the max of the scaled
-    logits and l = sum exp(logit - m), self-logit included in both."""
+    fp32 keys ``k`` and values ``v`` (B, H, n, D) of slots [0, n), the
+    logits times ``scale`` (None: D ** -0.5). q (B, Hq, D) with Hq = G * H:
+    query head j reads KV head j // G (K, V, k_new and v_new repeated).
+    Returns (out fp32 (B, Hq, D), m (B, Hq), l (B, Hq)) with m the max of
+    the scaled logits and l = sum exp(logit - m), self-logit included in
+    both."""
     n, d = k.shape[2], q.shape[-1]
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        k, v, k_new, v_new = (t.repeat_interleave(g, dim=1) for t in (k, v, k_new, v_new))
     qf = q.float()
     logits = torch.einsum("bhd,bhsd->bhs", qf, k) * scale
     idx = torch.arange(n, device=k.device)
@@ -188,23 +205,34 @@ def _attend_plain(k, v, row_prefix, gap_end: int, q, k_new, v_new):
 
 
 def flash_decode_layer_attention_plain(cache, layer_idx, cur_len, row_prefix, gap_end,
-                                      q, k_new, v_new):
+                                      q, k_new, v_new, *, scale=None):
     """K1a in fp32, returned in q's dtype. cache (L, 2, B, H, S, D);
-    q/k_new/v_new (B, H, D); row_prefix (B,) int; layer_idx and gap_end
-    ints; cur_len an int or a (1,) int tensor."""
-    out, _, _ = flash_decode_layer_attention_stats_plain(
-        cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
-    return out
+    q (B, G * H, D), k_new/v_new (B, H, D); row_prefix (B,) int; layer_idx
+    and gap_end ints; cur_len an int or a (1,) int tensor; ``scale`` the
+    softmax's (None: D ** -0.5)."""
+    cur_len = int(cur_len)
+    k = cache[layer_idx, 0, :, :, :cur_len].float()
+    v = cache[layer_idx, 1, :, :, :cur_len].float()
+    out, _, _ = _attend_plain(k, v, row_prefix, gap_end, q, k_new, v_new, scale)
+    return out.to(q.dtype)
 
 
 def flash_decode_layer_attention_stats_plain(cache, layer_idx, cur_len, row_prefix, gap_end,
                                             q, k_new, v_new):
     """K1b: (out in q's dtype, m (B, H) fp32, l (B, H) fp32)."""
+    _one_query_head("flash_decode_layer_attention_stats", cache, q)
     cur_len = int(cur_len)
     k = cache[layer_idx, 0, :, :, :cur_len].float()
     v = cache[layer_idx, 1, :, :, :cur_len].float()
     out, m, l = _attend_plain(k, v, row_prefix, gap_end, q, k_new, v_new)
     return out.to(q.dtype), m, l
+
+
+def _one_query_head(what: str, cache, q):
+    """K1b and K1c+d take one query head a KV head."""
+    require(q.shape[1] == cache.shape[3],
+            f"{what} takes one query head a KV head: q has {q.shape[1]} heads, the cache "
+            f"{cache.shape[3]}")
 
 
 def flash_decode_layer_attention_int8_plain(cache8, scales, tail, merge_base, layer_idx, cur_len,
@@ -214,6 +242,7 @@ def flash_decode_layer_attention_int8_plain(cache8, scales, tail, merge_base, la
     (L, 2, B, H, S); slots [merge_base, cur_len) are tail slots
     [0, cur_len - merge_base) of the tail (L, 2, B, H, W, D), where
     ``merge_base = cur_len // W * W`` (``_merge_base``)."""
+    _one_query_head("flash_decode_layer_attention_int8", cache8, q)
     merge_base, cur_len = _merge_base(merge_base, cur_len, tail.shape[4]), int(cur_len)
     n_tail = cur_len - merge_base
 
@@ -267,14 +296,16 @@ def kv_cache_quantize_write_plain(cache8, scales, src, pos):
 
 
 def _check_decode_args(cache, row_prefix, q, k_new, v_new):
-    """The shared checks of the K1 wrappers; returns (B, H, D)."""
+    """The shared checks of the K1 wrappers; returns (B, H, D) of the KV
+    heads (q holds G * H heads)."""
     require(cache.device.type == "cuda", f"unsupported device {cache.device}")
-    b, h, d = q.shape
+    b, h, d = k_new.shape
     require(q.dtype in _DTYPE_CODE, f"q dtype {q.dtype} is not float32/bfloat16")
-    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
-        require(t.shape == (b, h, d) and t.dtype == q.dtype and t.is_contiguous()
+    for name, t, shape in (("q", q, (b, q.shape[1], d)), ("k_new", k_new, (b, h, d)),
+                           ("v_new", v_new, (b, h, d))):
+        require(t.shape == shape and t.dtype == q.dtype and t.is_contiguous()
                 and t.device == cache.device and t.data_ptr() % 16 == 0,
-                f"{name} must be a contiguous, 16-byte aligned {(b, h, d)} {q.dtype} tensor "
+                f"{name} must be a contiguous, 16-byte aligned {shape} {q.dtype} tensor "
                 f"on {cache.device}")
     require(row_prefix.shape == (b,) and row_prefix.dtype == torch.int32
             and row_prefix.is_contiguous() and row_prefix.device == cache.device,
@@ -283,37 +314,44 @@ def _check_decode_args(cache, row_prefix, q, k_new, v_new):
     return b, h, d
 
 
-def _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml):
+def _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml, scale=None):
     n_layers, two, b, h, s, d = cache.shape
     require(two == 2 and cache.is_contiguous(), "cache must be contiguous (L, 2, B, H, S, D)")
     require(cache.dtype == q.dtype and (b, h, d) == _check_decode_args(
         cache, row_prefix, q, k_new, v_new), "cache and q must agree in dtype and (B, H, D)")
+    g = q.shape[1] // h
+    require(q.shape[1] == g * h and g in (1, 4) and (ml is None or g == 1),
+            f"q's {q.shape[1]} heads must be 1 or 4 (K1b: 1) a KV head of the {h}")
     require(0 <= layer_idx < n_layers and (isinstance(cur_len, torch.Tensor) or 0 <= cur_len <= s),
             "layer_idx / cur_len out of range")
     cur_len = device_position(cur_len, cache.device)
     require(cache.data_ptr() % 16 == 0, "cache must be 16-byte aligned")
     out = torch.empty_like(q)
-    work, tickets = _workspace(cache, b * h, s)
+    work, tickets = _workspace(cache, b * h * g, s)
     status = _lib().cbx_flash_decode(
-        cache.data_ptr(), _DTYPE_CODE[cache.dtype], int(layer_idx), b, h, s, d,
+        cache.data_ptr(), _DTYPE_CODE[cache.dtype], int(layer_idx), b, h, g, s, d,
         row_prefix.data_ptr(), int(gap_end), cur_len.data_ptr(), q.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        None if ml is None else ml.data_ptr(), d ** -0.5, work.data_ptr(), tickets.data_ptr(),
-        _build.stream_ptr(cache),
+        None if ml is None else ml.data_ptr(), d ** -0.5 if scale is None else float(scale),
+        work.data_ptr(), tickets.data_ptr(), _build.stream_ptr(cache),
     )
     _build.check(status, "flash_decode")
     return out
 
 
 def flash_decode_layer_attention(cache, layer_idx: int, cur_len, row_prefix,
-                                gap_end: int, q, k_new, v_new):
+                                gap_end: int, q, k_new, v_new, *, scale=None):
     """K1a: decode attention for one layer against the full multi-layer
-    cache; returns (B, H, D) in q's dtype. See the module docstring."""
+    cache; returns (B, Hq, D) in q's dtype. q holds G query heads a KV head
+    of the cache (the kernel takes G = 1 or 4; the plain version any G;
+    head j reads KV head j // G), and
+    ``scale`` is the softmax's (None: D ** -0.5). See the module
+    docstring."""
     _build.refuse_autograd("flash_decode_layer_attention", cache, q, k_new, v_new)
     if cache.device.type == "cpu":
         return flash_decode_layer_attention_plain(
-            cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
-    out = _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, None)
+            cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, scale=scale)
+    out = _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, None, scale)
     flash_decode_layer_attention.launches += 1
     return out
 
@@ -326,6 +364,7 @@ def flash_decode_layer_attention_stats(cache, layer_idx: int, cur_len, row_prefi
     if cache.device.type == "cpu":
         return flash_decode_layer_attention_stats_plain(
             cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new)
+    _one_query_head("flash_decode_layer_attention_stats", cache, q)
     ml = torch.empty(q.shape[:2] + (2,), dtype=torch.float32, device=q.device)
     out = _decode(cache, layer_idx, cur_len, row_prefix, gap_end, q, k_new, v_new, ml)
     flash_decode_layer_attention_stats.launches += 1
@@ -351,6 +390,7 @@ def flash_decode_layer_attention_int8(cache8, scales, tail, merge_base, layer_id
         return flash_decode_layer_attention_int8_plain(
             cache8, scales, tail, merge_base, layer_idx, cur_len, row_prefix, gap_end,
             q, k_new, v_new)
+    _one_query_head("flash_decode_layer_attention_int8", cache8, q)
     require(cache8.dtype == torch.int8 and cache8.is_contiguous() and two == 2,
             "cache8 must be a contiguous (L, 2, B, H, S, D) int8 tensor")
     require(scales.shape == cache8.shape[:5] and scales.dtype == torch.float32

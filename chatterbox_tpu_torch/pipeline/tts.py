@@ -69,7 +69,8 @@ from ..models.s3gen.s3gen import (RefDict, S3GenConfig, convert_s3gen, embed_ref
                                   flow_steps_from_env, infer_s3gen_config, s3gen_wav,
                                   with_flow_steps)
 from ..models.s3tokenizer import pad_to_token_multiple, s3_tokenize
-from ..models.t3.llama import canonicalize_llama_params
+from ..models.t3.granite_hybrid import GraniteHybridConfig, state_bytes_per_row
+from ..models.t3.llama import LLAMA_520M, canonicalize_llama_params
 from ..models.t3.t3 import (T3Config, convert_t3, t3_generate, t3_generate_resume,
                             t3_generate_start)
 from ..models.tokenizer import EnTokenizer
@@ -182,14 +183,35 @@ def _compact_tokens(tokens, lengths):
     return torch.where(pos < new_lens[:, None], compacted, 0), new_lens
 
 
-def _cache_row_bytes(llama_cfg, max_new_tokens: int, text_bucket: int, itemsize: int) -> int:
+def _cache_row_bytes(backbone_cfg, max_new_tokens: int, text_bucket: int, itemsize: int) -> int:
     """T3's KV-cache bytes for one text (its two CFG rows) at a token budget:
     (L, 2, 2 rows, H, S, D) with S = cond + text bucket + BOS + budget,
-    padded to 128 slots (the JAX package's ``_budget_batch_cap``)."""
+    padded to 128 slots (the JAX package's ``_budget_batch_cap``). For the
+    Granite backbone (a ``GraniteHybridConfig``) L counts its attention
+    layers, and the two rows' ``SSMState`` is added: its conv inputs at
+    ``itemsize``, its recurrent state fp32, whatever the budget."""
     s = 34 + text_bucket + 2 + max_new_tokens
     s = -(-s // 128) * 128
-    return (llama_cfg.num_hidden_layers * 2 * 2 * llama_cfg.num_key_value_heads
-            * llama_cfg.head_dim * s * itemsize)
+    if isinstance(backbone_cfg, GraniteHybridConfig):
+        return (len(backbone_cfg.attention_layers) * 2 * 2 * backbone_cfg.num_key_value_heads
+                * backbone_cfg.head_dim * s * itemsize
+                + 2 * state_bytes_per_row(backbone_cfg, itemsize))
+    return (backbone_cfg.num_hidden_layers * 2 * 2 * backbone_cfg.num_key_value_heads
+            * backbone_cfg.head_dim * s * itemsize)
+
+
+def _row_peak_bytes(backbone_cfg, max_new_tokens: int) -> float:
+    """The device bytes of one text at a budget of ``_ROW_PEAK_BYTES``
+    (250 tokens on the bf16 cache, 1000 on the int8 one): measured for the
+    Llama; for the Granite backbone the Llama's measured peak less its
+    cache (S3Gen's and the activations' share, which the backbone does not
+    change) plus the Granite text's bf16 cache and state."""
+    peak = _ROW_PEAK_BYTES[max_new_tokens]
+    if not isinstance(backbone_cfg, GraniteHybridConfig):
+        return peak
+    llama_itemsize = 2 if max_new_tokens < 500 else 1
+    return (peak - _cache_row_bytes(LLAMA_520M, max_new_tokens, 64, llama_itemsize)
+            + _cache_row_bytes(backbone_cfg, max_new_tokens, 64, 2))
 
 
 def card_batch_limits(device, llama_cfg, resident_bytes: int):
@@ -205,7 +227,9 @@ def card_batch_limits(device, llama_cfg, resident_bytes: int):
     fewer rows wherever a row carries more cache for its activations (a
     bf16 cache, a longer text bucket). The hard cap is the rows that fill
     it at 250 tokens, bounding the short budgets where the cache bytes say
-    little. The pipelined path gets the same: its chunks run in order on
+    little. ``llama_cfg`` is T3's backbone config: for the Granite backbone
+    the cache bytes hold its state, and the peaks are ``_row_peak_bytes``'s
+    (its cache is bf16 at every budget). The pipelined path gets the same: its chunks run in order on
     one stream, so the allocator hands chunk c's memory to chunk c + 1 and
     a split call peaks as one chunk does (chip_smoke.py's path H). Off the
     card there is no bound (the CPU runs tests at tiny sizes; they set
@@ -214,8 +238,10 @@ def card_batch_limits(device, llama_cfg, resident_bytes: int):
         return sys.maxsize, sys.maxsize, float("inf"), float("inf")
     usable = torch.cuda.get_device_properties(device).total_memory * _USABLE_SHARE
     usable = (usable - resident_bytes) / _RESERVED_PER_ALLOCATED
-    budget = usable / _ROW_PEAK_BYTES[1000] * _cache_row_bytes(llama_cfg, 1000, 64, 1)
-    hard = max(1, int(usable // _ROW_PEAK_BYTES[250]))
+    itemsize = 2 if isinstance(llama_cfg, GraniteHybridConfig) else 1
+    budget = (usable / _row_peak_bytes(llama_cfg, 1000)
+              * _cache_row_bytes(llama_cfg, 1000, 64, itemsize))
+    hard = max(1, int(usable // _row_peak_bytes(llama_cfg, 250)))
     return hard, hard, budget, budget
 
 
@@ -349,8 +375,8 @@ class ChatterboxTTS:
         resident = (torch.cuda.memory_allocated(self.device) if self.device.type == "cuda"
                     else 0)
         (self.max_device_batch, self.max_pipelined_batch, self.cache_budget_bytes,
-         self.pipelined_cache_budget_bytes) = card_batch_limits(self.device, t3_cfg.llama,
-                                                                resident)
+         self.pipelined_cache_budget_bytes) = card_batch_limits(
+             self.device, t3_cfg.granite or t3_cfg.llama, resident)
 
     # --------------------------------------------------------- weight layout
     @staticmethod
@@ -380,6 +406,9 @@ class ChatterboxTTS:
         meshed T3 keeps it."""
         from ..parallel.sharding import local_t3_config, shard_params, t3_param_specs
 
+        if model_sharded and self.t3_cfg.granite is not None:
+            raise ValueError("the Granite 4.0-H backbone does not run under tensor parallelism: "
+                             "its Mamba heads are not sharded")
         self._unfuse_qkv()  # the specs address the canonical q/k/v
         self.mesh = mesh
         if model_sharded:
@@ -876,7 +905,8 @@ class ChatterboxTTS:
             conds=conds, text_tokens=text_tokens, text_lens=lens,
             t3_cond=T3CondData(*(_tile(x, b) for x in conds.t3)),
             ref=RefDict(*(_tile(x, b) for x in conds.gen)),
-            cache_quant=self._kv_quant_for(max_new_tokens) and not alignment and self.mesh is None,
+            cache_quant=(self._kv_quant_for(max_new_tokens) and not alignment
+                         and self.mesh is None and self.t3_cfg.granite is None),
             s3gen_cfg=s3gen_cfg, noise=self._cfm_noise,
             hift_dtype=torch.bfloat16 if self.hift_bf16 else None)
 
@@ -901,9 +931,11 @@ class ChatterboxTTS:
         force (the JAX package counts one byte there too). Under a mesh a
         rank holds its rows' cache of its own heads: the cap counts those
         and comes back for the whole batch."""
-        quant = self._kv_quant_for(max_new_tokens) and not alignment and self.mesh is None
-        llama = (self._t3_local_cfg or self.t3_cfg).llama
-        per_row = _cache_row_bytes(llama, max_new_tokens, text_bucket, 1 if quant else 2)
+        quant = (self._kv_quant_for(max_new_tokens) and not alignment and self.mesh is None
+                 and self.t3_cfg.granite is None)
+        t3_cfg = self._t3_local_cfg or self.t3_cfg
+        per_row = _cache_row_bytes(t3_cfg.granite or t3_cfg.llama, max_new_tokens, text_bucket,
+                                   1 if quant else 2)
         data = 1 if self.mesh is None else self.mesh.size(0)
         if pipelined:
             budget = self.pipelined_cache_budget_bytes

@@ -30,14 +30,20 @@ def apply_tts_precision(tts, dtype=torch.bfloat16, weight_quant=None):
     stores T3's projections int8 with per-output-channel scales
     (``quantize_llama_weights``). The JAX package fuses and quantizes only
     without a device mesh, whose sharding specs address the canonical
-    layout; the port runs on one card and has no mesh, so it always does."""
+    layout; the port runs on one card and has no mesh, so it always does.
+    T3 on the Granite backbone (``p["granite"]``) is cast and nothing more:
+    its attention layers keep separate q/k/v, and int8 weights raise."""
     tts.t3_params = cast_floating(tts.t3_params, dtype)
     if weight_quant is None:
         weight_quant = os.environ.get("CHATTERBOX_W_QUANT", "0") == "1"
     t3p = dict(tts.t3_params)
-    t3p["llama"] = fuse_qkv_params(t3p["llama"])
-    if weight_quant:
-        t3p["llama"] = quantize_llama_weights(t3p["llama"])
+    if "granite" in t3p:  # the Granite backbone: cast only
+        if weight_quant:
+            raise ValueError("the Granite 4.0-H backbone has no int8 weights")
+    else:
+        t3p["llama"] = fuse_qkv_params(t3p["llama"])
+        if weight_quant:
+            t3p["llama"] = quantize_llama_weights(t3p["llama"])
     tts.t3_params = t3p
     sp = dict(tts.s3gen_params)
     sp["flow"] = cast_floating(sp["flow"], dtype)

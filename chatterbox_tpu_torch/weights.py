@@ -203,16 +203,21 @@ class _Init:
 
 
 def init_t3(cfg, seed: int = 0, device="cpu", dtype=torch.float32):
-    """Random T3 parameters (llama + cond encoder + embeddings + heads)."""
+    """Random T3 parameters (the backbone, Llama or ``cfg.granite``'s, the
+    cond encoder, the embeddings and the heads)."""
     r = _Init(seed, device, dtype)
-    lc = cfg.llama
-    n_l, c, f = lc.num_hidden_layers, lc.hidden_size, lc.intermediate_size
-    hd = lc.num_attention_heads * lc.head_dim
-    kvd = lc.num_key_value_heads * lc.head_dim
     d, n_q = cfg.dim, 32
     qv = float(np.sqrt(3.0) * np.sqrt(2.0 / (n_q + n_q)))
-    return {
-        "llama": {
+    if cfg.granite is not None:
+        from .models.t3.granite_hybrid import init_granite_hybrid
+
+        backbone = init_granite_hybrid(r, cfg.granite)
+    else:
+        lc = cfg.llama
+        n_l, c, f = lc.num_hidden_layers, lc.hidden_size, lc.intermediate_size
+        hd = lc.num_attention_heads * lc.head_dim
+        kvd = lc.num_key_value_heads * lc.head_dim
+        backbone = {
             "layers": {
                 "input_ln": {"scale": r.ones((n_l, c))},
                 "q": {"w": r.normal((n_l, hd, c), 0.02)},
@@ -224,7 +229,9 @@ def init_t3(cfg, seed: int = 0, device="cpu", dtype=torch.float32):
                 "down": {"w": r.normal((n_l, c, f), 0.02)},
             },
             "final_ln": {"scale": r.ones((c,))},
-        },
+        }
+    return {
+        "granite" if cfg.granite is not None else "llama": backbone,
         "cond_enc": {
             "spkr_enc": r.lin(cfg.speaker_embed_size, d, 0.02),
             "emotion_adv_fc": r.lin(1, d, 0.02, bias=False),

@@ -14,7 +14,11 @@ Phases (any failure exits non-zero before the last line):
      K1a, K1b and K1c+d each called twice on the same inputs, which must
      agree bit for bit; K3 and K5 at T = 1024, 1536 and 2560, paths A, E
      and B, where the two must agree bit for bit on the same q, k, v; K4 at
-     T = 1024 and 2560), holds each
+     T = 1024 and 2560; the Granite backbone's two decode kernels at the
+     Granite cell's shapes, ``granite_kernel_checks``: the Mamba-2 update
+     on 128 rows x 64 heads x 64 x 128 over 4 consecutive steps, and K1a
+     with 4 query heads a KV head, scale 1/64, on 128 rows x 8 KV heads at
+     S = 384), holds each
      against its plain PyTorch version on the same inputs (the limits are
      stated at ``OUT_RTOL``) and times the kernel, the plain version and,
      as a yardstick only, one PyTorch library call for the same function,
@@ -86,6 +90,13 @@ Phases (any failure exits non-zero before the last line):
           coalesce), a seeded /generate (equal to a direct call), 2
           concurrent streams with a bulk /generate (must go preemptibly),
           and a stream with alignment (400);
+       R. (after path G, on a model of its own) ``generate_batch`` of the 8
+          texts at 250 tokens with T3 on the Granite 4.0-H backbone at its
+          published widths (``GraniteT3Config()``: 36 Mamba-2 and 4
+          attention layers, bf16), the program's recorder on: the update
+          once a Mamba layer a decode step (36 x 249) and K1a once an
+          attention layer (4 x 249), no K1b, K1c+d or K2b, every step
+          after the first replayed from its graphs, ``t3.ssm_layers`` 36;
      K1 must launch once a layer a decode step (A: 10 x 249, B: 10 x 999,
      I: 30 x 999; C: 9 x 249 K1a and 249 K1b; H: 2 x 10 x 249; J: 10 x 999
      K1c+d; K: 10 x 249), K2b once at the prefill and once a decode step,
@@ -792,6 +803,167 @@ def kernel_phase():
     return rows
 
 
+# the Granite cell's shapes (tts-granite4h-b64-t250): 64 texts, so 128 CFG
+# rows; Mamba-2 layers of 64 heads of 64 with a state of 128 and a conv of
+# width 4 over 4096 + 2 * 128 channels; attention layers of 32 query heads
+# on 8 KV heads of 64, softmax scale 1/64
+G_TEXTS = 64
+G_ROWS = 2 * G_TEXTS
+G_HEADS, G_HEAD, G_STATE, G_CONV = 64, 64, 128, 4
+G_CONV_DIM = G_HEADS * G_HEAD + 2 * G_STATE
+G_QHEADS, G_KVHEADS = 32, 8
+G_STEPS = 4  # consecutive update steps held against the plain version
+# the update against its plain version, both fp32 inside: elementwise
+#     |got - want| <= 2^-14 (|want| + mean |want|)
+# the kernel's exp, softplus and SiLU (fast intrinsics, a few ulp) and its
+# order of the 128-term sum y = s.C part the two by a few fp32 ulp of the
+# terms, not of the result, which may cancel: the mean |want| over the
+# tensor (the typical value) carries that; G_STEPS steps compound it
+G_RTOL = 2.0 ** -14
+
+
+def granite_kernel_checks(rows):
+    """The two kernels of the Granite backbone's decode step at the cell's
+    shapes: ``ssm_decode_update`` over ``G_STEPS`` consecutive steps (y, the
+    state and the conv inputs after each) against its plain version, timed
+    against it and its bound (a new row), and K1a with 4 query heads a KV
+    head and the scale 1/64 at the three cur_len % 8 phases against its
+    plain version, timed against it, SDPA with the grouped K/V, and its
+    bound (``_g4`` figures in K1a's row)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chatterbox_tpu_torch.ops import flash_decode as fd
+    from chatterbox_tpu_torch.ops import ssm_decode as sd
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    # ---- the Mamba-2 update: 128 rows x 64 heads x 64 x 128 fp32 state (256
+    # MiB a layer) over 4 layers, each timed launch the next layer's
+    n_layers = 4
+    ssm = randn(n_layers, G_ROWS, G_HEADS, G_HEAD, G_STATE, scale=0.3, dtype=torch.float32)
+    conv = randn(n_layers, G_ROWS, G_CONV_DIM, G_CONV - 1)
+    a_log = torch.log(1 + 15 * torch.rand(G_HEADS, generator=g, device=dev))
+    dt = torch.exp(math.log(1e-3) + math.log(100) * torch.rand(G_HEADS, generator=g, device=dev))
+    vec = dict(conv_w=randn(G_CONV_DIM, G_CONV, scale=0.5, dtype=torch.float32),
+               conv_b=randn(G_CONV_DIM, scale=0.02, dtype=torch.float32),
+               dt_bias=(dt + torch.log(-torch.expm1(-dt))).contiguous(),
+               A=(-torch.exp(a_log)).contiguous(), D=torch.ones(G_HEADS, device=dev))
+    in_dim = G_HEADS * G_HEAD + G_CONV_DIM + G_HEADS
+    zx = [randn(G_ROWS, in_dim) for _ in range(n_layers)]
+    ssm_p, conv_p = ssm[1:2].clone(), conv[1:2].clone()
+    err, share = 0.0, 0.0
+    for step in range(G_STEPS):
+        x = zx[step % n_layers]
+        got = sd.ssm_decode_update(conv, ssm, 1, x, *vec.values())
+        want = sd.ssm_decode_update_plain(conv_p, ssm_p, 0, x, *vec.values())
+        torch.cuda.synchronize()
+        for what, a, b in (("y", got, want), ("state", ssm[1], ssm_p[0])):
+            if not bool(torch.isfinite(a).all()):
+                fail(f"ssm_decode_update: step {step}: {what} is not finite")
+            diff = (a - b).abs()
+            limit = G_RTOL * (b.abs() + b.abs().mean())
+            err, share = max(err, float(diff.max())), max(share, float((diff / limit).max()))
+        if not torch.equal(conv[1], conv_p[0]):
+            fail(f"ssm_decode_update: step {step}: the conv inputs differ from the plain "
+                 "version's")
+    print(f"kernel ssm_decode_update ({G_ROWS} rows, {G_HEADS} heads of {G_HEAD} x {G_STATE}, "
+          f"{G_STEPS} steps): max_abs_err={err:.3e}, worst element at {share:.3f} of its limit "
+          f"|err| <= 2^-14 (|want| + mean |want|); conv inputs bit for bit", flush=True)
+    if not share <= 1.0:
+        fail(f"ssm_decode_update: an element exceeds its limit by {share:.3f}x")
+    del ssm_p, conv_p, got, want
+    # each row's state read and written, its conv inputs read and written, its
+    # xBC and dt read (bf16) and y written (fp32); the layer's conv weights and
+    # head vectors once; 5 operations a state value, 9 a conv channel
+    state = G_HEADS * G_HEAD * G_STATE
+    up_bytes = (G_ROWS * (2 * 4 * state + 2 * 2 * G_CONV_DIM * (G_CONV - 1)
+                          + 2 * (G_CONV_DIM + G_HEADS) + 4 * G_HEADS * G_HEAD)
+                + 4 * G_CONV_DIM * (G_CONV + 1) + 3 * 4 * G_HEADS)
+    up_flops = G_ROWS * (5 * state + 9 * G_CONV_DIM)
+    rows["ssm_decode_update"] = dict(
+        err=err, tol="2^-14 (|want| + mean |want|) over 4 steps; conv inputs exact",
+        share=share, library_err=None,
+        ms=timed(rotating(lambda i: sd.ssm_decode_update(conv, ssm, i, zx[i], *vec.values()),
+                          n_layers), 40),
+        plain_ms=timed(rotating(lambda i: sd.ssm_decode_update_plain(
+            conv, ssm, i, zx[i], *vec.values()), n_layers), 8),
+        library_ms=None, library_note="no PyTorch call runs the Mamba-2 step",
+        bound=bound(up_bytes, up_flops),
+        extra={"rows": G_ROWS, "heads": G_HEADS, "state": [G_HEAD, G_STATE]},
+    )
+    del ssm, conv, zx
+    torch.cuda.empty_cache()
+
+    # ---- K1a, G = 4: 4 attention layers' cache of 128 rows x 8 KV heads at
+    # the cell's budget (S = 384), mid-decode, each timed launch the next layer
+    s0 = N_COND + TEXT_BUCKET + N_BOS
+    s_cache = -(-(s0 + MAX_NEW) // 128) * 128
+    cur_len = s0 + MAX_NEW // 2
+    n_attn = 4
+    cache = randn(n_attn, 2, G_ROWS, G_KVHEADS, s_cache, HEAD_DIM)
+    q = randn(G_ROWS, G_QHEADS, HEAD_DIM)
+    kn, vn = (randn(G_ROWS, G_KVHEADS, HEAD_DIM) for _ in range(2))
+    text_lens = torch.randint(20, TEXT_BUCKET, (G_TEXTS,), generator=g, device=dev)
+    row_prefix = (N_COND + text_lens).repeat(2).to(torch.int32).contiguous()
+    gap_end = N_COND + TEXT_BUCKET
+    scale = 1 / 64
+    checks = []
+    for c in (cur_len, cur_len // TAIL_W * TAIL_W, cur_len // TAIL_W * TAIL_W + TAIL_W - 1):
+        want = fd.flash_decode_layer_attention_plain(cache, 2, c, row_prefix, gap_end, q, kn, vn,
+                                                     scale=scale)
+        checks.append(check_kernel(f"flash_decode_layer_attention (G = 4, cur_len {c})",
+                                   fd.flash_decode_layer_attention(
+                                       cache, 2, fd.device_position(c, dev), row_prefix, gap_end,
+                                       q, kn, vn, scale=scale), want))
+    cur_dev = fd.device_position(cur_len, dev)
+    check_repeat("flash_decode_layer_attention (G = 4)", lambda: fd.flash_decode_layer_attention(
+        cache, 2, cur_dev, row_prefix, gap_end, q, kn, vn, scale=scale))
+    idx = torch.arange(cur_len, device=dev)
+    valid = (idx[None] < row_prefix[:, None]) | (idx[None] >= gap_end)
+    new = torch.stack([kn, vn])[None, :, :, :, None].expand(n_attn, 2, -1, -1, -1, -1)
+    kv_lib = torch.cat([cache[:, :, :, :, :cur_len], new], dim=4)
+    m_lib = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)[:, None, None, :]
+
+    def library(i):
+        return F.scaled_dot_product_attention(q[:, :, None], kv_lib[i, 0], kv_lib[i, 1],
+                                              attn_mask=m_lib, scale=scale,
+                                              enable_gqa=True)[:, :, 0]
+
+    want = fd.flash_decode_layer_attention_plain(cache, 2, cur_len, row_prefix, gap_end, q, kn,
+                                                 vn, scale=scale)
+    lib_err = library_err("flash_decode_layer_attention (G = 4)", library(2), want)
+    n_valid = int(valid.sum()) + G_ROWS  # (row, slot) pairs read, the new token's included
+    g4_bytes = (2 * n_valid * G_KVHEADS * HEAD_DIM * 2 + 2 * G_ROWS * G_QHEADS * HEAD_DIM * 2
+                + 2 * G_ROWS * G_KVHEADS * HEAD_DIM * 2 + G_ROWS * 4)
+    g4_flops = 4 * n_valid * G_QHEADS * HEAD_DIM
+    g4_ms = timed(rotating(lambda i: fd.flash_decode_layer_attention(
+        cache, i, cur_dev, row_prefix, gap_end, q, kn, vn, scale=scale), n_attn), 300)
+    g4_plain_ms = timed(rotating(lambda i: fd.flash_decode_layer_attention_plain(
+        cache, i, cur_len, row_prefix, gap_end, q, kn, vn, scale=scale), n_attn), 60)
+    g4_lib_ms = timed(rotating(library, n_attn), 300)
+    g4_bound = bound(g4_bytes, g4_flops)
+    err = max(c[0] for c in checks)
+    share = max(c[2] for c in checks)
+    k1 = rows["flash_decode_layer_attention"]
+    k1["err"], k1["share"] = max(k1["err"], err), max(k1["share"], share)
+    k1.setdefault("extra", {}).update({
+        "rows_g4": G_ROWS, "kv_heads_g4": G_KVHEADS, "S_g4": s_cache, "cur_len_g4": cur_len,
+        "ms_g4": g4_ms, "plain_ms_g4": g4_plain_ms, "library_ms_g4": g4_lib_ms,
+        "bound_ms_g4": g4_bound[0], "max_abs_err_g4": err, "err_share_of_tol_g4": share,
+        "library_max_abs_err_g4": lib_err})
+    print(f"kernel flash_decode_layer_attention (G = 4, {G_ROWS} rows x {G_KVHEADS} KV heads, "
+          f"S = {s_cache}): {g4_ms:.5f} ms, {g4_bound[0] / g4_ms:.1%} of its {g4_bound[0]:.5f} ms "
+          f"bound; plain {g4_plain_ms:.5f} ms; SDPA (enable_gqa) {g4_lib_ms:.5f} ms", flush=True)
+    del cache, kv_lib
+    torch.cuda.empty_cache()
+
+
 def _share(got, want, limit):
     """The worst element's share of its limit (0 where both are 0)."""
     import torch
@@ -1078,6 +1250,10 @@ KERNEL_INFO = {
     "flash_self_attention": (
         "chatterbox_tpu_torch/csrc/flash_attention_sm90.cu",
         "chatterbox_tpu/ops/flash_attention.py:172",
+    ),
+    "ssm_decode_update": (
+        "chatterbox_tpu_torch/csrc/ssm_decode.cu",
+        "none: the JAX package has no Mamba layer (the Granite 4.0-H backbone's decode step)",
     ),
     "P1": ("chatterbox_tpu_torch/csrc/probes.cu",
            "scripts/probe_boundary.py:120 (_noop, :114-122)"),
@@ -2599,6 +2775,68 @@ def main_path(card, ref_path, work_dir):
     return counts, cap_checks
 
 
+def granite_path(card, conds):
+    """Path R: ``ChatterboxTTS.from_random(seed=0)`` with T3 on the Granite
+    4.0-H backbone at its published widths (all 40 layers: 36 Mamba-2 and
+    4 attention, bf16), ``generate_batch`` on the 8 texts at 250 tokens,
+    the launch counters set to 0 just before the call and read just after,
+    and the program's recorder on for it: each decode step launches the
+    update once a Mamba layer and K1a once an attention layer, the step is
+    replayed from its graphs after the first, and the wavs are checked.
+    Returns the launch counts."""
+    import torch
+
+    from chatterbox_tpu_torch import ChatterboxTTS
+    from chatterbox_tpu_torch.models.t3.t3 import GraniteT3Config
+    from chatterbox_tpu_torch.ops import launch_counts, reset_launch_counts
+    from chatterbox_tpu_torch.runtime import profiling
+
+    t0 = time.time()
+    cfg = GraniteT3Config()
+    tts = ChatterboxTTS.from_random(seed=0, t3_cfg=cfg)
+    torch.cuda.synchronize()
+    print(f"path R: from_random with the Granite 4.0-H T3 ({cfg.granite.num_hidden_layers} "
+          f"layers of {cfg.granite.hidden_size}) in {time.time() - t0:.1f} s", flush=True)
+    n_m, n_a = len(cfg.granite.mamba_layers), len(cfg.granite.attention_layers)
+    reset_launch_counts()
+    profiling.take()
+    profiling.enable()
+    t0 = time.time()
+    try:
+        wavs = tts.generate_batch(TEXTS, conds=conds, seed=0, max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    wall = time.time() - t0
+    counts = launch_counts()
+    rec = profiling.take()
+    check_wavs("R", wavs, N_TEXTS)
+    steps = MAX_NEW - 1  # decode steps: random weights never stop every row early
+    check_launches("R", counts, (_K1A, _K2, _K3, _K4, "ssm_decode_update"),
+                   (_K1B, _K1C, _K2B, _K5),
+                   {"ssm_decode_update": n_m * steps, _K1A: n_a * steps})
+
+    def counted(name):
+        return rec.counts.get(name, 0) + sum(sp.counts.get(name, 0) for sp in rec.spans)
+
+    step_spans = [sp for sp in rec.spans if sp.name == "t3.step"]
+    graphed = counted("t3.graph_steps")
+    syncs = sum(sp.counts.get("host_syncs", 0) for sp in step_spans
+                if sp.counts.get("t3.graph_steps"))
+    print(f"path R: {N_TEXTS} texts at {MAX_NEW} tokens: first call {wall:.3f} s (stages "
+          f"{json.dumps(tts.last_timings)}); {len(step_spans)} t3.step spans, {graphed} replayed "
+          f"from graphs, {syncs} host syncs in them; t3.ssm_layers {counted('t3.ssm_layers')}, "
+          f"t3.ssm_state_bytes {counted('t3.ssm_state_bytes')}", flush=True)
+    print("path R: kernel launches " + json.dumps(counts), flush=True)
+    if graphed != len(step_spans) - 1 or graphed <= 0:
+        fail(f"path R: {graphed} of {len(step_spans)} steps replayed, not all but the first")
+    if counted("t3.ssm_layers") != n_m:
+        fail(f"path R: t3.ssm_layers {counted('t3.ssm_layers')}, not {n_m}")
+    del tts
+    torch.cuda.empty_cache()
+    return counts
+
+
 def vc_path(card, ref_path, src_paths, src_lens):
     """Path E: ``ChatterboxVC.generate_batch`` of the sources into the
     reference's voice, in the fused UNet attention layout and then the
@@ -3878,6 +4116,7 @@ def main():
         ref_path, src_paths, src_lens = write_audio(audio_dir)
         t0 = time.time()
         rows = kernel_phase()
+        granite_kernel_checks(rows)
         merge_tick_checks(rows, tick_kernel_checks())
         rows.update(probe_kernel_phase())
         t1 = time.time()
@@ -3887,6 +4126,9 @@ def main():
         conditioning_reference(ref_path)
         t3 = time.time()
         counts, cap_checks = main_path(card, ref_path, audio_dir)
+        t4r = time.time()
+        counts["R"] = granite_path(card, random_conditionals(torch.device("cuda")))
+        print(f"path R: {time.time() - t4r:.1f} s", flush=True)
         t4 = time.time()
         vc_counts = vc_path(card, ref_path, src_paths, src_lens)
         t5 = time.time()

@@ -46,6 +46,7 @@ from chatterbox_tpu_torch.models.t3 import t3 as p_t3
 from chatterbox_tpu_torch.ops import flash_attention as fa
 from chatterbox_tpu_torch.ops import flash_decode as fd
 from chatterbox_tpu_torch.ops import probes as pr
+from chatterbox_tpu_torch.ops import ssm_decode as sd
 from chatterbox_tpu_torch.runtime import profiling as p_prof
 from chatterbox_tpu_torch.train import losses as p_losses
 from chatterbox_tpu_torch.train import train_step as p_step
@@ -410,6 +411,10 @@ def _wrapper_calls():
             torch.ones(8, pr.SB), r(8, pr.PD, grad=grad), torch.zeros((8, pr.PD), dtype=torch.int8))),
         "softmax_probe": (pr.softmax_probe, lambda grad: (
             pr.SOFTMAX_CASES[0], r(8, pr.SB, grad=grad), r(pr.SB, pr.PD), r(1, pr.PD))),
+        # 2 heads of 4, state 4: conv_dim 2 * 4 + 2 * 4, in_proj row 8 + 16 + 2
+        "ssm_decode_update": (sd.ssm_decode_update, lambda grad: (
+            r(1, 2, 16, 3), r(1, 2, 2, 4, 4), 0, r(2, 26, grad=grad), r(16, 4), r(16), r(2),
+            -r(2).abs(), r(2))),
     }
 
 
