@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from ...checkpoint.torch_convert import as_numpy
 from ...core.layers import merge_heads, rms_norm, sdpa, split_heads
-from ...parallel.tensor_parallel import copy_to_model, model_size, reduce_from_model
+from ...ops.decode_glue import add_rms_norm, apply_rope, rope_split_kv, silu_mul, silu_mul_plain
 from ...ops.flash_decode import (
     TAIL_W,
     device_position,
@@ -50,6 +50,8 @@ from ...ops.flash_decode import (
     kv_cache_quantize_write,
     quantize_kv,  # noqa: F401 -- kept here as in the JAX package (llama.py:319-329)
 )
+from ...parallel.tensor_parallel import copy_to_model, model_size, reduce_from_model
+from ...runtime.profiling import count
 
 
 @dataclass(frozen=True)
@@ -108,18 +110,6 @@ def rope_cos_sin(cfg: LlamaConfig, positions):
     freqs = positions[..., None].float() * _inv_freq(cfg, positions.device)
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
-
-
-def _rotate_half(x):
-    d = x.shape[-1] // 2
-    return torch.cat([-x[..., d:], x[..., :d]], dim=-1)
-
-
-def apply_rope(q, k, cos, sin):
-    """q,k: (B, H, T, D); cos,sin: (B, T, D). Keeps q/k dtype."""
-    cos = cos[:, None].to(q.dtype)
-    sin = sin[:, None].to(q.dtype)
-    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
 def unstack_layers(params):
@@ -219,21 +209,25 @@ def _wmat(y, wp):
     return F.linear(y, wp["w"])
 
 
-def _qkv(lp, y, cfg: LlamaConfig):
-    """y -> per-head q, k, v (B, H, T, D), from the fused ``qkv`` weight when
-    the layer has one (llama.py:254-263)."""
+def _qkv_rows(lp, y, cfg: LlamaConfig):
+    """y -> the q, k, v projections (B, T, H * D), views of the fused
+    ``qkv`` product when the layer has one (llama.py:254-263)."""
     h, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     y = copy_to_model(y)
     if "qkv" in lp:
-        q, k, v = _wmat(y, lp["qkv"]).split([h * d, kvh * d, kvh * d], dim=-1)
-    else:
-        q, k, v = (_wmat(y, lp[n]) for n in ("q", "k", "v"))
-    return split_heads(q, h), split_heads(k, kvh), split_heads(v, kvh)
+        return _wmat(y, lp["qkv"]).split([h * d, kvh * d, kvh * d], dim=-1)
+    return tuple(_wmat(y, lp[n]) for n in ("q", "k", "v"))
+
+
+def _qkv(lp, y, cfg: LlamaConfig):
+    """y -> per-head q, k, v (B, H, T, D)."""
+    q, k, v = _qkv_rows(lp, y, cfg)
+    return (split_heads(q, cfg.num_attention_heads), split_heads(k, cfg.num_key_value_heads),
+            split_heads(v, cfg.num_key_value_heads))
 
 
 def _mlp(lp, y):
-    g, u = _wmat(copy_to_model(y), lp["gate_up"]).chunk(2, dim=-1)
-    return F.silu(g) * u
+    return silu_mul_plain(_wmat(copy_to_model(y), lp["gate_up"]))
 
 
 class QuantCache(NamedTuple):
@@ -334,7 +328,16 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos, positions,
     cache and as many KV heads as query heads; a ValueError names what is
     missing. ``layers`` may pass the per-layer parameter dicts prebuilt.
     Returns (hidden (B, 1, C), the text attention (B, hi - lo) fp32 or
-    None); the cache is updated in place."""
+    None); the cache is updated in place.
+
+    A layer's glue is three functions of ``ops/decode_glue.py``: the
+    residual add with the norm after it (``add_rms_norm``; the last
+    ``down`` add goes into the final norm), rope with the K/V written into
+    the step's ``new_kv`` (``rope_split_kv``), and the MLP's activation
+    (``silu_mul``). On the card they are the kernels, a layer then
+    launching 9 times (with int8 weights, 3 more a projection), and each
+    call counts the layers as ``t3.glue_fused_layers``; on the CPU their
+    plain versions, the eager chain."""
     h, d = cfg.num_attention_heads, cfg.head_dim
     b = x.shape[0]
     quant = isinstance(cache, QuantCache)
@@ -356,12 +359,12 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos, positions,
     kv_dtype = cache.tail.dtype if quant else cache.dtype
     new_kv = torch.empty((cfg.num_hidden_layers, 2, b, cfg.num_key_value_heads, d),
                          dtype=kv_dtype, device=x.device)
-    attn = None
+    eps = cfg.rms_norm_eps
+    attn = r = None  # r: the last projection's output, not yet added to x
     for i, lp in enumerate(layers):
-        y = rms_norm(lp["input_ln"], x, cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, y, cfg)
-        q, k = apply_rope(q, k, cos, sin)
-        q1, k1, v1 = (t[:, :, 0].contiguous() for t in (q, k, v))
+        x, y = add_rms_norm(x, r, lp["input_ln"]["scale"], eps)
+        q1 = rope_split_kv(*_qkv_rows(lp, y, cfg), cos, sin, new_kv, i)
+        k1, v1 = new_kv[i, 0], new_kv[i, 1]
         if quant:
             a = flash_decode_layer_attention_int8(
                 cache.values, cache.scales, cache.tail, None, i, write_pos, row_prefix,
@@ -372,13 +375,13 @@ def llama_decode_step(params, cfg: LlamaConfig, x, cache, write_pos, positions,
             attn = _text_probs(cache, i, q1, m, l, text_slice, row_prefix)
         else:
             a = flash_decode_layer_attention(cache, i, write_pos, row_prefix, gap_end, q1, k1, v1)
-        x = x + reduce_from_model(_wmat(a.reshape(b, 1, h * d), lp["o"]))
-        y = rms_norm(lp["post_ln"], x, cfg.rms_norm_eps)
-        x = x + reduce_from_model(_wmat(_mlp(lp, y), lp["down"]))
-        new_kv[i, 0] = k1
-        new_kv[i, 1] = v1
+        r = reduce_from_model(_wmat(a.reshape(b, 1, h * d), lp["o"]))
+        x, y = add_rms_norm(x, r, lp["post_ln"]["scale"], eps)
+        r = reduce_from_model(_wmat(silu_mul(_wmat(copy_to_model(y), lp["gate_up"])), lp["down"]))
     kv_cache_write(cache, new_kv, write_pos)
-    return rms_norm(params["final_ln"], x, cfg.rms_norm_eps), attn
+    if x.device.type == "cuda":
+        count("t3.glue_fused_layers", len(layers))
+    return add_rms_norm(x, r, params["final_ln"]["scale"], eps)[1], attn
 
 
 def kv_cache_write(cache, new_kv, write_pos):

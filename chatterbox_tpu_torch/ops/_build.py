@@ -18,7 +18,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("flash_decode", "flash_attention_sm90", "probes", "ssm_decode")
+SOURCES = ("flash_decode", "flash_attention_sm90", "probes", "ssm_decode", "decode_glue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -18,7 +18,8 @@ Phases (any failure exits non-zero before the last line):
      Granite cell's shapes, ``granite_kernel_checks``: the Mamba-2 update
      on 128 rows x 64 heads x 64 x 128 over 4 consecutive steps, and K1a
      with 4 query heads a KV head, scale 1/64, on 128 rows x 8 KV heads at
-     S = 384), holds each
+     S = 384; the Llama decode step's three glue kernels at cell A's 128
+     rows, ``glue_kernel_checks``), holds each
      against its plain PyTorch version on the same inputs (the limits are
      stated at ``OUT_RTOL``) and times the kernel, the plain version and,
      as a yardstick only, one PyTorch library call for the same function,
@@ -100,7 +101,9 @@ Phases (any failure exits non-zero before the last line):
      K1 must launch once a layer a decode step (A: 10 x 249, B: 10 x 999,
      I: 30 x 999; C: 9 x 249 K1a and 249 K1b; H: 2 x 10 x 249; J: 10 x 999
      K1c+d; K: 10 x 249), K2b once at the prefill and once a decode step,
-     merging where the step's slot closes a tail of 8 (I: 1000);
+     merging where the step's slot closes a tail of 8 (I: 1000); on paths
+     A-G, O1 and both ranks of O2 the glue kernels once a layer a decode
+     step (the norm twice, and once more a step), on path R never;
      after the first call of paths A, D and F (``WARM_PATHS``) a second,
      warm call is timed (audio seconds per second, per stage), and on paths
      A and F (bf16 and int8 weights) a third profiled (device time by
@@ -153,7 +156,8 @@ Phases (any failure exits non-zero before the last line):
      model, path A's call bit for bit; O2, two processes on the card over
      ``gloo`` (``chip_smoke.py --mesh-worker``), T3 at full width split 8
      heads a rank on a (1, 2) mesh, 4 layers, fp32, greedy, 50 tokens,
-     against the world of one (K1a and K2 on each rank's heads); O3,
+     against the world of one (K1a, K2 and the glue kernels on each
+     rank's heads, in fp32); O3,
      ``dryrun_multichip(1)``; O4, ``from_random(synthetic=True)`` at full
      width against the CPU's ``synthetic_like`` on three leaves, and the
      native library (its build must succeed: the machine has g++);
@@ -964,6 +968,114 @@ def granite_kernel_checks(rows):
     torch.cuda.empty_cache()
 
 
+# the glue kernels of T3's Llama decode step at cell A's shapes: 128 CFG
+# rows of hidden 1024, 16 heads of 64, FFN 4096
+GLUE_ROWS, T3_HIDDEN, T3_FFN = 128, 1024, 4096
+_GLUE = ("add_rms_norm", "rope_split_kv", "silu_mul")
+
+
+def glue_launches(layers, steps):
+    """{glue kernel: launches} of ``steps`` decode steps of a Llama T3 of
+    ``layers`` layers, whatever its dtype, cache, watchdog or weights: each
+    kernel once a layer a step, the norm twice and once more at the end."""
+    return {"add_rms_norm": (2 * layers + 1) * steps, "rope_split_kv": layers * steps,
+            "silu_mul": layers * steps}
+
+
+def glue_kernel_checks(rows):
+    """The decode step's three glue kernels (``ops/decode_glue.py``) at cell
+    A's shapes, each against its plain version (the residual add, rope with
+    the K/V split, and silu_mul bit for bit; the norm within the bf16 limit,
+    its differing elements counted), each timed over T3_LAYERS layers'
+    inputs against its plain version and its bound; the norm also beside
+    ``F.rms_norm`` (the norm alone, no residual add) as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from chatterbox_tpu_torch.models.t3.llama import LlamaConfig, rope_cos_sin
+    from chatterbox_tpu_torch.ops import decode_glue as dg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf, n, c, f, h, d = torch.bfloat16, GLUE_ROWS, T3_HIDDEN, T3_FFN, T3_HEADS, HEAD_DIM
+    eps = 1e-5
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    # ---- add_rms_norm: a layer's first norm (no residual), a norm after a
+    # projection, the final norm
+    xs = [randn(n, 1, c, scale=4.0) for _ in range(T3_LAYERS)]
+    rs = [randn(n, 1, c) for _ in range(T3_LAYERS)]
+    scales = [randn(c) + 1 for _ in range(T3_LAYERS)]
+    checks, n_diff = [], 0
+    for case, r in (("layer0", None), ("residual", rs[0].clone()), ("final", rs[1].clone())):
+        want_h, want_y = dg.add_rms_norm_plain(xs[0], r, scales[0], eps)
+        want_h = want_h.clone()
+        got_h, got_y = dg.add_rms_norm(xs[0], r, scales[0], eps)
+        check_kernel(f"add_rms_norm ({case}: h)", got_h, want_h, exact=True)
+        checks.append(check_kernel(f"add_rms_norm ({case}: y)", got_y, want_y))
+        n_diff += int((got_y != want_y).sum())
+    print(f"kernel add_rms_norm: {n_diff} of {3 * n * c} normed values differ from the plain "
+          "version's (its mean is an fp32 sum in another order)", flush=True)
+    err, tol, share = max(x[0] for x in checks), checks[0][1], max(x[2] for x in checks)
+    lib_err = library_err("add_rms_norm (F.rms_norm, the norm alone)",
+                          F.rms_norm(xs[0], (c,), scales[0], eps),
+                          dg.add_rms_norm_plain(xs[0], None, scales[0], eps)[1])
+    rows["add_rms_norm"] = dict(
+        err=err, tol=tol, share=share, library_err=lib_err,
+        # each timed launch adds into the next layer's r
+        ms=timed(rotating(lambda i: dg.add_rms_norm(xs[i], rs[i], scales[i], eps), T3_LAYERS),
+                 300),
+        plain_ms=timed(rotating(lambda i: dg.add_rms_norm_plain(xs[i], rs[i], scales[i], eps),
+                                T3_LAYERS), 60),
+        library_ms=timed(rotating(lambda i: F.rms_norm(xs[i], (c,), scales[i], eps),
+                                  T3_LAYERS), 300),
+        library_note="F.rms_norm: the norm alone, without the residual add",
+        bound=bound(4 * n * c * 2 + c * 2, 5 * n * c),
+        extra={"rows": n, "width": c, "differing_values": n_diff},
+    )
+    del xs, rs
+
+    # ---- rope_split_kv: the fused qkv product's views, the step's K/V
+    qkvs = [randn(n, 1, 3 * h * d, scale=3.0) for _ in range(T3_LAYERS)]
+    views = [q.split([h * d] * 3, dim=-1) for q in qkvs]
+    pos = torch.randint(40, 400, (n, 1), generator=g, device=dev)
+    cos, sin = rope_cos_sin(LlamaConfig(), pos)
+    new_kv = torch.zeros((T3_LAYERS, 2, n, h, d), dtype=bf, device=dev)
+    want_kv = new_kv.clone()
+    want_q = dg.rope_split_kv_plain(*views[0], cos, sin, want_kv, 0)
+    got_q = dg.rope_split_kv(*views[0], cos, sin, new_kv, 0)
+    err, tol, share = check_kernel("rope_split_kv (q)", got_q, want_q, exact=True)
+    check_kernel("rope_split_kv (k, v)", new_kv, want_kv, exact=True)
+    rows["rope_split_kv"] = dict(
+        err=err, tol=tol, share=share, library_err=None,
+        ms=timed(rotating(lambda i: dg.rope_split_kv(*views[i], cos, sin, new_kv, i), T3_LAYERS),
+                 300),
+        plain_ms=timed(rotating(lambda i: dg.rope_split_kv_plain(*views[i], cos, sin, new_kv, i),
+                                T3_LAYERS), 60),
+        library_ms=None, library_note="no PyTorch call applies rope",
+        bound=bound(2 * 3 * n * h * d * 2 + 2 * n * d * 4, 6 * 2 * n * h * d),
+        extra={"rows": n, "heads": h},
+    )
+    del qkvs, views, new_kv, want_kv
+
+    # ---- silu_mul: the gate_up product (N, 2F)
+    gus = [randn(n, 1, 2 * f, scale=2.0) for _ in range(T3_LAYERS)]
+    err, tol, share = check_kernel("silu_mul", dg.silu_mul(gus[0]), dg.silu_mul_plain(gus[0]),
+                                   exact=True)
+    rows["silu_mul"] = dict(
+        err=err, tol=tol, share=share, library_err=None,
+        ms=timed(rotating(lambda i: dg.silu_mul(gus[i]), T3_LAYERS), 300),
+        plain_ms=timed(rotating(lambda i: dg.silu_mul_plain(gus[i]), T3_LAYERS), 60),
+        library_ms=None, library_note="no single PyTorch call: F.silu and a multiply",
+        bound=bound(3 * n * f * 2, 5 * n * f),
+        extra={"rows": n, "ffn": f},
+    )
+    del gus
+    torch.cuda.empty_cache()
+
+
 def _share(got, want, limit):
     """The worst element's share of its limit (0 where both are 0)."""
     import torch
@@ -1255,6 +1367,9 @@ KERNEL_INFO = {
         "chatterbox_tpu_torch/csrc/ssm_decode.cu",
         "none: the JAX package has no Mamba layer (the Granite 4.0-H backbone's decode step)",
     ),
+    **{name: ("chatterbox_tpu_torch/csrc/decode_glue.cu",
+              "none: the Llama decode step's glue, which XLA fuses on the TPU "
+              "(chatterbox_tpu/models/t3/llama.py)") for name in _GLUE},
     "P1": ("chatterbox_tpu_torch/csrc/probes.cu",
            "scripts/probe_boundary.py:120 (_noop, :114-122)"),
     "P2": ("chatterbox_tpu_torch/csrc/probes.cu",
@@ -2764,6 +2879,7 @@ def main_path(card, ref_path, work_dir):
         # (the int8 weights) only, for the run's time limit
         counts[name], tokens[name], lens[name] = run_path(tts, c, card, name,
                                                           name in PROFILED_PATHS, exact)
+        check_launches(name, counts[name], _GLUE, (), glue_launches(TTS_T3_LAYERS, steps))
         print(f"path {name}: {time.time() - t0:.1f} s", flush=True)
     # G changes only the flow: its T3 tokens and wav lengths are F's
     f, g = WQUANT_PATHS
@@ -2813,7 +2929,7 @@ def granite_path(card, conds):
     check_wavs("R", wavs, N_TEXTS)
     steps = MAX_NEW - 1  # decode steps: random weights never stop every row early
     check_launches("R", counts, (_K1A, _K2, _K3, _K4, "ssm_decode_update"),
-                   (_K1B, _K1C, _K2B, _K5),
+                   (_K1B, _K1C, _K2B, _K5) + _GLUE,
                    {"ssm_decode_update": n_m * steps, _K1A: n_a * steps})
 
     def counted(name):
@@ -2832,6 +2948,8 @@ def granite_path(card, conds):
         fail(f"path R: {graphed} of {len(step_spans)} steps replayed, not all but the first")
     if counted("t3.ssm_layers") != n_m:
         fail(f"path R: t3.ssm_layers {counted('t3.ssm_layers')}, not {n_m}")
+    if counted("t3.glue_fused_layers"):  # the Llama step's glue kernels only
+        fail(f"path R: t3.glue_fused_layers {counted('t3.glue_fused_layers')}, not 0")
     del tts
     torch.cuda.empty_cache()
     return counts
@@ -3899,7 +4017,8 @@ def mesh_path(card):
           width (8 heads a rank), ``O2_LAYERS`` layers, fp32, TF32 off,
           greedy, 8 texts, ``O2_MAX_NEW`` tokens: the tokens equal the
           world-of-one call's (a differing row passes only at a near-tie,
-          ``O2_GAP``), each process launching K1a and K2 on its heads;
+          ``O2_GAP``), each process launching K1a, K2 and the decode
+          step's glue kernels on its heads;
       O3. ``dryrun_multichip(1)`` on the card;
       O4. ``from_random(synthetic=True)`` at full width: the seconds, every
           leaf finite, the share of three leaves' elements equal to the
@@ -3940,8 +4059,9 @@ def mesh_path(card):
     counts = launch_counts()
     print("path O1: kernel launches " + json.dumps(counts), flush=True)
     check_wavs("O1", wavs, N_TEXTS)
-    check_launches("O1", counts, launched, not_launched,
-                   {_K1A: TTS_T3_LAYERS * (MAX_NEW - 1)})
+    check_launches("O1", counts, launched + _GLUE, not_launched,
+                   {_K1A: TTS_T3_LAYERS * (MAX_NEW - 1),
+                    **glue_launches(TTS_T3_LAYERS, MAX_NEW - 1)})
     tokens_a, first_wavs = FIRST_CALLS["A"]
     same_tokens = all(np.array_equal(a, b) for a, b in zip(tts.last_speech_tokens, tokens_a))
     same_wavs = all(np.array_equal(a, b) for a, b in zip(wavs, wavs_a))
@@ -3979,8 +4099,10 @@ def mesh_path(card):
         c = out["counts"]
         print(f"path O2: rank {r}: {out['heads']} heads, {O2_MAX_NEW} tokens in "
               f"{out['seconds']:.3f} s; launches " + json.dumps(c), flush=True)
-        check_launches(f"O2 rank {r}", c, (_K1A, _K2), (_K1B, _K1C, _K2B, _K3, _K4, _K5),
-                       {_K1A: O2_LAYERS * (O2_MAX_NEW - 1), _K2: O2_MAX_NEW - 1})
+        check_launches(f"O2 rank {r}", c, (_K1A, _K2) + _GLUE,
+                       (_K1B, _K1C, _K2B, _K3, _K4, _K5),
+                       {_K1A: O2_LAYERS * (O2_MAX_NEW - 1), _K2: O2_MAX_NEW - 1,
+                        **glue_launches(O2_LAYERS, O2_MAX_NEW - 1)})
         if not torch.equal(out["tokens"], outs[0]["tokens"]):
             fail("path O2: the ranks' tokens differ")
     got = outs[0]["tokens"]
@@ -4117,6 +4239,7 @@ def main():
         t0 = time.time()
         rows = kernel_phase()
         granite_kernel_checks(rows)
+        glue_kernel_checks(rows)
         merge_tick_checks(rows, tick_kernel_checks())
         rows.update(probe_kernel_phase())
         t1 = time.time()

@@ -302,7 +302,9 @@ def test_graphed_loop_equals_the_eager_loop(cuda, case):
     """Tokens, lengths, the step count, the cache (the int8 values, scales
     and tail) and the kernels' launch counts of the graphed loop equal the
     eager loop's bit for bit; every step but the first replays the graphs,
-    and a replayed ``t3.step`` holds no host sync."""
+    and a replayed ``t3.step`` holds no host sync. Both loops run the fused
+    step (bf16, head dim 64): its glue kernels launch, and the eager step
+    and the capture each count every layer as fused."""
     kv, cfg_w, draw, chunk, min_new, tmax = CASES[case]
     p = _t3(cuda, torch.bfloat16)
     ins = _inputs(cuda, tmax)
@@ -330,6 +332,12 @@ def test_graphed_loop_equals_the_eager_loop(cuda, case):
     assert g_launch == e_launch
     assert g_launch["flash_decode_layer_attention_int8" if quant
                     else "flash_decode_layer_attention"] > 0
+    n = T3.llama.num_hidden_layers
+    forwards = g_launch["rope_split_kv"] // n
+    assert forwards > 0 and g_launch["rope_split_kv"] == g_launch["silu_mul"] == n * forwards
+    assert g_launch["add_rms_norm"] == (2 * n + 1) * forwards
+    fused = [s.counts.get("t3.glue_fused_layers") for s in rec.spans if s.name == "t3.forward"]
+    assert fused and all(c == n for c in fused)
     steps = [s for s in rec.spans if s.name == "t3.step"]
     graphed = [s for s in steps if s.counts.get("t3.graph_steps")]
     eager = [s for s in steps if s.counts.get("t3.eager_steps")]

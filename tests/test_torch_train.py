@@ -43,6 +43,7 @@ from chatterbox_tpu_torch.models.s3gen import conformer as p_conformer
 from chatterbox_tpu_torch.models.s3gen import unet as p_unet
 from chatterbox_tpu_torch.models.t3 import llama as p_llama
 from chatterbox_tpu_torch.models.t3 import t3 as p_t3
+from chatterbox_tpu_torch.ops import decode_glue as dg
 from chatterbox_tpu_torch.ops import flash_attention as fa
 from chatterbox_tpu_torch.ops import flash_decode as fd
 from chatterbox_tpu_torch.ops import probes as pr
@@ -415,6 +416,13 @@ def _wrapper_calls():
         "ssm_decode_update": (sd.ssm_decode_update, lambda grad: (
             r(1, 2, 16, 3), r(1, 2, 2, 4, 4), 0, r(2, 26, grad=grad), r(16, 4), r(16), r(2),
             -r(2).abs(), r(2))),
+        "add_rms_norm": (dg.add_rms_norm, lambda grad: (r(2, 1, 16), r(2, 1, 16, grad=grad),
+                                                         r(16), 1e-5)),
+        # 2 query heads and 1 KV head of 64; the step's K/V (L, 2, B, Hkv, D)
+        "rope_split_kv": (dg.rope_split_kv, lambda grad: (
+            r(2, 1, 128, grad=grad), r(2, 1, 64), r(2, 1, 64), r(2, 1, 64), r(2, 1, 64),
+            r(1, 2, 2, 1, 64), 0)),
+        "silu_mul": (dg.silu_mul, lambda grad: (r(2, 1, 32, grad=grad),)),
     }
 
 
